@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--vocab-log2 26]
+    python3 chip_smoke.py
 
 Phases, each printing its lines; any failure exits nonzero:
 
   1. the card (nvidia-smi name and power limit), torch, capability (9, 0);
   2. the build of the hand-written kernels from ``kernels/csrc`` (nvcc);
   3. every kernel against its plain PyTorch version on the card, on the
-     reference's own test cells and at the full-DIN shapes of the serving
-     path, with kernel / plain / library times and the roofline bound;
-  4. the DIN model at the published widths (vocab cut to 2**16 for this
-     phase only): serve_scores and score_candidates on the card through
+     reference's own test cells and at the shapes of the serving path,
+     with kernel / plain / library times and the roofline bound;
+  4. DIN, DIEN, MIND and two-tower at their published widths (every table
+     cut to 2**16 rows for this phase only): each model's serve_scores and
+     its ranking call (score_candidates / retrieve) on the card through
      the kernels, against the same weights on the CPU through the plain
      versions;
-  5. the DIN re-rank service at the published widths
-     (InferenceService on ``cuda``; ``--vocab-log2`` cuts the user_id and
-     item_id tables of this phase only): two waves of 64 requests on the
-     AsyncExecutor, every answer checked, and the launch count of every
-     kernel checked against the micro-batches and re-ranked requests;
-  6. the kernel table as one JSON line, the card line, and the result.
+  5. the DIN re-rank service (InferenceService on ``cuda``) at published
+     widths with user_id / item_id cut to 2**20 rows: two waves of 64
+     requests on the AsyncExecutor, every answer checked, and the launch
+     count of every kernel checked against the micro-batches and
+     re-ranked requests;
+  6. the multi-scenario service (MultiScenarioService on ``cuda``: DIN,
+     DIEN, MIND, two-tower) at published widths and vocabularies, with
+     two-tower's tables capped at 2**21 rows: two waves of 64 requests,
+     every scenario's answers checked, and the launch counts checked
+     against each scenario's stage stats;
+  7. the kernel table as one JSON line (launches from phase 6), the card
+     line, and the result.
 
 Needs a CUDA device; exits nonzero without one, and without the
 repository's ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -41,15 +47,17 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 
 TOL_F32 = 2e-5                    # tests/test_kernels.py, test_rerank_fused.py
-TOL_EDGE = 3e-5                   # tests/test_kernel_edge_parity.py
+TOL_EDGE = 3e-5                   # tests/test_kernel_edge_parity.py; augru
 TOL_BF16 = 2e-2                   # tests/test_kernels.py (bf16)
 # model phase: the card's kernels and the CPU's plain versions sum in
 # different orders (warp reductions, decomposed first layer, CPU BLAS
 # blocking); the reference's own parity tolerance covers that
 TOL_MODEL = 2e-5
 
-MAIN_VOCAB_LOG2 = 26              # published user_id / item_id rows (2**26)
-N_REQUESTS = 64                   # requests per wave of the service phase
+MAIN_VOCAB_LOG2 = 26              # published DIN user_id / item_id rows
+DIN_SERVICE_VOCAB_LOG2 = 20       # phase 5's user_id / item_id rows
+TOWERS_VOCAB_LOG2 = 21            # phase 6's cap on two-tower's tables
+N_REQUESTS = 64                   # requests per wave of the service phases
 
 KERNEL_META = {
     "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
@@ -58,6 +66,10 @@ KERNEL_META = {
                       "src/repro/kernels/din_attention/kernel.py:42"),
     "rerank_score": ("src/repro_torch/kernels/csrc/rerank_score.cu",
                      "src/repro/kernels/rerank_score/kernel.py:82"),
+    "augru": ("src/repro_torch/kernels/csrc/augru.cu",
+              "src/repro/kernels/augru/kernel.py:48"),
+    "candidate_scorer": ("src/repro_torch/kernels/csrc/candidate_scorer.cu",
+                         "src/repro/kernels/candidate_scorer/kernel.py:42"),
 }
 
 
@@ -263,8 +275,9 @@ def kernel_checks(results: dict):
         attn, mlp = towers(D, d_u, d_i, *dims, model_init)
         flat = [p[k] for p in attn + mlp for k in ("w", "b")]
         m = t(mask)
-        err = compare(label, rerank_score(hist, m, tgt, uo, io, attn, mlp),
-                      rerank_score_ref(hist, m, tgt, uo, io, *flat), tol)
+        err = None if tol is None else compare(
+            label, rerank_score(hist, m, tgt, uo, io, attn, mlp),
+            rerank_score_ref(hist, m, tgt, uo, io, *flat), tol)
         return (hist, m, tgt, uo, io, attn, mlp, flat), err
 
     small = (16, 16, 32, 32)
@@ -292,6 +305,28 @@ def kernel_checks(results: dict):
         shape="C=64 T=100 D=18 d_u=36 d_i=18 attn 80-40 mlp 200-80",
         **timings(lambda: rerank_score(hist, m, tgt, uo, io, attn, mlp),
                   lambda: rerank_score_ref(hist, m, tgt, uo, io, *flat)))
+    # the reference tests' 0.2-scaled weights at full DIN widths: a
+    # reading beside a float64 plain version on the card, not a gate (the
+    # model-init cells above are B1's gate)
+    for C in (16, 64):
+        (hist, m, tgt, uo, io, attn, mlp, flat), _ = rr_case(
+            C, 100, 18, 36, 18, full, rng.random(100) > 0.2, None,
+            f"full DIN C={C} T=100, weights x0.2")
+        f64 = [x.double() for x in (hist, m, tgt, uo, io, *flat)]
+        want64 = rerank_score_ref(*f64)
+        got = rerank_score(hist, m, tgt, uo, io, attn, mlp).double()
+        plain = rerank_score_ref(hist, m, tgt, uo, io, *flat).double()
+        scale = float(want64.abs().max())
+        print(f"  full DIN C={C} x0.2: kernel vs f32 plain "
+              f"{float((got - plain).abs().max()):.3e} (within rtol=atol="
+              f"{TOL_F32:g}: {bool(torch.allclose(got, plain, TOL_F32, TOL_F32))}"
+              f"), kernel vs f64 plain {float((got - want64).abs().max()):.3e}"
+              f", f32 plain vs f64 plain "
+              f"{float((plain - want64).abs().max()):.3e}, max |score| "
+              f"{scale:.3e}", flush=True)
+
+    augru_checks(results, rng, t)
+    candidate_scorer_checks(results, rng, t)
     for name, r in results.items():
         print(f"[3] {name} @ {r['shape']}: device time per call (CUDA graph "
               f"replay): kernel {r['ms']} ms, plain {r['plain_ms']} ms, "
@@ -299,82 +334,231 @@ def kernel_checks(results: dict):
               f"({r['bound_by']})", flush=True)
 
 
-# ------------------------------------------------------------------ phase 4
-
-def model_check():
-    import dataclasses
-
+def augru_checks(results: dict, rng, t):
+    """B4 against its plain version: the reference's sweep and edge cells
+    (3e-5), the zero-attention property, and DIEN's path shapes (B=16 for
+    a micro-batch, B=64 for a re-ranked request; T=100, Din=H=108)."""
     import numpy as np
     import torch
-    from repro_torch.configs.other_archs import DIN
+    from repro_torch.kernels.augru import augru, augru_ref
+
+    print("[3] augru vs plain", flush=True)
+
+    def case(B, T, Din, H, att, label, w_scale=0.3, u_scale=0.3, b_scale=0.1,
+             x=None):
+        args = (t(rng.normal(size=(B, T, Din)) if x is None else x), t(att),
+                t(rng.normal(size=(Din, 3 * H)) * w_scale),
+                t(rng.normal(size=(H, 3 * H)) * u_scale),
+                t(rng.normal(size=(3 * H,)) * b_scale))
+        out = augru(*args)
+        return args, out, compare(label, out, augru_ref(*args), TOL_EDGE)
+
+    for B, T, Din, H in [(8, 8, 8, 8), (16, 100, 18, 108), (4, 25, 12, 20)]:
+        case(B, T, Din, H, rng.random((B, T)), f"B={B} T={T} Din={Din} H={H}")
+    for B, T in [(1, 1), (1, 7), (4, 1)]:
+        case(B, T, 6, 10, rng.random((B, T)), f"edge B={B} T={T}")
+    _, out, _ = case(4, 12, 8, 8, np.zeros((4, 12)), "zero attention",
+                     w_scale=1.0, u_scale=1.0, b_scale=0.0)
+    check(float(out.abs().max()) <= 1e-7, "zero attention moved the state")
+    # the path: GRU states in (-1, 1), softmax attention over a history
+    # with a padded tail, the model's 1/sqrt(fan-in) weights
+    path = {}
+    for B in (16, 64):
+        T, H = 100, 108
+        att = np.exp(rng.normal(size=(B, T)))
+        att[:, 80:] = 0.0
+        att /= att.sum(-1, keepdims=True)
+        path[B] = case(B, T, H, H, att, f"DIEN path B={B} T={T} Din=H={H}",
+                       w_scale=1 / np.sqrt(H), u_scale=1 / np.sqrt(H),
+                       b_scale=0.0, x=np.tanh(rng.normal(size=(B, T, H))))
+    for B in (16, 64):
+        args, _out, err = path[B]
+        T, H = 100, 108
+        nbytes = 4 * (B * T * H + B * T + 2 * H * 3 * H + 3 * H + B * H)
+        flops = 2 * B * T * H * 3 * H + B * T * (2 * H * 3 * H + 12 * H)
+        bms, by = bound_ms(nbytes, flops)
+        r = dict(max_abs_err=err, bound_ms=bms, bound_by=by,
+                 shape=f"B={B} T=100 Din=H=108",
+                 **timings(lambda: augru(*args), lambda: augru_ref(*args)))
+        # the re-rank (B=C=64) is the path's most frequent launch
+        results["augru" if B == 64 else "augru@B=16"] = r
+        torch.cuda.empty_cache()
+
+
+def candidate_scorer_checks(results: dict, rng, t):
+    """B5 against its plain version: the reference's sweep cells in f32
+    (2e-5 and equal index sets) and bf16 (2e-2), its edge cells, the
+    two-tower service shape (C=64, D=256, k=C) and the recall shape
+    (C=10^6, D=256, k=8)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.candidate_scorer import (candidate_scorer,
+                                                      candidate_scorer_ref)
+
+    print("[3] candidate_scorer vs plain", flush=True)
+
+    def case(cands, q, k, label, dtype=torch.float32):
+        c, qq = t(cands, dtype), t(q, dtype)
+        v, i = candidate_scorer(c, qq, k)
+        rv, ri = candidate_scorer_ref(c, qq, k)
+        bf16 = dtype == torch.bfloat16
+        err = compare(label, v, rv, TOL_BF16 if bf16 else TOL_F32)
+        check(bool((v[:-1] >= v[1:]).all()), f"{label}: not best first")
+        if not bf16:                   # bf16 near-ties may permute indices
+            check(set(i.tolist()) == set(ri.tolist()),
+                  f"{label}: index sets differ")
+        return c, qq, err
+
+    for C, D, k in [(4096, 64, 8), (1000, 16, 4), (300, 256, 8)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            case(rng.normal(size=(C, D)), rng.normal(size=(D,)), k,
+                 f"C={C} D={D} k={k} {str(dtype)[6:]}", dtype)
+    for C, k in [(64, 1), (17, 4), (128, 128)]:
+        case(rng.normal(size=(C, 16)), rng.normal(size=(16,)), k,
+             f"edge C={C} k={k}")
+
+    def unit(a):
+        return a / np.linalg.norm(a, axis=-1, keepdims=True)
+
+    for C, k, key in ((64, 64, "candidate_scorer"),
+                      (1_000_000, 8, "candidate_scorer@C=1e6")):
+        D = 256
+        c, qq, err = case(unit(rng.normal(size=(C, D))),
+                          unit(rng.normal(size=(D,))), k,
+                          f"{'service' if C == 64 else 'recall'} C={C} "
+                          f"D={D} k={k}")
+        nbytes = 4 * (C * D + D) + 12 * k
+        bms, by = bound_ms(nbytes, 2 * C * D)
+        results[key] = dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            shape=f"C={C} D={D} k={k}",
+            **timings(lambda: candidate_scorer(c, qq, k),
+                      lambda: candidate_scorer_ref(c, qq, k),
+                      lambda: torch.topk(torch.mv(c, qq), k)))
+        del c
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 4
+
+def _to(tree, dev):
+    """A tree of dicts / lists of tensors (or numpy ids) on ``dev``; ids as
+    int64."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    t = torch.as_tensor(tree)
+    return (t if t.is_floating_point() else t.long()).to(dev)
+
+
+def _vocab(cfg, rows):
+    """``cfg`` with every table cut to at most ``rows`` rows."""
+    import dataclasses
+
+    def cut(f):
+        return dataclasses.replace(f, vocab=min(f.vocab, rows))
+    return dataclasses.replace(cfg, user_fields=tuple(map(cut, cfg.user_fields)),
+                               item_fields=tuple(map(cut, cfg.item_fields)))
+
+
+def model_check():
+    """Each recsys model at its published widths (every table cut to 2^16
+    rows for this phase only): the card through the kernels against the
+    same weights on the CPU through the plain versions."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.other_archs import DIEN, DIN, MIND, TWO_TOWER
     from repro_torch.data import synthetic
-    from repro_torch.models.recsys import din
+    from repro_torch.models.recsys import dien, din, mind, towers
     from repro_torch.serve.bucketing import (ShapeBucketer, compact_history,
                                              step_buckets)
 
-    cfg = dataclasses.replace(
-        DIN, user_fields=tuple(dataclasses.replace(f, vocab=1 << 16)
-                               for f in DIN.user_fields),
-        item_fields=tuple(dataclasses.replace(f, vocab=1 << 16)
-                          for f in DIN.item_fields))
-    print("[4] DIN at published widths (D=18, T=100, attn 80-40, mlp "
-          "200-80), vocab 2^16: card (kernels) vs CPU (plain versions), "
-          f"tol {TOL_MODEL:g}", flush=True)
-    params_cpu = din.init(torch.Generator().manual_seed(0), cfg, device="cpu")
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
-
-    params_gpu = to(params_cpu, "cuda")
     rng = np.random.default_rng(0)
-    raw = synthetic.recsys_batch(rng, cfg, 16)
-
-    def batch_on(dev, x=raw):                    # ids as int64 tensors
-        if isinstance(x, dict):
-            return {k: batch_on(dev, v) for k, v in x.items()}
-        t = torch.as_tensor(x)
-        return (t if t.is_floating_point() else t.long()).to(dev)
-
-    b_cpu, b_gpu = batch_on("cpu"), batch_on("cuda")
-    s_gpu = din.serve_scores(params_gpu, b_gpu, cfg).cpu()
-    s_cpu = din.serve_scores(params_cpu, b_cpu, cfg)
-    compare("serve_scores B=16", s_gpu, s_cpu, TOL_MODEL)
-
     C = 64
-    hist = np.full(cfg.seq_len, -1, np.int64)
-    hist[:80] = rng.integers(0, cfg.item_fields[0].vocab, 80)
-    hist = compact_history(hist, ShapeBucketer(step_buckets(cfg.seq_len)))
-    fields = {f.name: rng.integers(0, f.vocab, (1,) if f.bag == 1 else (1, f.bag))
-              for f in cfg.user_fields}
-    cand = {"item_id": rng.integers(0, cfg.item_fields[0].vocab, C),
-            "item_cat": rng.integers(0, cfg.item_fields[1].vocab, C)}
+    models = (
+        (din, DIN, "D=18, T=100, attn 80-40, mlp 200-80", "score_candidates"),
+        (dien, DIEN, "D=18, T=100, GRU/AUGRU 108, mlp 200-80",
+         "score_candidates"),
+        (mind, MIND, "D=64, K=4, 3 routing iterations, T=50, mlp 256-64",
+         "retrieve"),
+        (towers, TWO_TOWER, "D=256, towers 1024-512-256", "retrieve"))
+    for mod, published, widths, rank_fn in models:
+        cfg = _vocab(published, 1 << 16)
+        name = cfg.name
+        print(f"[4] {name} at published widths ({widths}), vocab 2^16: card "
+              f"(kernels) vs CPU (plain versions), tol {TOL_MODEL:g}",
+              flush=True)
+        params_cpu = mod.init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+        params_gpu = _to(params_cpu, "cuda")
+        raw = synthetic.recsys_batch(rng, cfg, 16)
+        compare(f"{name} serve_scores B=16",
+                mod.serve_scores(params_gpu, _to(raw, "cuda"), cfg).cpu(),
+                mod.serve_scores(params_cpu, _to(raw, "cpu"), cfg), TOL_MODEL)
 
-    def dense(params, dev, path):
-        user = {"hist": torch.as_tensor(hist)[None].to(dev),
-                "fields": {k: torch.as_tensor(v).to(dev) for k, v in fields.items()}}
-        cids = {k: torch.as_tensor(v).to(dev) for k, v in cand.items()}
-        v, i = din.score_candidates(params, user, cids, cfg, top_k=C, path=path)
-        out = torch.empty(C)
-        out[i.cpu()] = v.cpu()
-        return out
+        user = {"fields": {f.name: rng.integers(0, f.vocab, (1,) if f.bag == 1
+                                                else (1, f.bag))
+                           for f in cfg.user_fields}}
+        if cfg.seq_len:
+            hist = np.full(cfg.seq_len, -1, np.int64)
+            n = cfg.seq_len * 4 // 5
+            hist[:n] = rng.integers(0, cfg.item_fields[0].vocab, n)
+            user["hist"] = compact_history(
+                hist, ShapeBucketer(step_buckets(cfg.seq_len)))[None]
+        cand = {f.name: rng.integers(0, f.vocab, (C,) if f.bag == 1
+                                     else (C, f.bag))
+                for f in cfg.item_fields}
+        # distinct candidates, so the ranking is strict
+        cand["item_id"] = rng.permutation(cfg.item_fields[0].vocab)[:C]
 
-    fused_gpu = dense(params_gpu, "cuda", "fused")
-    compare("score_candidates fused C=64 card vs CPU", fused_gpu,
-            dense(params_cpu, "cpu", "fused"), TOL_MODEL)
-    compare("score_candidates fused vs broadcast (jnp) path, both on card",
-            fused_gpu, dense(params_gpu, "cuda", "jnp"), TOL_MODEL)
-    del params_gpu
-    torch.cuda.empty_cache()
+        def dense(params, dev, **kw):
+            u = _to(user, dev)
+            if cfg.model == "two_tower":        # the bare user-fields dict
+                u = u["fields"]
+            v, i = getattr(mod, rank_fn)(params, u, _to(cand, dev), cfg,
+                                         top_k=C, **kw)
+            out = torch.empty(C)
+            out[i.cpu()] = v.cpu().float()
+            return out
+
+        got = dense(params_gpu, "cuda")
+        compare(f"{name} {rank_fn} C={C} card vs CPU", got,
+                dense(params_cpu, "cpu"), TOL_MODEL)
+        if mod is din:
+            compare("din score_candidates fused vs broadcast (jnp) path, "
+                    "both on card", got, dense(params_gpu, "cuda", path="jnp"),
+                    TOL_MODEL)
+        del params_gpu
+        torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------------------ phase 5
+# ---------------------------------------------------------- phases 5 and 6
 
-def service_run(vocab_log2: int) -> dict:
-    import dataclasses
+def _span(rep):
+    """The served span of a wave: first request in to last answer out (the
+    executor's makespan adds its 0.2 s drain poll)."""
+    return (max(ev.done_at for ev in rep.results)
+            - min(ev.born_at for ev in rep.results))
+
+
+def _stat(rep, stage, attr):
+    """A stage's stat in a report (0 when the stage saw no event)."""
+    st = rep.stage_stats.get(stage)
+    return 0 if st is None else getattr(st, attr)
+
+
+def _stage_line(rep):
+    return ", ".join(f"{name} {st.busy_s:.6f}"
+                     for name, st in rep.stage_stats.items())
+
+
+def service_run() -> dict:
+    """Phase 5: the DIN re-rank InferenceService at published widths,
+    user_id / item_id cut to 2^20 rows (DIN runs at its full 2^26 rows in
+    phase 6). Returns this phase's launch counts."""
+    import gc
 
     import numpy as np
     import torch
@@ -383,26 +567,15 @@ def service_run(vocab_log2: int) -> dict:
     from repro_torch.core.executors import AsyncExecutor
     from repro_torch.core.service import InferenceService, ServiceConfig
 
-    def cut(f):
-        big = f.name in ("user_id", "item_id") and f.vocab > (1 << vocab_log2)
-        return dataclasses.replace(f, vocab=1 << vocab_log2) if big else f
-
-    cfg = dataclasses.replace(DIN, user_fields=tuple(map(cut, DIN.user_fields)),
-                              item_fields=tuple(map(cut, DIN.item_fields)))
+    cfg = _vocab(DIN, 1 << DIN_SERVICE_VOCAB_LOG2)
     vocab = {f.name: f.vocab for f in cfg.user_fields + cfg.item_fields}
-    print(f"[5] service: DIN at published widths, tables {vocab}"
-          + ("" if vocab_log2 >= MAIN_VOCAB_LOG2 else
-             f" (user_id/item_id vocab cut from 2^{MAIN_VOCAB_LOG2} to "
-             f"2^{vocab_log2})"),
-          flush=True)
-    torch.cuda.reset_peak_memory_stats()
+    print(f"[5] service: DIN at published widths, tables {vocab} (user_id/"
+          f"item_id cut from 2^26 to 2^{DIN_SERVICE_VOCAB_LOG2})", flush=True)
     t0 = time.perf_counter()
     svc = InferenceService(ServiceConfig(arch_id="din", batch_size=16),
                            device="cuda", model_cfg=cfg)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    print(f"[5] service build (cube load + model init + pruning-DNN fit): "
-          f"{build_s} s", flush=True)
+    print(f"[5] service build: {time.perf_counter() - t0} s", flush=True)
     check(svc.device.type == "cuda", "service did not land on the card")
 
     waves = []
@@ -412,54 +585,159 @@ def service_run(vocab_log2: int) -> dict:
         waves.append(AsyncExecutor(svc.plan).run(reqs))
     counts = K.launch_counts()
 
-    lat, batches, reranked, cached = [], 0, 0, 0
+    batches, reranked = 0, 0
     for wave, rep in enumerate(waves):
         check(rep.errors == 0, f"wave {wave}: {rep.errors} stage errors")
         check(rep.completed == N_REQUESTS and len(rep.results) == N_REQUESTS,
               f"wave {wave}: {rep.completed}/{N_REQUESTS} answered")
         for ev in rep.results:
-            r = ev.meta.get("response")
-            check(r is not None and not r.timed_out, "request not answered")
-            check(r.score is not None and math.isfinite(r.score)
-                  and 0.0 <= r.score <= 1.0, f"bad score {r.score}")
-            if r.from_cache:
-                cached += 1
-            else:
-                check(bool(r.topk), f"request {r.req_id}: no topk")
-                check(all(math.isfinite(s) and 0.0 <= s <= 1.0
-                          for _i, s in r.topk), "bad topk score")
+            _check_rerank_answer(ev.meta.get("response"))
         st = rep.stage_stats["rerank"]
         batches += st.batches
         reranked += st.events
-        lat.extend(rep.latencies)
-        # the executor's makespan ends with its 0.2 s drain poll; the
-        # served span runs from the first request in to the last answer out
-        span = (max(ev.done_at for ev in rep.results)
-                - min(ev.born_at for ev in rep.results))
-        # wave 0 is the cold start: the host cube folds its lazily built
-        # signature index at the first probe of each table
         print(f"[5] wave {wave} ({'cold' if wave == 0 else 'warm'}): "
-              f"{rep.completed} answered (n={len(rep.latencies)} latencies), "
               f"p50 {rep.latency_percentile(0.5) * 1e3} ms, p99 "
-              f"{rep.latency_percentile(0.99) * 1e3} ms, served span {span} s "
-              f"= {rep.completed / span} req/s (makespan {rep.makespan_s} s), "
-              f"rerank micro-batches {st.batches}, re-ranked {st.events}",
+              f"{rep.latency_percentile(0.99) * 1e3} ms, served span "
+              f"{_span(rep)} s, rerank micro-batches {st.batches}, "
+              f"re-ranked {st.events}; stage busy s: {_stage_line(rep)}",
               flush=True)
-        print(f"[5] wave {wave} stage busy s: " + ", ".join(
-            f"{name} {s.busy_s:.6f}" for name, s in rep.stage_stats.items()),
-            flush=True)
-    expected = {"embedding_bag": 5 * batches + 4 * reranked,
-                "din_attention": batches, "rerank_score": reranked}
+    expected = dict.fromkeys(K.LAUNCHES, 0)
+    expected.update(embedding_bag=5 * batches + 4 * reranked,
+                    din_attention=batches, rerank_score=reranked)
     print(f"[5] launches {counts}, expected {expected} (per micro-batch 5 "
           f"embedding_bag + 1 din_attention; per re-ranked request 4 "
-          f"embedding_bag + 1 rerank_score); {cached} answers from the "
-          f"query cache", flush=True)
+          f"embedding_bag + 1 rerank_score)", flush=True)
+    check(all(counts[k] > 0 for k in ("embedding_bag", "din_attention",
+                                      "rerank_score")),
+          "a kernel of the DIN path was never launched")
+    check(counts == expected, "launch counts differ from the path's calls")
+    del svc, waves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _check_rerank_answer(r):
+    check(r is not None and not r.timed_out, "request not answered")
+    check(r.score is not None and math.isfinite(r.score)
+          and 0.0 <= r.score <= 1.0, f"bad score {r.score}")
+    if not r.from_cache:
+        check(bool(r.topk), f"request {r.req_id}: no topk")
+        check(all(math.isfinite(s) and 0.0 <= s <= 1.0 for _i, s in r.topk),
+              "bad topk score")
+
+
+def _check_retrieval_answer(r):
+    """A non-empty top-k whose raw scores (the answer carries their
+    sigmoid) are dot products of l2-normalised vectors: in [-1, 1]."""
+    check(r is not None and not r.timed_out, "request not answered")
+    check(bool(r.topk), f"request {r.req_id}: no topk")
+    for _i, s in r.topk:
+        check(math.isfinite(s) and 0.0 < s < 1.0, f"bad topk score {s}")
+        raw = math.log(s / (1.0 - s))
+        check(-1.0 - 1e-5 <= raw <= 1.0 + 1e-5,
+              f"retrieval score {raw} outside [-1, 1]")
+
+
+#: launches per micro-batch (serve_scores) and per ranked request
+#: (score_candidates / retrieve) of each scenario's model
+PER_BATCH = {"din-rerank": {"embedding_bag": 5, "din_attention": 1},
+             "dien-rerank": {"embedding_bag": 5, "augru": 1},
+             "mind-retrieval": {}, "towers-retrieval": {}}
+PER_REQUEST = {"din-rerank": {"embedding_bag": 4, "rerank_score": 1},
+               "dien-rerank": {"embedding_bag": 4, "augru": 1},
+               "mind-retrieval": {"embedding_bag": 1},
+               "towers-retrieval": {"embedding_bag": 4,
+                                    "candidate_scorer": 1}}
+
+
+def multi_service_run() -> dict:
+    """Phase 6: MultiScenarioService with DIN, DIEN, MIND and two-tower on
+    the card at published widths; DIN, DIEN and MIND at their published
+    2^26-row vocabularies, two-tower's tables capped at 2^21 rows. Returns
+    this phase's launch counts (the kernel table's)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs.other_archs import DIEN, DIN, MIND, TWO_TOWER
+    from repro_torch.core.executors import AsyncExecutor
+    from repro_torch.core.service import (MultiScenarioService,
+                                          MultiServiceConfig)
+
+    names = ("din-rerank", "dien-rerank", "mind-retrieval", "towers-retrieval")
+    towers_cfg = _vocab(TWO_TOWER, 1 << TOWERS_VOCAB_LOG2)
+    cut = {f.name: f"2^{int(math.log2(f.vocab))} -> 2^{TOWERS_VOCAB_LOG2}"
+           for f in TWO_TOWER.user_fields + TWO_TOWER.item_fields
+           if f.vocab > 1 << TOWERS_VOCAB_LOG2}
+    model_cfgs = dict(zip(names, (DIN, DIEN, MIND, towers_cfg)))
+    gib = {n: sum(f.vocab for f in c.user_fields + c.item_fields)
+           * c.embed_dim * 4 / 2**30 for n, c in model_cfgs.items()}
+    print(f"[6] multi-scenario service {names} at published widths; tables "
+          f"GiB {gib}; two-tower tables capped at 2^{TOWERS_VOCAB_LOG2} rows "
+          f"(published rows x 256 x 4 B is ~500 GiB): {cut}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = MultiScenarioService(MultiServiceConfig(scenarios=names),
+                               device="cuda", model_cfgs=model_cfgs)
+    torch.cuda.synchronize()
+    print(f"[6] service build (tables on the card, host cube, pruning-DNN "
+          f"fit): {time.perf_counter() - t0} s; cube groups "
+          f"{sorted(svc.substrate.groups)}", flush=True)
+    check(svc.device.type == "cuda", "service did not land on the card")
+
+    waves = []
+    K.reset_launches()                      # counts from here are the path's
+    for wave in range(2):
+        reqs = svc.make_requests(N_REQUESTS, seed=wave)
+        waves.append(AsyncExecutor(svc.plan).run(reqs))
+    counts = K.launch_counts()
+
+    expected = dict.fromkeys(K.LAUNCHES, 0)
+    for wave, rep in enumerate(waves):
+        # the gate withholds priority-1 clones once the quota falls below
+        # min_quota; the check below fails if it drops any
+        shed_clones = sum(len(ev.meta.get("tenants_shed", ()))
+                          for ev in rep.results)
+        print(f"[6] wave {wave} ({'cold' if wave == 0 else 'warm'}): "
+              f"served span {_span(rep)} s, clones shed by the fanout's "
+              f"quota gate: {shed_clones}", flush=True)
+        check(rep.errors == 0, f"wave {wave}: {rep.errors} stage errors")
+        by = svc.by_scenario(rep)
+        for name in names:
+            evs = by.get(name, [])
+            check(len(evs) == N_REQUESTS and len({ev.req_id for ev in evs})
+                  == N_REQUESTS,
+                  f"wave {wave}: {name} answered {len(evs)}/{N_REQUESTS}")
+            retrieval = name.endswith("retrieval")
+            for ev in evs:
+                r = ev.meta.get("response")
+                (_check_retrieval_answer if retrieval
+                 else _check_rerank_answer)(r)
+            term = svc.terminals[name]
+            batches = _stat(rep, term, "batches")
+            ranked = _stat(rep, term, "events")
+            for k, n in PER_BATCH[name].items():
+                expected[k] += n * batches
+            for k, n in PER_REQUEST[name].items():
+                expected[k] += n * ranked
+            lat = np.asarray([ev.done_at - ev.born_at for ev in evs])
+            busy = {st: _stat(rep, st, "busy_s")
+                    for st in svc.plan.stages if st.startswith(name + ".")}
+            launches = {k: n * batches for k, n in PER_BATCH[name].items()}
+            for k, n in PER_REQUEST[name].items():
+                launches[k] = launches.get(k, 0) + n * ranked
+            print(f"[6] wave {wave} {name}: p50 "
+                  f"{np.percentile(lat, 50) * 1e3} ms, p99 "
+                  f"{np.percentile(lat, 99) * 1e3} ms (n={lat.size}); "
+                  f"{term} batches {batches}, ranked {ranked}; launches "
+                  f"{launches}; stage busy s "
+                  + ", ".join(f"{k.split('.', 1)[1]} {v:.6f}"
+                              for k, v in busy.items()), flush=True)
+    print(f"[6] launches {counts}, expected from the stage stats {expected}",
+          flush=True)
     check(all(counts[k] > 0 for k in counts), "a kernel was never launched")
     check(counts == expected, "launch counts differ from the path's calls")
-    lat = np.sort(np.asarray(lat))
-    print(f"[5] both waves: p50 {np.percentile(lat, 50) * 1e3} ms, p99 "
-          f"{np.percentile(lat, 99) * 1e3} ms (n={lat.size}), "
-          f"max_memory_allocated "
+    print(f"[6] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30} GiB", flush=True)
     return counts
 
@@ -467,12 +745,6 @@ def service_run(vocab_log2: int) -> dict:
 # --------------------------------------------------------------------- main
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--vocab-log2", type=int, default=MAIN_VOCAB_LOG2,
-                    help="log2 of the user_id/item_id vocab in the service "
-                         "phase only (published: 26)")
-    args = ap.parse_args()
-
     import torch
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -506,11 +778,17 @@ def main() -> int:
     # the cube's memory-mapped blocks go to a directory removed on exit
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     tempfile.tempdir = tmp
+    t_run = time.perf_counter()
     try:
         results: dict = {}
         kernel_checks(results)
+        print(f"[3] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         model_check()
-        counts = service_run(args.vocab_log2)
+        print(f"[4] done at {time.perf_counter() - t_run:.1f} s", flush=True)
+        service_run()
+        print(f"[5] done at {time.perf_counter() - t_run:.1f} s", flush=True)
+        counts = multi_service_run()
+        print(f"[6] done at {time.perf_counter() - t_run:.1f} s", flush=True)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)

@@ -6,9 +6,11 @@ The dense DNN of each service is a DIN-family ranker; the sparse part
 (Table 1: 210-500 GB) lives in the parameter cube / sharded tables.
 
 This module is also the SCENARIO REGISTRY of the serving surface
-(DESIGN.md §7): each entry below is a declarative ScenarioSpec that the
-pipeline builder compiles on the shared substrate. Adding a scenario is
-one ``register_scenario`` call, not a fork of core/service.py.
+(DESIGN.md §7): each entry below is a declarative ScenarioSpec that
+``MultiScenarioService`` compiles into a pipeline on the shared substrate
+— the repro's analogue of the paper's twenty-plus production services
+behind one SEDP abstraction. Adding a scenario is one ``register_scenario``
+call, not a fork of core/service.py.
 """
 from repro_torch.core.service_model import SERVICES, ServiceSpec  # noqa: F401
 from repro_torch.serve.scenario import ScenarioSpec, register_scenario
@@ -20,8 +22,20 @@ from repro_torch.serve.scenario import ScenarioSpec, register_scenario
 DIN_RERANK = register_scenario(ScenarioSpec(
     name="din-rerank", arch_id="din", pipeline="rerank", priority=0,
     batch_size=16))
-# DIEN, MIND and two-tower scenarios register here once their models are
-# ported (ROADMAP A4); the multi-scenario default surface waits for them.
+DIEN_RERANK = register_scenario(ScenarioSpec(
+    name="dien-rerank", arch_id="dien", pipeline="rerank", priority=1,
+    batch_size=16))
+MIND_RETRIEVAL = register_scenario(ScenarioSpec(
+    name="mind-retrieval", arch_id="mind", pipeline="retrieval",
+    # retrieval responses are top-k lists, not (user, item) scores — the
+    # pointwise query cache does not apply
+    query_cache=False, priority=1, batch_size=8))
+TOWERS_RETRIEVAL = register_scenario(ScenarioSpec(
+    name="towers-retrieval", arch_id="two-tower-retrieval",
+    pipeline="retrieval", query_cache=False, priority=1, batch_size=8))
+
+#: The default multi-scenario serving surface (MultiScenarioService()).
+DEFAULT_SCENARIOS = ("din-rerank", "dien-rerank", "mind-retrieval")
 
 # Table 1 statistics (the paper's deployed services)
 TABLE_1 = {

@@ -1,14 +1,20 @@
-"""The deployable JiZHI service, composed from the scenario API.
+"""The deployable JiZHI services, composed from the scenario API.
 
-:class:`InferenceService` — the single-scenario surface (DESIGN.md §7):
-``InferenceService(cfg)`` builds one scenario from a
-:class:`ServiceConfig` with the historic stage names (ingress →
-query_cache → features → cube → shed → rerank → respond) and attribute
-layout. Its model runs on ``cuda`` unless the caller passes
-``device="cpu"``.
+Two surfaces (DESIGN.md §7):
 
-The multi-scenario composition (``MultiScenarioService``) waits for the
-DIEN and MIND ports (ROADMAP A4); snapshots and recovery wait for A5.
+  * :class:`MultiScenarioService` — the Model-as-a-Service composition:
+    N declaratively-registered scenarios (DIN re-rank, DIEN sequential
+    scoring, MIND/two-tower retrieval, ...) compiled into ONE SEDP DAG
+    behind the quota-aware multi-tenant fanout, all sharing one
+    cube / cube-cache / query-cache / streaming-update substrate.
+  * :class:`InferenceService` — the single-scenario surface:
+    ``InferenceService(cfg)`` builds one scenario from a
+    :class:`ServiceConfig` with the historic stage names (ingress →
+    query_cache → features → cube → shed → rerank → respond) and
+    attribute layout.
+
+Models run on ``cuda`` unless the caller passes ``device="cpu"``.
+Snapshots and recovery are not ported yet (ROADMAP A5).
 
 The stage logic itself lives in ``repro_torch.serve.stages`` (typed
 processors owning version pinning and cache-aside guards) and
@@ -18,13 +24,15 @@ build-time payload-contract checks).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 from repro_torch.core.executors import AsyncExecutor, SimExecutor
+from repro_torch.core.irm.shedding import QuotaController
+from repro_torch.core.multitenant import make_fanout_op
 from repro_torch.core.sedp import Event
 from repro_torch.serve.scenario import (PipelineBuilder, ScenarioSpec,
                                         ServingSubstrate,
-                                        SubstrateDeltaWatcher,
+                                        SubstrateDeltaWatcher, get_scenario,
                                         make_request_events)
 
 
@@ -84,6 +92,32 @@ class ServiceConfig:
             compact_after_blocks=self.compact_after_blocks,
             reverse_map_items=self.reverse_map_items, seed=self.seed)
         return _recover_or_build(self, kw)
+
+
+@dataclass
+class MultiServiceConfig:
+    """Knobs of the multi-scenario composition. ``scenarios`` may hold
+    ScenarioSpec objects or names registered in configs/jizhi_service.py;
+    empty → the default 3-scenario surface (DIN + DIEN + MIND)."""
+    scenarios: tuple = ()
+    cube_cache_ratio: float = 1.0
+    query_window_s: float = 120.0
+    seed: int = 0
+    max_queue: int = 512
+    batch_wait_s: float = 0.002
+    # fanout quota gate: below this, only priority-0 scenarios get clones
+    min_quota: float = 0.5
+    live_updates: bool = False
+    update_dir: Optional[str] = None
+    update_poll_s: float = 0.1
+    compact_after_blocks: int = 64
+    head_slots: int = 0
+    reverse_map_items: int = 65536
+    # crash safety (DESIGN.md §9) — same contract as ServiceConfig
+    snapshot_dir: Optional[str] = None
+    snapshot_every_deltas: int = 8
+    snapshot_keep: int = 2
+    recover: bool = False
 
 
 def _recover_or_build(cfg, substrate_kw: dict) -> ServingSubstrate:
@@ -241,3 +275,126 @@ class InferenceService(_ServiceBase):
 
     def _overflow_policy(self):
         return self.shedder.on_overflow if self.shedder else None
+
+
+class MultiScenarioService(_ServiceBase):
+    """N scenario pipelines behind the quota-aware multi-tenant fanout,
+    one shared substrate (paper §4 multi-tenant extension + §8.6 Service
+    E: several models share the upstream data plane and >80% of feature
+    groups).
+
+    DAG shape::
+
+        ingress → fanout ──→ <s1>.query_cache → ... → <s1>.rerank ──→ respond
+                         └─→ <s2>...                                ↗
+                         └─→ <s3>...                                ↗
+
+    The fanout clones each request to every scenario (payloads cloned so
+    per-scenario stages never write into a sibling's view); under
+    overload the quota controller gates secondary scenarios first —
+    priority-0 scenarios keep serving while the rest ride out the spike.
+
+    ``device``: where every scenario's model and the shared pruning DNN
+    run — ``cuda`` unless the caller passes ``device="cpu"``.
+    ``model_cfgs`` / ``params`` map scenario names to an injected model
+    config and weights (parity runs carry the reference's across; a
+    deployment may serve the published widths); ``pruning_dnn`` replaces
+    the shared trained pruning DNN. A scenario without an entry gets its
+    arch's reduced config and weights drawn from its spec's seed, as in
+    the reference."""
+
+    def __init__(self, cfg: Union[MultiServiceConfig, Sequence, None] = None,
+                 device=None, model_cfgs: Optional[dict] = None,
+                 params: Optional[dict] = None, pruning_dnn=None):
+        if cfg is None:
+            cfg = MultiServiceConfig()
+        elif not isinstance(cfg, MultiServiceConfig):
+            cfg = MultiServiceConfig(scenarios=tuple(cfg))
+        self.cfg = cfg
+        model_cfgs, params = model_cfgs or {}, params or {}
+        specs = []
+        names = cfg.scenarios or _default_scenario_names()
+        for s in names:
+            specs.append(s if isinstance(s, ScenarioSpec)
+                         else get_scenario(s))
+        if not specs:
+            raise ValueError("MultiScenarioService needs ≥1 scenario")
+        unknown = (set(model_cfgs) | set(params)) - {s.name for s in specs}
+        if unknown:
+            raise ValueError(f"injected configs/params for scenarios not "
+                             f"served: {sorted(unknown)}")
+        self.substrate = _recover_or_build(cfg, dict(
+            cube_cache_ratio=cfg.cube_cache_ratio,
+            query_window_s=cfg.query_window_s, head_slots=cfg.head_slots,
+            compact_after_blocks=cfg.compact_after_blocks,
+            reverse_map_items=cfg.reverse_map_items, seed=cfg.seed))
+        builder = PipelineBuilder(self.substrate, max_queue=cfg.max_queue,
+                                  batch_wait_s=cfg.batch_wait_s,
+                                  device=device)
+        self.device = builder.device
+        builder.add_ingress("ingress")
+        for spec in specs:
+            builder.add_scenario(spec, namespaced=True,
+                                 model_cfg=model_cfgs.get(spec.name),
+                                 params=params.get(spec.name),
+                                 pruning_dnn=pruning_dnn)
+        # quota signal: the primary (lowest-priority-number) scenario's
+        # terminal queue — the stage overload hits first
+        primary = min(specs, key=lambda s: (s.priority, specs.index(s)))
+        self.fanout_controller = QuotaController(
+            builder.terminals[primary.name], depth_capacity=64.0)
+        targets = [builder.entries[s.name] for s in specs]
+        priorities = {builder.entries[s.name]: s.priority for s in specs}
+        fan = make_fanout_op(targets, priorities=priorities,
+                             quota_fn=self.fanout_controller.observe,
+                             min_quota=cfg.min_quota)
+        builder.g.add_stage("fanout", fan, batch_size=8, parallelism=1,
+                            max_queue=cfg.max_queue,
+                            max_wait_s=cfg.batch_wait_s)
+        builder.g.add_edge("ingress", "fanout")
+        for t in targets:
+            builder.g.add_edge("fanout", t)
+        self.graph, self.plan = builder.compile()
+        self.specs = tuple(specs)
+        self.runtimes = builder.runtimes
+        self.entries = builder.entries
+        self.terminals = builder.terminals
+        self.update_watcher = self._make_watcher()
+
+    # ------------------------------------------------------------ traffic
+    def make_requests(self, n: int, seed: int = 0,
+                      deadline_s: Optional[float] = None) -> list[Event]:
+        return make_request_events(
+            [rt.model_cfg for rt in self.runtimes.values()], n, seed=seed,
+            deadline_s=deadline_s)
+
+    def _overflow_policy(self):
+        def policy(stage, ev, ctx):
+            name = stage.split(".", 1)[0]
+            rt = self.runtimes.get(name)
+            if rt is not None and rt.shedder is not None:
+                return rt.shedder.on_overflow(stage, ev, ctx)
+            return ev
+        return policy
+
+    # ------------------------------------------------------------ results
+    @staticmethod
+    def by_scenario(report) -> dict:
+        """Completed events grouped by the scenario that served them."""
+        out: dict = {}
+        for ev in report.results:
+            get = ev.payload.get if hasattr(ev.payload, "get") else None
+            name = (get("scenario", "?") if get else "?") or "?"
+            out.setdefault(name, []).append(ev)
+        return out
+
+    @staticmethod
+    def responses(report) -> list:
+        """Typed Response objects (stamped by RespondStage)."""
+        return [ev.meta["response"] for ev in report.results
+                if "response" in ev.meta]
+
+
+def _default_scenario_names() -> tuple:
+    from repro_torch.configs import jizhi_service
+    return jizhi_service.DEFAULT_SCENARIOS

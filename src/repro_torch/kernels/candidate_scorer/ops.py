@@ -1,0 +1,45 @@
+"""Wrapper of the candidate scorer (``csrc/candidate_scorer.cu``): the
+kernel scores blocks of candidates and keeps each block's top-k; the
+small cross-block merge is one ``torch.topk`` here, as the reference
+merges outside its kernel."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import launch, on_cpu, require
+from repro_torch.kernels.candidate_scorer.ref import candidate_scorer_ref
+
+#: candidates per block (``kBlockC`` in the source)
+BLOCK_C = 1024
+_ENTRY = {torch.float32: "candidate_scorer_f32",
+          torch.bfloat16: "candidate_scorer_bf16"}
+
+
+def candidate_scorer(cands, query, k: int = 8):
+    """cands (C, D) float32 or bfloat16, query (D,) of the same dtype →
+    the exact global top-k: values (k,) float32, best first, and their
+    indices (k,) int64. Scores accumulate in float32. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if on_cpu(cands, query):
+        return candidate_scorer_ref(cands, query, k)
+    require(cands.dim() == 2, f"cands (C, D) expected, got {tuple(cands.shape)}")
+    C, D = cands.shape
+    require(tuple(query.shape) == (D,),
+            f"query {tuple(query.shape)}, expected {(D,)}")
+    require(cands.dtype in _ENTRY and query.dtype == cands.dtype,
+            f"cands {cands.dtype} / query {query.dtype} unsupported")
+    require(cands.is_contiguous() and query.is_contiguous(),
+            "cands and query must be contiguous")
+    require(0 < k <= C, f"k={k} must lie in [1, C={C}]")
+    blocks = -(-C // BLOCK_C)
+    vals = torch.empty((blocks * k,), dtype=torch.float32, device=cands.device)
+    idx = torch.empty((blocks * k,), dtype=torch.int64, device=cands.device)
+    per = 16 // cands.element_size()              # values per 16-byte load
+    vec = int(D % per == 0 and cands.data_ptr() % 16 == 0)
+    launch(_ENTRY[cands.dtype], "candidate_scorer", cands.device,
+           cands.data_ptr(), query.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+           C, D, k, vec)
+    if blocks == 1:                   # one block: already the sorted top-k
+        return vals, idx
+    v, pos = torch.topk(vals, k)
+    return v, idx[pos]

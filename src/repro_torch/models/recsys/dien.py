@@ -1,0 +1,171 @@
+"""DIEN [arXiv:1809.03672] — interest extraction (GRU) + interest evolution
+(AUGRU: attentional update gate), plus the auxiliary next-behavior loss.
+
+The AUGRU recurrence is the serving hot spot (one sequence scan per
+candidate); in the port it runs as the hand-written ``augru`` kernel and
+every table lookup as the ``embedding_bag`` kernel, while the GRU stays
+plain PyTorch, as the reference keeps it in jnp. Tensors on the CPU take
+the kernels' plain versions. Forward only: the kernels on this path have
+no backward yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import default_device
+from repro_torch.configs.base import RecsysConfig
+from repro_torch.kernels.augru import augru
+from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
+from repro_torch.models.recsys.common import bce_loss, embed_fields, tables_init
+from repro_torch.sparse.sharded import (sharded_embedding_bag_2d,
+                                        sharded_gather_a2a)
+
+
+def _randn(generator, shape, dev):
+    return torch.randn(shape, generator=generator, device=dev,
+                       dtype=torch.float32)
+
+
+def gru_init(generator: torch.Generator, d_in: int, h: int,
+             device=None) -> dict:
+    dev = default_device(device)
+    return {"w": _randn(generator, (d_in, 3 * h), dev) / np.sqrt(d_in),
+            "u": _randn(generator, (h, 3 * h), dev) / np.sqrt(h),
+            "b": torch.zeros((3 * h,), dtype=torch.float32, device=dev)}
+
+
+def _gates(p, gx, h):
+    """gx = x_t @ w + b (already projected) → update gate z, candidate n."""
+    gh = h @ p["u"]
+    H = h.shape[-1]
+    r = torch.sigmoid(gx[..., :H] + gh[..., :H])
+    z = torch.sigmoid(gx[..., H:2 * H] + gh[..., H:2 * H])
+    n = torch.tanh(gx[..., 2 * H:] + r * gh[..., 2 * H:])
+    return z, n
+
+
+def gru_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """x (B,T,D) → all hidden states (B,T,H). The input projection of every
+    step is one product up front, as the AUGRU kernel does it."""
+    B, T, _ = x.shape
+    H = p["u"].shape[0]
+    gx = x @ p["w"] + p["b"]                                  # (B,T,3H)
+    h = x.new_zeros((B, H))
+    hs = []
+    for t in range(T):
+        z, n = _gates(p, gx[:, t], h)
+        h = (1 - z) * n + z * h
+        hs.append(h)
+    return torch.stack(hs, 1) if hs else x.new_zeros((B, 0, H))
+
+
+def augru_apply(p, x: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+    """AUGRU: att (B,T) scales the update gate. Returns the final hidden
+    state (B,H), through the ``augru`` kernel."""
+    return augru(x.contiguous(), att.contiguous(), p["w"], p["u"], p["b"])
+
+
+def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
+    """Random DIEN parameters drawn from ``generator`` (which must live on
+    ``device``), in the reference's layout: {"tables", "gru", "augru",
+    "att_w", "mlp", "aux_w"}."""
+    dev = default_device(device)
+    D, H = cfg.embed_dim, cfg.gru_dim
+    d_other = (len(cfg.user_fields) + len(cfg.item_fields) - 1) * D
+    return {
+        "tables": tables_init(generator, cfg, device=dev),
+        "gru": gru_init(generator, D, H, device=dev),
+        "augru": gru_init(generator, H, H, device=dev),
+        "att_w": _randn(generator, (H, D), dev) / np.sqrt(H),
+        "mlp": mlp_tower_init(generator, H + D + d_other, cfg.mlp + (1,),
+                              torch.float32, device=dev),
+        "aux_w": _randn(generator, (H, D), dev) / np.sqrt(H),
+    }
+
+
+def _hist_emb(params, hist_ids, cfg):
+    mask = (hist_ids >= 0).to(torch.float32)
+    emb = sharded_embedding_bag_2d(
+        params["tables"]["item_id"], hist_ids.clamp_min(0).reshape(-1, 1))
+    emb = emb.reshape(*hist_ids.shape, cfg.embed_dim) * mask[..., None]
+    return emb, mask
+
+
+def _attention(states, att_w, target, mask):
+    """Softmax attention of each state against the target, masked as the
+    reference does it: -1e30 before the softmax, times the mask after it
+    (an all-padding history gives att = 0)."""
+    att = torch.einsum("bth,hd,bd->bt", states, att_w, target)
+    return torch.softmax(torch.where(mask > 0, att, -1e30), dim=-1) * mask
+
+
+def _evolved_interest(params, hist, mask, target):
+    """GRU states → attention vs target → AUGRU final state. (B,H)."""
+    states = gru_apply(params["gru"], hist)                   # (B,T,H)
+    att = _attention(states, params["att_w"], target, mask)
+    return states, augru_apply(params["augru"], states, att)
+
+
+def logits_fn(params, batch: dict, cfg: RecsysConfig, return_aux=False):
+    hist, mask = _hist_emb(params, batch["user"]["hist"], cfg)
+    target = sharded_embedding_bag_2d(params["tables"]["item_id"],
+                                      batch["item"]["item_id"])
+    states, final = _evolved_interest(params, hist, mask, target)
+    other_u = embed_fields(params["tables"], cfg.user_fields,
+                           batch["user"]["fields"])
+    other_i = embed_fields(params["tables"],
+                           tuple(f for f in cfg.item_fields if f.name != "item_id"),
+                           batch["item"])
+    x = torch.cat([final, target, other_u, other_i], dim=-1)
+    logits = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
+    if not return_aux:
+        return logits
+    # auxiliary loss: state_t should predict behavior t+1 (vs shuffled negative)
+    pred = states[:, :-1] @ params["aux_w"]                   # (B,T-1,D)
+    pos = torch.sum(pred * hist[:, 1:], -1)
+    neg = torch.sum(pred * torch.roll(hist[:, 1:], 1, dims=0), -1)
+    m = mask[:, 1:]
+    aux = -(F.logsigmoid(pos) + F.logsigmoid(-neg)) * m
+    aux = aux.sum() / torch.clamp(m.sum(), min=1.0)
+    return logits, aux
+
+
+def loss_fn(params, batch: dict, cfg: RecsysConfig,
+            aux_weight=0.5) -> torch.Tensor:
+    """Forward loss only: the kernels on this path have no backward yet."""
+    logits, aux = logits_fn(params, batch, cfg, return_aux=True)
+    return bce_loss(logits, batch["label"]) + aux_weight * aux
+
+
+@torch.no_grad()
+def serve_scores(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    return torch.sigmoid(logits_fn(params, batch, cfg))
+
+
+@torch.no_grad()
+def score_candidates(params, user_batch: dict, cand_ids: dict,
+                     cfg: RecsysConfig, top_k: int = 100):
+    """Re-rank vs C candidates: GRU once, AUGRU per candidate (C rows of
+    one ``augru`` launch). Returns (values, indices) of the ``top_k`` best
+    scores, best first; ``torch.topk`` does not fix the order of equal
+    scores."""
+    C = cand_ids["item_id"].shape[0]
+    hist, mask = _hist_emb(params, user_batch["hist"], cfg)   # (1,T,D)
+    states = gru_apply(params["gru"], hist)                   # (1,T,H)
+    target = sharded_gather_a2a(params["tables"]["item_id"],
+                                cand_ids["item_id"])           # (C,D)
+    states_b = states.expand(C, *states.shape[1:])
+    mask_b = mask.expand(C, mask.shape[1])
+    att = _attention(states_b, params["att_w"], target, mask_b)
+    final = augru_apply(params["augru"], states_b, att)        # (C,H)
+    other_u = embed_fields(params["tables"], cfg.user_fields,
+                           user_batch["fields"])
+    other_u = other_u.expand(C, other_u.shape[-1])
+    other_i = embed_fields(params["tables"],
+                           tuple(f for f in cfg.item_fields if f.name != "item_id"),
+                           cand_ids)
+    x = torch.cat([final, target, other_u, other_i], dim=-1)
+    scores = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
+    return torch.topk(scores.float(), top_k, sorted=True)

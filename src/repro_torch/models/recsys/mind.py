@@ -1,0 +1,117 @@
+"""MIND [arXiv:1904.08030] — multi-interest capsule network.
+
+Behavior-to-interest (B2I) dynamic routing: T history embeddings → K interest
+capsules (squash nonlinearity, routing logits NOT backpropagated across
+iterations, per the paper). Label-aware attention (pow-2) for training;
+serving scores are max over interests. Table lookups run as the
+``embedding_bag`` kernel; ``retrieve`` takes a max over K interests, which
+is not the ``candidate_scorer`` kernel's single-query function, so it is a
+plain product and ``torch.topk``, as the reference keeps it outside any
+kernel. Forward only.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import default_device
+from repro_torch.configs.base import RecsysConfig
+from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
+from repro_torch.models.recsys.common import (l2_normalize,
+                                              sampled_softmax_loss, tables_init)
+from repro_torch.sparse.sharded import (sharded_embedding_bag_2d,
+                                        sharded_gather_a2a)
+
+
+def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
+    """Random MIND parameters drawn from ``generator`` (which must live on
+    ``device``), in the reference's layout: {"tables", "s_bilinear",
+    "interest_mlp"}."""
+    dev = default_device(device)
+    D = cfg.embed_dim
+    return {
+        "tables": tables_init(generator, cfg, device=dev),
+        "s_bilinear": torch.randn((D, D), generator=generator, device=dev,
+                                  dtype=torch.float32) / np.sqrt(D),
+        "interest_mlp": mlp_tower_init(generator, D, cfg.mlp + (D,),
+                                       torch.float32, device=dev),
+    }
+
+
+def squash(s: torch.Tensor) -> torch.Tensor:
+    n2 = torch.sum(s * s, -1, keepdim=True)
+    return (n2 / (1.0 + n2)) * s / torch.sqrt(n2 + 1e-9)
+
+
+def interests(params, hist_emb: torch.Tensor, hist_mask: torch.Tensor,
+              cfg: RecsysConfig) -> torch.Tensor:
+    """hist_emb (B,T,D), mask (B,T) → (B,K,D) interest capsules."""
+    B, T, D = hist_emb.shape
+    K = cfg.n_interests
+    low = hist_emb @ params["s_bilinear"]                    # (B,T,D)
+    # fixed pseudo-random routing init (paper: random, not learned): the
+    # reference's numpy draw, in float64 then cast, so both packages start
+    # from the same logits
+    b0 = torch.as_tensor(
+        np.random.default_rng(0).normal(size=(1, K, T)).astype(np.float32),
+        device=hist_emb.device)
+    b = b0.expand(B, K, T)
+    neg = -1e30 * (1.0 - hist_mask)[:, None, :]
+    low_sg = low.detach()
+    for _ in range(cfg.capsule_iters):
+        w = torch.softmax(b + neg, dim=1)                    # over K
+        s = torch.einsum("bkt,btd->bkd", w, low_sg)
+        u = squash(s)
+        b = b + torch.einsum("bkd,btd->bkt", u, low_sg)
+    # final pass lets gradients flow through the last aggregation
+    w = torch.softmax(b + neg, dim=1)
+    u = squash(torch.einsum("bkt,btd->bkd", w, low))
+    u = mlp_tower_apply(params["interest_mlp"], u, final_act=False)
+    return l2_normalize(u)
+
+
+def _hist(params, batch, cfg):
+    hist_ids = batch["user"]["hist"]                          # (B,T)
+    mask = (hist_ids >= 0).to(torch.float32)
+    table = params["tables"]["item_id"]
+    emb = sharded_embedding_bag_2d(
+        table, hist_ids.clamp_min(0).reshape(-1, 1))          # (B*T, D)
+    emb = emb.reshape(*hist_ids.shape, cfg.embed_dim) * mask[..., None]
+    return emb, mask
+
+
+def _target(params, item_ids, cfg):
+    return sharded_embedding_bag_2d(params["tables"]["item_id"],
+                                    item_ids["item_id"])
+
+
+def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    """Forward loss only."""
+    emb, mask = _hist(params, batch, cfg)
+    I = interests(params, emb, mask, cfg)                     # (B,K,D)
+    tgt = l2_normalize(_target(params, batch["item"], cfg))   # (B,D)
+    # label-aware attention, pow 2
+    att = torch.softmax(torch.einsum("bkd,bd->bk", I, tgt) ** 2 * 8.0, dim=-1)
+    u = torch.einsum("bk,bkd->bd", att, I)
+    return sampled_softmax_loss(l2_normalize(u), tgt)
+
+
+@torch.no_grad()
+def serve_scores(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    emb, mask = _hist(params, batch, cfg)
+    I = interests(params, emb, mask, cfg)
+    tgt = l2_normalize(_target(params, batch["item"], cfg))
+    return torch.amax(torch.einsum("bkd,bd->bk", I, tgt), dim=-1)
+
+
+@torch.no_grad()
+def retrieve(params, user_batch: dict, cand_ids: dict, cfg: RecsysConfig,
+             top_k: int = 100):
+    """One user's K interests vs C candidates: the best interest's score
+    per candidate, then the top ``top_k`` (values, indices), best first."""
+    emb, mask = _hist(params, {"user": user_batch}, cfg)
+    I = interests(params, emb, mask, cfg)[0]                  # (K,D)
+    v = l2_normalize(sharded_gather_a2a(params["tables"]["item_id"],
+                                        cand_ids["item_id"]))
+    scores = torch.amax(v @ I.T, dim=-1).float()              # (C,)
+    return torch.topk(scores, top_k, sorted=True)

@@ -1,0 +1,84 @@
+"""Two-tower retrieval [Covington RecSys'16; Yi et al. RecSys'19].
+
+In the port the user fields (single ids and the multi-hot ``user_hist`` /
+``user_ctx`` bags) run as the ``embedding_bag`` kernel, and ``retrieve``'s
+dot product of every candidate with the user vector plus its top-k run as
+the ``candidate_scorer`` kernel. Tensors on the CPU take the kernels'
+plain versions. Forward only.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import default_device
+from repro_torch.configs.base import RecsysConfig
+from repro_torch.kernels.candidate_scorer import candidate_scorer
+from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
+from repro_torch.models.recsys.common import (embed_fields, l2_normalize,
+                                              sampled_softmax_loss, tables_init)
+from repro_torch.sparse.sharded import sharded_gather_a2a
+
+
+def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
+    """Random two-tower parameters drawn from ``generator`` (which must live
+    on ``device``), in the reference's layout: {"tables", "user_tower",
+    "item_tower"}."""
+    dev = default_device(device)
+    d_user = len(cfg.user_fields) * cfg.embed_dim
+    d_item = len(cfg.item_fields) * cfg.embed_dim
+    return {
+        "tables": tables_init(generator, cfg, device=dev),
+        "user_tower": mlp_tower_init(generator, d_user, cfg.tower_mlp,
+                                     torch.float32, device=dev),
+        "item_tower": mlp_tower_init(generator, d_item, cfg.tower_mlp,
+                                     torch.float32, device=dev),
+    }
+
+
+def user_vec(params, user_ids: dict, cfg: RecsysConfig) -> torch.Tensor:
+    x = embed_fields(params["tables"], cfg.user_fields, user_ids)
+    return l2_normalize(mlp_tower_apply(params["user_tower"], x))
+
+
+def item_vec(params, item_ids: dict, cfg: RecsysConfig) -> torch.Tensor:
+    x = embed_fields(params["tables"], cfg.item_fields, item_ids)
+    return l2_normalize(mlp_tower_apply(params["item_tower"], x))
+
+
+def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    """Forward loss only."""
+    u = user_vec(params, batch["user"]["fields"], cfg)
+    v = item_vec(params, batch["item"], cfg)
+    return sampled_softmax_loss(u, v, batch.get("log_q"))
+
+
+@torch.no_grad()
+def serve_scores(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    """Paired (user, item) relevance scores, (B,)."""
+    u = user_vec(params, batch["user"]["fields"], cfg)
+    v = item_vec(params, batch["item"], cfg)
+    return torch.sum(u * v, dim=-1)
+
+
+@torch.no_grad()
+def retrieve(params, user_ids: dict, cand_ids: dict, cfg: RecsysConfig,
+             top_k: int = 100):
+    """One query vs n_candidates (recall phase): the candidates' item
+    tower, then the ``candidate_scorer`` kernel's dot and top-k. Returns
+    (values, indices), best first."""
+    u = user_vec(params, user_ids, cfg)                       # (1, D)
+    # multi-hot item fields keep the reference's per-column gathers (each
+    # row moves once on a mesh), pooled here
+    cols = []
+    for f in cfg.item_fields:
+        if f.bag == 1:
+            cols.append(sharded_gather_a2a(params["tables"][f.name],
+                                           cand_ids[f.name]))
+        else:
+            acc = sum(sharded_gather_a2a(params["tables"][f.name],
+                                         cand_ids[f.name][:, j])
+                      for j in range(f.bag))
+            cols.append(acc / f.bag if f.combiner == "mean" else acc)
+    x = torch.cat(cols, dim=-1)
+    v = l2_normalize(mlp_tower_apply(params["item_tower"], x))  # (C, D)
+    return candidate_scorer(v.contiguous(), u[0].contiguous(), top_k)

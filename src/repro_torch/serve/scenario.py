@@ -18,13 +18,14 @@ staged-pipeline abstraction. This module is that surface for the repro:
     payload contract at BUILD time (`ContractError`), not mid-traffic.
 
 ``InferenceService`` (core/service.py) is a thin compatibility wrapper
-over a single-scenario build.
+over a single-scenario build; ``MultiScenarioService`` hosts N scenarios
+behind the quota-aware multi-tenant fanout.
 
 In the port, each runtime's model lives on one torch device (``cuda``
 unless the caller passes ``device="cpu"``) and every model input is built
-there. The scenarios whose models are ported are DIN's; the HBM head
-tier, snapshots/recovery and the mesh cube tier are not ported yet and
-raise ``NotImplementedError`` (ROADMAP A4/A5).
+there. All four recsys models (DIN, DIEN, MIND, two-tower) are ported;
+the HBM head tier, snapshots/recovery and the mesh cube tier are not
+ported yet and raise ``NotImplementedError`` (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ from repro_torch.core.sedp import SEDP, Event, GraphError
 from repro_torch.serve.bucketing import (ShapeBucketer, TracedJit,
                                    bucketed_candidate_rerank, pow2_buckets,
                                    step_buckets)
-from repro_torch.models.recsys import din
+from repro_torch.models.recsys import dien, din, mind, towers
 from repro_torch.serve.hotload import DoubleBuffer, Generation
 from repro_torch.serve.stages import (REQUEST_KEYS, CubeFetchStage,
                                 FeatureHashStage, QueryCacheStage,
@@ -392,7 +393,7 @@ class SubstrateDeltaWatcher(DeltaWatcher):
 # ---------------------------------------------------------------- runtime
 
 #: Recsys model modules of the port, by ``RecsysConfig.model``.
-MODELS = {"din": din}
+MODELS = {"two_tower": towers, "mind": mind, "din": din, "dien": dien}
 
 class ScenarioRuntime:
     """Per-scenario model state compiled from a spec: params buffer,
@@ -415,10 +416,6 @@ class ScenarioRuntime:
             arch = registry.get(spec.arch_id)
             model_cfg = arch.reduced(arch.config)
         self.model_cfg = model_cfg
-        if model_cfg.model not in MODELS:
-            raise NotImplementedError(
-                f"model {model_cfg.model!r} is not ported yet (ROADMAP A4); "
-                f"ported: {sorted(MODELS)}")
         self.mod = MODELS[model_cfg.model]
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(spec.seed)
@@ -448,9 +445,18 @@ class ScenarioRuntime:
                 p, u, c, self.model_cfg, top_k=c["item_id"].shape[0]))
             if hasattr(self.mod, "score_candidates") else None)
         retrieve_fn = getattr(self.mod, "retrieve", None)
-        self.retrieve = None if retrieve_fn is None else TracedJit(
-            lambda p, u, c: retrieve_fn(
-                p, u, c, self.model_cfg, top_k=c["item_id"].shape[0]))
+        if retrieve_fn is None:
+            self.retrieve = None
+        elif mc.model == "two_tower":
+            # towers.retrieve takes the bare user-fields dict
+            self.retrieve = TracedJit(
+                lambda p, u, c: retrieve_fn(
+                    p, u["fields"], c, self.model_cfg,
+                    top_k=c["item_id"].shape[0]))
+        else:
+            self.retrieve = TracedJit(
+                lambda p, u, c: retrieve_fn(
+                    p, u, c, self.model_cfg, top_k=c["item_id"].shape[0]))
         # every single-valued item field becomes a cube feature group on
         # the shared substrate (bag>1 fields have no single tail row)
         self.cube_groups = [

@@ -25,6 +25,8 @@ import pytest
 import torch
 
 import repro_torch.kernels as K
+from repro_torch.kernels.augru import ops as augru_ops
+from repro_torch.kernels.candidate_scorer import ops as scorer_ops
 from repro_torch.kernels.din_attention import ops as din_ops
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.rerank_score import ops as rerank_ops
@@ -38,7 +40,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 #: in its import statements
 VERBATIM = (
     ["configs/base.py", "configs/registry.py", "configs/other_archs.py",
-     "configs/lm_archs.py", "data/synthetic.py",
+     "configs/lm_archs.py", "configs/jizhi_service.py", "data/synthetic.py",
      "serve/batcher.py", "serve/hotload.py",
      "update/delta.py", "update/manager.py", "update/policy.py"]
     + [f"core/{m}.py" for m in ("sedp", "executors", "cube", "cube_cache",
@@ -98,29 +100,41 @@ def test_copied_module_equals_its_source(rel):
 
 def test_service_serves_with_jax_and_reference_blocked():
     """A fresh interpreter in which ``import jax`` and ``import repro``
-    fail builds the port's service on the CPU and answers 8 requests."""
+    fail builds the port's services on the CPU: the DIN re-rank service
+    answers 8 requests, and the four-scenario service (DIN, DIEN, MIND,
+    two-tower) answers 8 in every scenario."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
         sys.modules["repro"] = None
-        from repro_torch.core.service import InferenceService, ServiceConfig
+        from repro_torch.core.service import (InferenceService,
+                                              MultiScenarioService,
+                                              ServiceConfig)
         svc = InferenceService(ServiceConfig(arch_id="din", batch_size=8),
                                device="cpu")
         rep = svc.run(n_requests=8, executor="async")
         assert rep.errors == 0 and rep.completed == 8, rep
         scores = [ev.meta["response"].score for ev in rep.results]
         assert all(s is not None and 0.0 <= s <= 1.0 for s in scores), scores
+        multi = MultiScenarioService(
+            ("din-rerank", "dien-rerank", "mind-retrieval",
+             "towers-retrieval"), device="cpu")
+        rep = multi.run(n_requests=8, executor="async")
+        by = multi.by_scenario(rep)
+        assert rep.errors == 0 and sorted(len(v) for v in by.values()) == \
+            [8] * 4, {k: len(v) for k, v in by.items()}
+        assert all(ev.meta["response"].topk for ev in rep.results)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro")
                         and sys.modules[m] is not None)
         assert not loaded, loaded
-        print("served", len(scores))
+        print("served", len(scores), "and", len(rep.results))
     """)
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=str(SRC)),
                          capture_output=True, text=True, timeout=150)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert "served 8" in out.stdout
+    assert "served 8 and 32" in out.stdout
 
 
 # ------------------------------------------------------- default device
@@ -130,20 +144,29 @@ def _entry_points():
     from repro_torch.configs import registry
     from repro_torch.convert import params_from_numpy
     from repro_torch.core.irm.shedding import PruningDNN
-    from repro_torch.core.service import InferenceService, ServiceConfig
+    from repro_torch.core.service import (InferenceService,
+                                          MultiScenarioService, ServiceConfig)
     from repro_torch.models import layers
-    from repro_torch.models.recsys import common, din
+    from repro_torch.models.recsys import common, dien, din, mind, towers
     from repro_torch.serve.bucketing import (ShapeBucketer,
                                              bucketed_candidate_rerank)
     from repro_torch.sparse.embedding import TableSpec, init_table
 
-    arch = registry.get("din")
-    cfg = arch.reduced(arch.config)
+    def reduced(arch_id):
+        arch = registry.get(arch_id)
+        return arch.reduced(arch.config)
+
+    cfg = reduced("din")
     one = ShapeBucketer((4,))
     return {
         "default_device": lambda: default_device(),
         "InferenceService": lambda: InferenceService(ServiceConfig()),
+        "MultiScenarioService": lambda: MultiScenarioService(),
         "din.init": lambda: din.init(torch.Generator(), cfg),
+        "dien.init": lambda: dien.init(torch.Generator(), reduced("dien")),
+        "mind.init": lambda: mind.init(torch.Generator(), reduced("mind")),
+        "towers.init": lambda: towers.init(
+            torch.Generator(), reduced("two-tower-retrieval")),
         "tables_init": lambda: common.tables_init(torch.Generator(), cfg),
         "mlp_tower_init": lambda: layers.mlp_tower_init(torch.Generator(),
                                                         4, (2,)),
@@ -187,6 +210,9 @@ class FakeCuda:
 
     def is_floating_point(self):
         return self.t.is_floating_point()
+
+    def element_size(self):
+        return self.t.element_size()
 
     def data_ptr(self):
         return self.t.data_ptr()
@@ -237,7 +263,9 @@ def fake_card(monkeypatch):
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
     for mod, ref in ((bag_ops, "embedding_bag_ref"),
                      (din_ops, "din_attention_ref"),
-                     (rerank_ops, "rerank_score_ref")):
+                     (rerank_ops, "rerank_score_ref"),
+                     (augru_ops, "augru_ref"),
+                     (scorer_ops, "candidate_scorer_ref")):
         monkeypatch.setattr(mod, ref, reached_plain)
     return calls, status
 
@@ -261,38 +289,52 @@ def _launch_cases(rng):
         return [dict(zip(("w", "b"), _rng_tensors(rng, (a, b), (b,))))
                 for a, b in zip(dims[:-1], dims[1:])]
 
+    Din, H = 7, 9
+    augru_args = _rng_tensors(rng, (B, T, Din), (B, T), (Din, 3 * H),
+                              (H, 3 * H), (3 * H,))
+    cands, query = _rng_tensors(rng, (C, 2 * D), (2 * D,))
     return {
         "embedding_bag": (lambda: bag_ops.embedding_bag(table, ids, w, "mean"),
-                          (B, D), "embedding_bag_f32"),
-        "din_attention": (lambda: din_ops.din_attention(*din_args), (B, D),
+                          [(B, D)], "embedding_bag_f32"),
+        "din_attention": (lambda: din_ops.din_attention(*din_args), [(B, D)],
                           "din_attention_f32"),
         "rerank_score": (lambda: rerank_ops.rerank_score(
             hist, mask, tgt, uo, io, tower(4 * D, H1, H2, 1),
-            tower(2 * D + du + di, M1, M2, 1)), (C,), "rerank_score_f32"),
+            tower(2 * D + du + di, M1, M2, 1)), [(C,)], "rerank_score_f32"),
+        "augru": (lambda: augru_ops.augru(*augru_args), [(B, H)],
+                  "augru_f32"),
+        # one block of candidates: the kernel's own top-k is the answer
+        "candidate_scorer": (lambda: scorer_ops.candidate_scorer(
+            cands, query, k=3), [(3,), (3,)], "candidate_scorer_f32"),
     }
 
 
-@pytest.mark.parametrize("kernel", ["embedding_bag", "din_attention",
-                                    "rerank_score"])
+KERNELS = ["embedding_bag", "din_attention", "rerank_score", "augru",
+           "candidate_scorer"]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_cuda_tensors_launch_the_kernel(kernel, fake_card, rng):
     """The wrapper hands the C entry arguments of its declared types,
-    returns the output it allocated on the tensors' device, and counts
+    returns the outputs it allocated on the tensors' device, and counts
     exactly one launch; the plain version is never called."""
     calls, _status = fake_card
-    fn, shape, entry = _launch_cases(rng)[kernel]
+    fn, shapes, entry = _launch_cases(rng)[kernel]
     before = K.launch_counts()
-    out = fn()
-    assert isinstance(out, FakeCuda) and tuple(out.shape) == shape
+    outs = fn()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    assert [tuple(o.shape) for o in outs] == shapes
     assert [c[0] for c in calls] == [entry]
-    assert out.data_ptr() in calls[0][1]            # the kernel writes it
+    for out in outs:
+        assert isinstance(out, FakeCuda)
+        assert out.data_ptr() in calls[0][1]        # the kernel writes it
     after = K.launch_counts()
     assert after[kernel] == before[kernel] + 1
     assert {k: after[k] - before[k] for k in after if k != kernel} == \
         {k: 0 for k in after if k != kernel}
 
 
-@pytest.mark.parametrize("kernel", ["embedding_bag", "din_attention",
-                                    "rerank_score"])
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_failed_launch_raises_and_is_not_counted(kernel, fake_card, rng):
     _calls, status = fake_card
     status["rc"] = 9                          # cudaErrorInvalidConfiguration
@@ -344,7 +386,8 @@ def test_library_signatures_match_the_sources():
 
 @pytest.mark.parametrize("source,module,names", [
     ("din_attention.cu", din_ops, {"kChunk": "CHUNK"}),
-    ("rerank_score.cu", rerank_ops, {"kChunk": "CHUNK", "kCands": "CANDS"})])
+    ("rerank_score.cu", rerank_ops, {"kChunk": "CHUNK", "kCands": "CANDS"}),
+    ("candidate_scorer.cu", scorer_ops, {"kBlockC": "BLOCK_C"})])
 def test_wrapper_tiling_constants_match_the_sources(source, module, names):
     """The wrappers size their scratch and shared memory with the same
     tile constants the kernels are compiled with."""

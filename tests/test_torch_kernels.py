@@ -1,19 +1,28 @@
 """The port's kernels, plain versions (CPU), against the reference: the JAX
 ops in Pallas interpret mode and the reference's ref.py oracles, on the
 reference's own sweep and edge cells and at its tolerances (2e-5 f32,
-3e-5 on edge cells, 2e-2 bf16). The CUDA kernels themselves run only on
-the card (chip_smoke.py holds each against these plain versions)."""
+3e-5 on edge cells and for augru, 2e-2 bf16; candidate_scorer's f32 index
+sets equal). The CUDA kernels themselves run only on the card
+(chip_smoke.py holds each against these plain versions)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.augru.ops import augru as jax_augru
+from repro.kernels.augru.ref import augru_ref as jax_augru_ref
+from repro.kernels.candidate_scorer.ops import candidate_scorer as jax_scorer
+from repro.kernels.candidate_scorer.ref import (candidate_scorer_ref as
+                                                jax_scorer_ref)
 from repro.kernels.din_attention.ops import din_attention as jax_din_attention
 from repro.kernels.din_attention.ref import din_attention_ref as jax_din_ref
 from repro.kernels.embedding_bag.ops import embedding_bag as jax_embedding_bag
 from repro.kernels.embedding_bag.ref import embedding_bag_ref as jax_bag_ref
 from repro.kernels.rerank_score.ops import rerank_score as jax_rerank_score
 from repro.kernels.rerank_score.ref import rerank_score_ref as jax_rerank_ref
+from repro_torch.kernels.augru import augru, augru_ref
+from repro_torch.kernels.candidate_scorer import (candidate_scorer,
+                                                  candidate_scorer_ref)
 from repro_torch.kernels.din_attention import din_attention
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.rerank_score import rerank_score
@@ -166,3 +175,94 @@ def test_rerank_score_edge_shapes(C, T, rng):
 
 def test_rerank_score_fully_masked_history(rng):
     _rerank_case(64, 24, np.zeros(24), rng)
+
+
+# -------------------------------------------------------------------- augru
+
+def _augru_case(B, T, Din, H, att, rng, w_scale=0.3, u_scale=0.3,
+                b_scale=0.1):
+    arrays = [rng.normal(size=(B, T, Din)), att,
+              rng.normal(size=(Din, 3 * H)) * w_scale,
+              rng.normal(size=(H, 3 * H)) * u_scale,
+              rng.normal(size=(3 * H,)) * b_scale]
+    pairs = [_pair(a) for a in arrays]
+    jx, tx = [p[0] for p in pairs], [p[1] for p in pairs]
+    got = augru(*tx)
+    assert got.shape == (B, H) and got.dtype == torch.float32
+    _check(got, [jax_augru(*jx, interpret=True), jax_augru_ref(*jx),
+                 augru_ref(*tx)], TOL_EDGE)
+    return got
+
+
+@pytest.mark.parametrize("B,T,Din,H", [(8, 8, 8, 8), (16, 100, 18, 108),
+                                       (4, 25, 12, 20)])
+def test_augru_sweep(B, T, Din, H, rng):
+    _augru_case(B, T, Din, H, rng.random((B, T)), rng)
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 7), (4, 1)])
+def test_augru_edge_shapes(B, T, rng):
+    _augru_case(B, T, 6, 10, rng.random((B, T)), rng)
+
+
+def test_augru_zero_attention_freezes_state(rng):
+    """a_t = 0 ⇒ h never moves from 0 (the AUGRU gate algebra)."""
+    got = _augru_case(4, 12, 8, 8, np.zeros((4, 12)), rng, w_scale=1.0,
+                      u_scale=1.0, b_scale=0.0)
+    np.testing.assert_allclose(got.numpy(), 0.0, atol=1e-7)
+
+
+@pytest.mark.parametrize("B", [16, 64])
+def test_augru_dien_path_shapes(B, rng):
+    """The serving path's shapes: a micro-batch (B=16) and a re-ranked
+    request (B=C=64), T=100, Din=H=108, softmax-normalised attention."""
+    att = rng.random((B, 100))
+    _augru_case(B, 100, 108, 108, att / att.sum(-1, keepdims=True), rng,
+                w_scale=1 / np.sqrt(108), u_scale=1 / np.sqrt(108),
+                b_scale=0.0)
+
+
+# --------------------------------------------------------- candidate_scorer
+
+def _scorer_case(cands, q, k, block_c, tol, bf16=False, same_set=True):
+    jd, td = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                          torch.float32)
+    cj, ct = _pair(cands, jd, td)
+    qj, qt = _pair(q, jd, td)
+    v, i = candidate_scorer(ct, qt, k=k)
+    assert v.shape == (k,) and v.dtype == torch.float32
+    assert i.shape == (k,) and i.dtype == torch.int64
+    assert bool((v[:-1] >= v[1:]).all())                       # best first
+    rv, ri = candidate_scorer_ref(ct, qt, k)
+    jv, ji = jax_scorer(cj, qj, k=k, block_c=block_c, interpret=True)
+    rjv, rji = jax_scorer_ref(cj, qj, k)
+    _check(v, [rv, jv, rjv.astype(jnp.float32)], tol)
+    if same_set:
+        want = set(np.asarray(rji).tolist())
+        assert set(i.tolist()) == want == set(np.asarray(ji).tolist())
+        assert set(ri.tolist()) == want
+
+
+@pytest.mark.parametrize("C,D,k,bc", [(4096, 64, 8, 512), (1000, 16, 4, 256),
+                                      (300, 256, 8, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_candidate_scorer_sweep(C, D, k, bc, dtype, rng):
+    bf16 = dtype == "bfloat16"
+    # bf16 near-ties may permute indices (as in tests/test_kernels.py)
+    _scorer_case(rng.normal(size=(C, D)), rng.normal(size=(D,)), k, bc,
+                 TOL_BF16 if bf16 else TOL_F32, bf16=bf16, same_set=not bf16)
+
+
+@pytest.mark.parametrize("C,k", [(64, 1), (17, 4), (128, 128)])
+def test_candidate_scorer_edge_shapes(C, k, rng):
+    _scorer_case(rng.normal(size=(C, 16)), rng.normal(size=(16,)), k, 64,
+                 TOL_F32)
+
+
+def test_candidate_scorer_service_shape(rng):
+    """two-tower retrieve in the service: C=64 l2-normalised item vectors,
+    D=256, the full ranking (k=C)."""
+    v = rng.normal(size=(64, 256))
+    q = rng.normal(size=(256,))
+    _scorer_case(v / np.linalg.norm(v, axis=-1, keepdims=True),
+                 q / np.linalg.norm(q), 64, 1024, TOL_F32)
