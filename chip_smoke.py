@@ -25,14 +25,20 @@ Phases, each printing its lines; any failure exits nonzero:
      two-tower's tables capped at 2**21 rows: two waves of 64 requests,
      every scenario's answers checked, and the launch counts checked
      against each scenario's stage stats;
-  7. the kernel table as one JSON line (launches from phase 6), the card
-     line, and the result.
+  7. the LM decode service (``launch/serve.py::serve_lm`` on ``cuda``) for
+     smollm-135m at its published widths: 6 requests, 4 slots, s_max 64,
+     up to 32 decode steps, flash_decode launched once per layer and step;
+     then the same weights on the CPU (plain versions) against the card
+     over the prefill and 8 teacher-forced decode steps;
+  8. the kernel table as one JSON line (launches from phase 6, and from
+     phase 7 for flash_decode), the card line, and the result.
 
 Needs a CUDA device; exits nonzero without one, and without the
 repository's ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -45,6 +51,7 @@ import time
 # Published H100 SXM peaks (NVIDIA data sheet) for the roofline bound:
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12         # bf16 tensor cores, dense
 
 TOL_F32 = 2e-5                    # tests/test_kernels.py, test_rerank_fused.py
 TOL_EDGE = 3e-5                   # tests/test_kernel_edge_parity.py; augru
@@ -53,6 +60,9 @@ TOL_BF16 = 2e-2                   # tests/test_kernels.py (bf16)
 # different orders (warp reductions, decomposed first layer, CPU BLAS
 # blocking); the reference's own parity tolerance covers that
 TOL_MODEL = 2e-5
+# LM phase: 30 layers of float32 sums in different orders on card and CPU;
+# the reference's own LM tolerance (tests/test_models.py, decode vs prefill)
+TOL_LM = 2e-3
 
 MAIN_VOCAB_LOG2 = 26              # published DIN user_id / item_id rows
 DIN_SERVICE_VOCAB_LOG2 = 20       # phase 5's user_id / item_id rows
@@ -70,6 +80,8 @@ KERNEL_META = {
               "src/repro/kernels/augru/kernel.py:48"),
     "candidate_scorer": ("src/repro_torch/kernels/csrc/candidate_scorer.cu",
                          "src/repro/kernels/candidate_scorer/kernel.py:42"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode/kernel.py:67"),
 }
 
 
@@ -126,9 +138,11 @@ def timings(kernel_fn, plain_fn, library_fn=None) -> dict:
                 library_ms=None if library_fn is None else device_ms(library_fn))
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
+    """The least time for the work: bytes over the memory rate, or
+    operations over the peak rate of their type, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -327,6 +341,7 @@ def kernel_checks(results: dict):
 
     augru_checks(results, rng, t)
     candidate_scorer_checks(results, rng, t)
+    flash_decode_checks(results, rng, t)
     for name, r in results.items():
         print(f"[3] {name} @ {r['shape']}: device time per call (CUDA graph "
               f"replay): kernel {r['ms']} ms, plain {r['plain_ms']} ms, "
@@ -436,6 +451,84 @@ def candidate_scorer_checks(results: dict, rng, t):
                       lambda: candidate_scorer_ref(c, qq, k),
                       lambda: torch.topk(torch.mv(c, qq), k)))
         del c
+        torch.cuda.empty_cache()
+
+
+def flash_decode_checks(results: dict, rng, t):
+    """B6 against its plain version: the reference's sweep cells (2e-5
+    f32, 2e-2 bf16) and edge cells (3e-5), then the path shapes: the LM
+    service's (smollm-135m: B=4, S=64, H=3, G=3, D=64, f32, L=9 and 40),
+    decode_32k at smollm's geometry (B=128, S=32768, L=32763, f32),
+    long_500k at qwen3-8b's (B=1, S=524288, H=8, G=4, D=128, bf16,
+    L=524283) and starcoder2-7b's (B=8, S=4096, H=4, G=9, D=128, bf16,
+    L=4001). The library call is ``scaled_dot_product_attention`` on the
+    valid prefix with ``enable_gqa``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+
+    print("[3] flash_decode vs plain", flush=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def run(q, k, v, L, label, tol):
+        length = torch.tensor(L, dtype=torch.int32, device=q.device)
+        got = flash_decode(q, k, v, length)
+        return length, compare(label, got, flash_decode_ref(q, k, v, length),
+                               tol)
+
+    for B, S, H, G, D, L in [(2, 128, 4, 3, 16, 100), (1, 256, 2, 1, 64, 256),
+                             (4, 64, 8, 4, 32, 1)]:
+        for dtype in (f32, bf16):
+            q, k, v = (t(rng.normal(size=s), dtype)
+                       for s in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
+            run(q, k, v, L, f"B={B} S={S} H={H} G={G} D={D} L={L} "
+                f"{str(dtype)[6:]}", TOL_BF16 if dtype == bf16 else TOL_F32)
+    for B, S, L in [(1, 64, 1), (1, 32, 32), (3, 64, 1)]:
+        q, k, v = (t(rng.normal(size=s))
+                   for s in ((B, 2, 2, 16), (B, S, 2, 16), (B, S, 2, 16)))
+        run(q, k, v, L, f"edge B={B} S={S} L={L}", TOL_EDGE)
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    paths = [("flash_decode", "LM service (smollm-135m)", 4, 64, 3, 3, 64, 40,
+              f32),
+             ("flash_decode@L=9", "LM service (smollm-135m)", 4, 64, 3, 3, 64,
+              9, f32),
+             ("flash_decode@decode_32k", "decode_32k, smollm-135m geometry",
+              128, 32768, 3, 3, 64, 32763, f32),
+             ("flash_decode@long_500k", "long_500k, qwen3-8b geometry", 1,
+              524288, 8, 4, 128, 524283, bf16),
+             ("flash_decode@starcoder2", "starcoder2-7b geometry", 8, 4096, 4,
+              9, 128, 4001, bf16)]
+    for key, where, B, S, H, G, D, L, dtype in paths:
+        shape = (f"{where}: B={B} S={S} H={H} G={G} D={D} L={L} "
+                 f"{str(dtype)[6:]}")
+        q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=dtype)
+                   for s in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
+        length, err = run(q, k, v, L, shape,
+                          TOL_BF16 if dtype == bf16 else TOL_F32)
+
+        def library():
+            # (B, H*G, 1, D) queries against the valid prefix viewed as
+            # (B, H, L, D); query head h*G+g reads kv head h
+            return F.scaled_dot_product_attention(
+                q.reshape(B, H * G, 1, D), k[:, :L].transpose(1, 2),
+                v[:, :L].transpose(1, 2), enable_gqa=True)
+
+        lib_err = float((library().reshape(B, H, G, D).float()
+                         - flash_decode_ref(q, k, v, length).float())
+                        .abs().max())
+        print(f"  {shape}: library call vs plain max_abs_err={lib_err:.3e}",
+              flush=True)
+        item = k.element_size()
+        nbytes = 2 * B * L * H * D * item + 2 * B * H * G * D * item
+        bms, by = bound_ms(nbytes, 4 * B * H * G * L * D,
+                           BF16_FLOPS_PER_S if dtype == bf16
+                           else FP32_FLOPS_PER_S)
+        results[key] = dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by, shape=shape,
+            **timings(lambda: flash_decode(q, k, v, length),
+                      lambda: flash_decode_ref(q, k, v, length), library))
+        del q, k, v
         torch.cuda.empty_cache()
 
 
@@ -558,8 +651,6 @@ def service_run() -> dict:
     """Phase 5: the DIN re-rank InferenceService at published widths,
     user_id / item_id cut to 2^20 rows (DIN runs at its full 2^26 rows in
     phase 6). Returns this phase's launch counts."""
-    import gc
-
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -649,6 +740,8 @@ PER_REQUEST = {"din-rerank": {"embedding_bag": 4, "rerank_score": 1},
                "mind-retrieval": {"embedding_bag": 1},
                "towers-retrieval": {"embedding_bag": 4,
                                     "candidate_scorer": 1}}
+RECSYS_KERNELS = ("embedding_bag", "din_attention", "rerank_score", "augru",
+                  "candidate_scorer")
 
 
 def multi_service_run() -> dict:
@@ -735,11 +828,143 @@ def multi_service_run() -> dict:
                               for k, v in busy.items()), flush=True)
     print(f"[6] launches {counts}, expected from the stage stats {expected}",
           flush=True)
-    check(all(counts[k] > 0 for k in counts), "a kernel was never launched")
+    check(all(counts[k] > 0 for k in RECSYS_KERNELS),
+          "a kernel of the path was never launched")
     check(counts == expected, "launch counts differ from the path's calls")
     print(f"[6] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30} GiB", flush=True)
+    del svc, waves
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
+
+
+def lm_service_run() -> int:
+    """Phase 7: the LM decode service (serve_lm) for smollm-135m at its
+    published widths on the card, weights from a seeded generator there;
+    then the same weights on the CPU against the card over the prefill and
+    8 teacher-forced decode steps. Returns flash_decode's launch count of
+    the service run."""
+    import argparse
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs.lm_archs import SMOLLM_135M as cfg
+    from repro_torch.launch.serve import PROMPT_LEN, S_MAX, serve_lm
+    from repro_torch.models import transformer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[7] LM decode service: {cfg.name} at published widths "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv} kv heads, d_head {cfg.d_head}, ff {cfg.d_ff} GLU, "
+          f"vocab {cfg.vocab}, {cfg.param_dtype})", flush=True)
+    t0 = time.perf_counter()
+    params = transformer.init(torch.Generator("cuda").manual_seed(0), cfg,
+                              "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"[7] {n_params} parameters drawn on the card in "
+          f"{time.perf_counter() - t0} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    weights = sum(x.numel() * x.element_size() for x in _leaves(params))
+    print(f"[7] allocated before serving "
+          f"{torch.cuda.memory_allocated() / 2**30} GiB (weights "
+          f"{weights / 2**30} GiB)", flush=True)
+
+    K.reset_launches()                      # counts from here are the path's
+    fig = serve_lm(argparse.Namespace(arch=cfg.name, requests=6,
+                                      reduced=False),
+                   params=params, device="cuda")
+    counts = K.launch_counts()
+    print(f"[7] decoded steps {fig['steps']}, {fig['ms_per_step']} ms/step, "
+          f"{fig['tokens']} tokens at {fig['tokens_per_s']} tokens/s, slot "
+          f"utilization {fig['utilization']}, completed {fig['completed']}/6;"
+          f" launches {counts} (expected flash_decode {cfg.n_layers} x "
+          f"{fig['steps']}); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30} GiB", flush=True)
+    check(fig["completed"] == 6, "not every request completed")
+    check(counts["flash_decode"] == cfg.n_layers * fig["steps"] > 0,
+          "flash_decode launches differ from layers x decode steps")
+    check(all(counts[k] == 0 for k in RECSYS_KERNELS),
+          "the LM path launched a recsys kernel")
+
+    print(f"[7] card vs CPU, same weights: prefill + 8 teacher-forced decode "
+          f"steps, tol {TOL_LM:g}", flush=True)
+    params_cpu = _to(params, "cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab,
+                                             (4, PROMPT_LEN + 8))
+    tg, tc = torch.as_tensor(toks, device="cuda"), torch.as_tensor(toks)
+
+    def greedy(lg, lc, label):
+        """Token ids equal wherever the CPU's top-2 margin exceeds the
+        tolerance."""
+        top2 = lc.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > TOL_LM
+        same = lg.cpu().argmax(-1) == lc.argmax(-1)
+        check(bool(same[sure].all()), f"{label}: greedy ids differ")
+        return int(sure.sum())
+
+    lg, cg = transformer.prefill(params, tg[:, :PROMPT_LEN], cfg, smax=S_MAX)
+    lc, cc = transformer.prefill(params_cpu, tc[:, :PROMPT_LEN], cfg,
+                                 smax=S_MAX)
+    compare("prefill logits", lg.cpu(), lc, TOL_LM)
+    sure = greedy(lg, lc, "prefill")
+    for step in range(8):
+        at = slice(PROMPT_LEN + step, PROMPT_LEN + step + 1)
+        lg, cg = transformer.decode_step(params, cg, tg[:, at], cfg)
+        lc, cc = transformer.decode_step(params_cpu, cc, tc[:, at], cfg)
+        compare(f"decode step {step} logits", lg.cpu(), lc, TOL_LM)
+        sure += greedy(lg, lc, f"decode step {step}")
+    compare("cache K", cg.a.cpu(), cc.a, TOL_LM)
+    compare("cache V", cg.b.cpu(), cc.b, TOL_LM)
+    check(int(cg.length) == int(cc.length) == PROMPT_LEN + 8,
+          "cache lengths differ")
+    print(f"[7] greedy ids equal at {sure} of {4 * 9} positions with a "
+          f"top-2 margin above {TOL_LM:g}", flush=True)
+    # the device's share of a served step: one decode step replayed from a
+    # CUDA graph (no host in the loop) against the host-driven loop above
+    step_ms = device_ms(lambda: transformer.decode_step(
+        params, cg, tg[:, -1:], cfg), iters=5, replays=4)
+    print(f"[7] decode step B=4 at length {PROMPT_LEN + 8}: device time "
+          f"{step_ms} ms (CUDA graph replay) against {fig['ms_per_step']} "
+          f"ms/step host-driven: device idle share "
+          f"{1 - step_ms / fig['ms_per_step']}", flush=True)
+    _profile_step(lambda: transformer.decode_step(params, cg, tg[:, -1:], cfg))
+    del params, params_cpu, cg, cc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["flash_decode"]
+
+
+def _profile_step(step):
+    """One eager call of ``step`` under torch.profiler: the kernels it ran
+    on the card, their device time, and the largest by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    print(f"[7] profiler, one eager decode step: {launches} kernel launch "
+          f"calls, {sum(e.count for e in kernels)} kernels, device busy "
+          f"{sum(e.self_device_time_total for e in kernels) / 1e3} ms; "
+          f"largest: " + "; ".join(
+              f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3} ms"
+              for e in kernels[:6]), flush=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
 
 
 # --------------------------------------------------------------------- main
@@ -789,6 +1014,8 @@ def main() -> int:
         print(f"[5] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         counts = multi_service_run()
         print(f"[6] done at {time.perf_counter() - t_run:.1f} s", flush=True)
+        counts["flash_decode"] = lm_service_run()
+        print(f"[7] done at {time.perf_counter() - t_run:.1f} s", flush=True)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)

@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: C entry points of the library: name → argument types. Each returns the
 #: ``cudaGetLastError()`` after its launch as an int (0 = success).
 SIGNATURES = {
@@ -49,10 +49,12 @@ SIGNATURES = {
     "augru_f32": [_P] * 7 + [_I] * 4 + [_P],
     "candidate_scorer_f32": [_P] * 4 + [_I] * 4 + [_P],
     "candidate_scorer_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "flash_decode_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "flash_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
 }
 
 LAUNCHES = {"embedding_bag": 0, "din_attention": 0, "rerank_score": 0,
-            "augru": 0, "candidate_scorer": 0}
+            "augru": 0, "candidate_scorer": 0, "flash_decode": 0}
 _launch_lock = threading.Lock()
 _lib = None
 _lib_lock = threading.Lock()

@@ -1,0 +1,4 @@
+from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+__all__ = ["flash_decode", "flash_decode_ref"]

@@ -1,6 +1,6 @@
-"""Shared dense building blocks (activation, dense layer, MLP tower) as
-plain functions on parameter dicts of tensors — the reference's pytree
-layout, so weights carry across unchanged."""
+"""Shared building blocks (activation, dense layer, MLP tower, norms, RoPE,
+the transformer FFN) as plain functions on parameter dicts of tensors —
+the reference's pytree layout, so weights carry across unchanged."""
 from __future__ import annotations
 
 import numpy as np
@@ -55,3 +55,96 @@ def mlp_tower_apply(layers: list, x: torch.Tensor, act: str = "silu",
         if i < len(layers) - 1 or final_act:
             x = activation(x, act)
     return x
+
+
+# ------------------------------------------------- parameter draws, dtypes
+
+def as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or a name ("float32", "bfloat16")."""
+    return dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))
+
+
+def randn_scaled(generator, shape, scale, device):
+    """N(0, scale²) in float32, drawn from ``generator`` on ``device``."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device) * scale
+
+
+# ---------------------------------------------------------------- norms
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """In float32, cast back to ``x``'s dtype (as the reference does)."""
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+def norm_apply(x, p, kind: str, eps: float):
+    if kind == "layernorm":
+        return layernorm(x, p["scale"], p["bias"], eps)
+    return rmsnorm(x, p["scale"], eps)
+
+
+def norm_init(d: int, kind: str, dtype, device=None) -> dict:
+    dev = default_device(device)
+    dt = as_dtype(dtype)
+    p = {"scale": torch.ones((d,), dtype=dt, device=dev)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dt, device=dev)
+    return p
+
+
+# ---------------------------------------------------------------- RoPE
+
+def rope_freqs(d_rot: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_rot, 2, dtype=torch.float32, device=device) / d_rot
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., S, H, D) with positions (..., S): rotate the full D, in
+    float32 on float positions."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                       # (D/2,)
+    angles = positions[..., None].float() * freqs                # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                        # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- MLP
+
+def mlp_init(generator: torch.Generator, d_in: int, d_ff: int, d_out: int,
+             glu: bool, dtype, device=None) -> dict:
+    """{"w1" (d_in, d_ff), "w2" (d_ff, d_out)[, "w3" (d_in, d_ff)]} drawn
+    from ``generator`` (which must live on ``device``)."""
+    dev = default_device(device)
+    s_in, s_ff = 1.0 / np.sqrt(d_in), 1.0 / np.sqrt(d_ff)
+    p = {"w1": randn_scaled(generator, (d_in, d_ff), s_in, dev),
+         "w2": randn_scaled(generator, (d_ff, d_out), s_ff, dev)}
+    if glu:
+        p["w3"] = randn_scaled(generator, (d_in, d_ff), s_in, dev)
+    dt = as_dtype(dtype)
+    return {k: v.to(dt) for k, v in p.items()}
+
+
+def mlp_apply(p: dict, x: torch.Tensor, act: str, glu: bool) -> torch.Tensor:
+    h = activation(x @ p["w1"], act)
+    if glu:
+        h = h * (x @ p["w3"])
+    return h @ p["w2"]

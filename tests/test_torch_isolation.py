@@ -29,6 +29,7 @@ from repro_torch.kernels.augru import ops as augru_ops
 from repro_torch.kernels.candidate_scorer import ops as scorer_ops
 from repro_torch.kernels.din_attention import ops as din_ops
 from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.flash_decode import ops as decode_ops
 from repro_torch.kernels.rerank_score import ops as rerank_ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -137,6 +138,37 @@ def test_service_serves_with_jax_and_reference_blocked():
     assert "served 8 and 32" in out.stdout
 
 
+def test_lm_service_serves_with_jax_and_reference_blocked():
+    """A fresh interpreter in which ``import jax`` and ``import repro``
+    fail imports the LM path (transformer, attention, MoE, the
+    flash_decode kernel's wrapper, the launcher) and serves 6 requests of
+    reduced smollm-135m on the CPU."""
+    script = textwrap.dedent("""
+        import argparse
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.kernels.flash_decode
+        import repro_torch.models.attention
+        import repro_torch.models.moe
+        import repro_torch.models.transformer
+        from repro_torch.launch.serve import serve_lm
+        fig = serve_lm(argparse.Namespace(arch="smollm-135m", requests=6,
+                                          reduced=True), device="cpu")
+        assert fig["completed"] == 6 and fig["steps"] > 0, fig
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                        and sys.modules[m] is not None)
+        assert not loaded, loaded
+        print("completed", fig["completed"])
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)),
+                         capture_output=True, text=True, timeout=150)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "completed 6" in out.stdout
+
+
 # ------------------------------------------------------- default device
 
 def _entry_points():
@@ -151,6 +183,9 @@ def _entry_points():
     from repro_torch.serve.bucketing import (ShapeBucketer,
                                              bucketed_candidate_rerank)
     from repro_torch.sparse.embedding import TableSpec, init_table
+    from repro_torch.convert import kv_cache_from_numpy
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import moe, transformer
 
     def reduced(arch_id):
         arch = registry.get(arch_id)
@@ -176,6 +211,20 @@ def _entry_points():
         "params_from_numpy": lambda: params_from_numpy({"w": np.zeros(2)}),
         "bucketed_candidate_rerank": lambda: bucketed_candidate_rerank(
             None, None, None, {}, [(1, 0.5)], one, one),
+        "transformer.init": lambda: transformer.init(
+            torch.Generator(), reduced("smollm-135m")),
+        "KVCache.zeros": lambda: transformer.KVCache.zeros(
+            reduced("smollm-135m"), 1, 8),
+        "kv_cache_from_numpy": lambda: kv_cache_from_numpy(
+            transformer.KVCache(np.zeros(2), np.zeros(2), np.int32(0))),
+        "norm_init": lambda: layers.norm_init(4, "rmsnorm", "float32"),
+        "mlp_init": lambda: layers.mlp_init(torch.Generator(), 4, 8, 4, True,
+                                            "float32"),
+        "moe_expert_init": lambda: moe.moe_expert_init(
+            torch.Generator(), 8, reduced("deepseek-v2-lite-16b").moe,
+            "float32"),
+        "serve_lm": lambda: serve_lm(types.SimpleNamespace(
+            arch="smollm-135m", requests=1, reduced=True)),
     }
 
 
@@ -246,7 +295,8 @@ def fake_card(monkeypatch):
             argtypes = K.SIGNATURES[name]
             assert len(args) == len(argtypes), name
             for a, ty in zip(args, argtypes):
-                assert a is None or isinstance(a, int), (name, a)
+                want = float if ty is ctypes.c_float else int
+                assert a is None or isinstance(a, want), (name, a)
                 ty(a)                     # fits the declared C type
             calls.append((name, args))
             return status["rc"]
@@ -265,9 +315,26 @@ def fake_card(monkeypatch):
                      (din_ops, "din_attention_ref"),
                      (rerank_ops, "rerank_score_ref"),
                      (augru_ops, "augru_ref"),
-                     (scorer_ops, "candidate_scorer_ref")):
+                     (scorer_ops, "candidate_scorer_ref"),
+                     (decode_ops, "flash_decode_ref")):
         monkeypatch.setattr(mod, ref, reached_plain)
     return calls, status
+
+
+class DeviceLength(FakeCuda):
+    """A valid length held on the card: reading it on the host (``.item()``,
+    ``int()``) would wait for the device, and fails the test."""
+
+    def __init__(self, n: int):
+        super().__init__(torch.tensor(n, dtype=torch.int32))
+
+    def item(self):
+        raise AssertionError("cache_len was read on the host")
+
+    def __int__(self):
+        raise AssertionError("cache_len was read on the host")
+
+    __index__ = __int__
 
 
 def _rng_tensors(rng, *shapes):
@@ -293,6 +360,9 @@ def _launch_cases(rng):
     augru_args = _rng_tensors(rng, (B, T, Din), (B, T), (Din, 3 * H),
                               (H, 3 * H), (3 * H,))
     cands, query = _rng_tensors(rng, (C, 2 * D), (2 * D,))
+    S, Hkv, G, Dh = 40, 2, 3, 16
+    q, kc, vc = _rng_tensors(rng, (B, Hkv, G, Dh), (B, S, Hkv, Dh),
+                             (B, S, Hkv, Dh))
     return {
         "embedding_bag": (lambda: bag_ops.embedding_bag(table, ids, w, "mean"),
                           [(B, D)], "embedding_bag_f32"),
@@ -306,11 +376,14 @@ def _launch_cases(rng):
         # one block of candidates: the kernel's own top-k is the answer
         "candidate_scorer": (lambda: scorer_ops.candidate_scorer(
             cands, query, k=3), [(3,), (3,)], "candidate_scorer_f32"),
+        "flash_decode": (lambda: decode_ops.flash_decode(
+            q, kc, vc, DeviceLength(S - 3)), [(B, Hkv, G, Dh)],
+            "flash_decode_f32"),
     }
 
 
 KERNELS = ["embedding_bag", "din_attention", "rerank_score", "augru",
-           "candidate_scorer"]
+           "candidate_scorer", "flash_decode"]
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -343,6 +416,35 @@ def test_failed_launch_raises_and_is_not_counted(kernel, fake_card, rng):
     with pytest.raises(RuntimeError, match="launch failed"):
         fn()
     assert K.launch_counts() == before
+
+
+def test_flash_decode_wrapper_reads_the_length_on_the_device(fake_card, rng):
+    """The wrapper hands the kernel the length's device address (never its
+    value), allocates the (B,H,G,D) output and a float32 workspace of one
+    (m, l, acc[G,D]) per (b, h, split), and splits S by the shapes alone."""
+    calls, _status = fake_card
+    B, S, H, G, D = 2, 700, 3, 4, 32
+    q, kc, vc = _rng_tensors(rng, (B, H, G, D), (B, S, H, D), (B, S, H, D))
+    length = DeviceLength(650)
+    out = decode_ops.flash_decode(q, kc, vc, length, scale=0.25)
+    (name, args), = calls
+    assert name == "flash_decode_f32" and isinstance(out, FakeCuda)
+    assert tuple(out.shape) == (B, H, G, D)
+    chunk, n_split = decode_ops.split_plan(B, H, S)
+    assert chunk % decode_ops.TILE == 0 and (n_split - 1) * chunk < S <= \
+        n_split * chunk
+    ptrs = args[:6]
+    assert ptrs[:4] == (q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                        length.data_ptr())
+    assert ptrs[5] == out.data_ptr()
+    assert args[6:13] == (B, H, G, D, S, chunk, n_split)
+    assert args[13] == 0.25
+    with pytest.raises(ValueError, match="int32"):
+        decode_ops.flash_decode(q, kc, vc, FakeCuda(torch.tensor(5)))
+    with pytest.raises(ValueError, match="head dim"):
+        q2, k2, v2 = _rng_tensors(rng, (1, 1, 1, 24), (1, 8, 1, 24),
+                                  (1, 8, 1, 24))
+        decode_ops.flash_decode(q2, k2, v2, DeviceLength(4))
 
 
 def test_mixed_devices_reach_neither_version():
@@ -387,7 +489,8 @@ def test_library_signatures_match_the_sources():
 @pytest.mark.parametrize("source,module,names", [
     ("din_attention.cu", din_ops, {"kChunk": "CHUNK"}),
     ("rerank_score.cu", rerank_ops, {"kChunk": "CHUNK", "kCands": "CANDS"}),
-    ("candidate_scorer.cu", scorer_ops, {"kBlockC": "BLOCK_C"})])
+    ("candidate_scorer.cu", scorer_ops, {"kBlockC": "BLOCK_C"}),
+    ("flash_decode.cu", decode_ops, {"kTile": "TILE"})])
 def test_wrapper_tiling_constants_match_the_sources(source, module, names):
     """The wrappers size their scratch and shared memory with the same
     tile constants the kernels are compiled with."""

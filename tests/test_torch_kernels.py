@@ -1,8 +1,8 @@
 """The port's kernels, plain versions (CPU), against the reference: the JAX
 ops in Pallas interpret mode and the reference's ref.py oracles, on the
 reference's own sweep and edge cells and at its tolerances (2e-5 f32,
-3e-5 on edge cells and for augru, 2e-2 bf16; candidate_scorer's f32 index
-sets equal). The CUDA kernels themselves run only on the card
+3e-5 on edge cells, for augru and for flash_decode against the model's
+decode_attention, 2e-2 bf16; candidate_scorer's f32 index sets equal). The CUDA kernels themselves run only on the card
 (chip_smoke.py holds each against these plain versions)."""
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +18,9 @@ from repro.kernels.din_attention.ops import din_attention as jax_din_attention
 from repro.kernels.din_attention.ref import din_attention_ref as jax_din_ref
 from repro.kernels.embedding_bag.ops import embedding_bag as jax_embedding_bag
 from repro.kernels.embedding_bag.ref import embedding_bag_ref as jax_bag_ref
+from repro.kernels.flash_decode.ops import flash_decode as jax_flash_decode
+from repro.kernels.flash_decode.ref import flash_decode_ref as jax_decode_ref
+from repro.models.attention import decode_attention as jax_decode_attention
 from repro.kernels.rerank_score.ops import rerank_score as jax_rerank_score
 from repro.kernels.rerank_score.ref import rerank_score_ref as jax_rerank_ref
 from repro_torch.kernels.augru import augru, augru_ref
@@ -25,6 +28,8 @@ from repro_torch.kernels.candidate_scorer import (candidate_scorer,
                                                   candidate_scorer_ref)
 from repro_torch.kernels.din_attention import din_attention
 from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+from repro_torch.models.attention import decode_attention
 from repro_torch.kernels.rerank_score import rerank_score
 
 TOL_F32 = dict(rtol=2e-5, atol=2e-5)
@@ -266,3 +271,57 @@ def test_candidate_scorer_service_shape(rng):
     q = rng.normal(size=(256,))
     _scorer_case(v / np.linalg.norm(v, axis=-1, keepdims=True),
                  q / np.linalg.norm(q), 64, 1024, TOL_F32)
+
+
+# ------------------------------------------------------------- flash_decode
+
+def _decode_case(B, S, H, G, D, L, tol, jdtype=jnp.float32,
+                 tdtype=torch.float32, rng=None):
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.normal(size=s), jdtype, tdtype)
+        for s in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
+    got = flash_decode(qt, kt, vt, torch.tensor(L, dtype=torch.int32))
+    assert got.dtype == tdtype and got.shape == (B, H, G, D)
+    _check(got, [jax_flash_decode(qj, kj, vj, L, block_k=32,
+                                  interpret=True).astype(jnp.float32),
+                 jax_decode_ref(qj, kj, vj, L).astype(jnp.float32)], tol)
+    return (qj, kj, vj), (qt, kt, vt)
+
+
+@pytest.mark.parametrize("B,S,H,G,D,L", [(2, 128, 4, 3, 16, 100),
+                                         (1, 256, 2, 1, 64, 256),
+                                         (4, 64, 8, 4, 32, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_sweep(B, S, H, G, D, L, dtype, rng):
+    bf16 = dtype == "bfloat16"
+    _decode_case(B, S, H, G, D, L, TOL_BF16 if bf16 else TOL_F32,
+                 jnp.bfloat16 if bf16 else jnp.float32,
+                 torch.bfloat16 if bf16 else torch.float32, rng=rng)
+
+
+@pytest.mark.parametrize("B,S,L", [(1, 64, 1), (1, 32, 32), (3, 64, 1)])
+def test_flash_decode_edge_shapes(B, S, L, rng):
+    _decode_case(B, S, 2, 2, 16, L, TOL_EDGE, rng=rng)
+
+
+@pytest.mark.parametrize("L", [70, 96])
+def test_flash_decode_matches_model_decode_path(L, rng):
+    """The plain version ≡ the model's decode_attention, the reference's
+    and the port's (the reference's tolerance, 3e-5)."""
+    B, S, H, G, D = 2, 96, 2, 2, 16
+    (qj, kj, vj), (qt, kt, vt) = _decode_case(B, S, H, G, D, L, TOL_F32,
+                                              rng=rng)
+    got = flash_decode_ref(qt, kt, vt, L)
+    _check(got, [jax_decode_attention(qj[:, None], kj, vj,
+                                      jnp.asarray(L))[:, 0]], TOL_EDGE)
+    _check(got, [decode_attention(qt[:, None], kt, vt, L)[:, 0].numpy()],
+           TOL_EDGE)
+
+
+def test_flash_decode_plain_version_takes_a_scale(rng):
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+               for s in ((1, 2, 2, 16), (1, 10, 2, 16), (1, 10, 2, 16)))
+    qj, kj, vj = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    _check(flash_decode(q, k, v, 7, scale=0.5),
+           [jax_decode_attention(qj[:, None], kj, vj, 7, scale=0.5)[:, 0]],
+           TOL_EDGE)
