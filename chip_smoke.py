@@ -33,6 +33,10 @@ Phases, each printing its lines; any failure exits nonzero:
   8. the kernel table as one JSON line (launches from phase 6, and from
      phase 7 for flash_decode), the card line, and the result.
 
+With ``--baseline DIR`` the run stops after phase 3 and times the first
+design of flash_decode and candidate_scorer, built from DIR, beside the
+current kernels (phase 3b; see ``baseline_run``).
+
 Needs a CUDA device; exits nonzero without one, and without the
 repository's ``src/repro_torch`` beside this script.
 """
@@ -402,9 +406,10 @@ def augru_checks(results: dict, rng, t):
 
 def candidate_scorer_checks(results: dict, rng, t):
     """B5 against its plain version: the reference's sweep cells in f32
-    (2e-5 and equal index sets) and bf16 (2e-2), its edge cells, the
-    two-tower service shape (C=64, D=256, k=C) and the recall shape
-    (C=10^6, D=256, k=8)."""
+    (2e-5 and equal index sets) and bf16 (2e-2), its edge cells, the full
+    ranking k = C from one to four blocks, exact ties (lowest index
+    first), the two-tower service shape (C=64, D=256, k=C; f32 and bf16)
+    and the recall shape (C=10^6, D=256, k=8)."""
     import numpy as np
     import torch
     from repro_torch.kernels.candidate_scorer import (candidate_scorer,
@@ -431,10 +436,33 @@ def candidate_scorer_checks(results: dict, rng, t):
     for C, k in [(64, 1), (17, 4), (128, 128)]:
         case(rng.normal(size=(C, 16)), rng.normal(size=(16,)), k,
              f"edge C={C} k={k}")
+    # the full ranking (k = C) across block sizes and block counts
+    for C in (1, 17, 64, 1000, 1024, 1025, 4096):
+        for dtype in (torch.float32, torch.bfloat16):
+            case(rng.normal(size=(C, 32)), rng.normal(size=(32,)), C,
+                 f"k=C={C} D=32 {str(dtype)[6:]}", dtype)
+    # exact ties: repeated rows score bit-for-bit alike; the kernel's
+    # order is score descending, then index ascending, against the plain
+    # version's scores (the groups lie far apart)
+    for C, k, groups in ((64, 64, 16), (64, 10, 16), (1000, 1000, 40),
+                         (1000, 37, 40), (1024, 100, 7)):
+        base = rng.normal(size=(groups, 64))
+        rows = base[rng.integers(0, groups, C)]
+        c, qq = t(rows), t(rng.normal(size=(64,)))
+        v, i = candidate_scorer(c, qq, k)
+        plain = (c @ qq).cpu().numpy()
+        want = np.lexsort((np.arange(C), -plain))[:k]
+        compare(f"ties C={C} k={k} ({groups} distinct rows)", v,
+                torch.as_tensor(plain[want]).to(v.device), TOL_F32)
+        check(i.cpu().numpy().tolist() == want.tolist(),
+              f"ties C={C} k={k}: indices differ from score-then-index "
+              f"order")
 
     def unit(a):
         return a / np.linalg.norm(a, axis=-1, keepdims=True)
 
+    case(unit(rng.normal(size=(64, 256))), unit(rng.normal(size=(256,))),
+         64, "service C=64 D=256 k=64 bfloat16", torch.bfloat16)
     for C, k, key in ((64, 64, "candidate_scorer"),
                       (1_000_000, 8, "candidate_scorer@C=1e6")):
         D = 256
@@ -461,11 +489,14 @@ def flash_decode_checks(results: dict, rng, t):
     decode_32k at smollm's geometry (B=128, S=32768, L=32763, f32),
     long_500k at qwen3-8b's (B=1, S=524288, H=8, G=4, D=128, bf16,
     L=524283) and starcoder2-7b's (B=8, S=4096, H=4, G=9, D=128, bf16,
-    L=4001). The library call is ``scaled_dot_product_attention`` on the
-    valid prefix with ``enable_gqa``."""
+    L=4001); beside them G=9 in f32, a bf16 serve-like shape at qwen3-8b's
+    geometry, every bf16 head dim, and lengths at the plan's split
+    boundaries. The library call is ``scaled_dot_product_attention`` on
+    the valid prefix with ``enable_gqa``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    from repro_torch.kernels.flash_decode.ops import device_slots, split_plan
 
     print("[3] flash_decode vs plain", flush=True)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -487,6 +518,32 @@ def flash_decode_checks(results: dict, rng, t):
         q, k, v = (t(rng.normal(size=s))
                    for s in ((B, 2, 2, 16), (B, S, 2, 16), (B, S, 2, 16)))
         run(q, k, v, L, f"edge B={B} S={S} L={L}", TOL_EDGE)
+    # G=9 at D=128 in float32 (starcoder2-7b's group off the tensor
+    # cores), the bf16 serve-like shape at qwen3-8b's geometry, every head
+    # dim and group of the bf16 path
+    for B, S, H, G, D, L, dtype in [(2, 512, 4, 9, 128, 500, f32),
+                                    (4, 64, 8, 4, 128, 40, bf16),
+                                    (2, 300, 2, 9, 16, 257, bf16),
+                                    (2, 300, 2, 16, 32, 299, bf16),
+                                    (2, 200, 3, 3, 64, 131, bf16)]:
+        q, k, v = (t(rng.normal(size=s), dtype)
+                   for s in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
+        run(q, k, v, L, f"B={B} S={S} H={H} G={G} D={D} L={L} "
+            f"{str(dtype)[6:]}", TOL_BF16 if dtype == bf16 else TOL_F32)
+    # lengths that end on, just before and just past a split boundary of
+    # the plan this card gives the shape
+    for B, S, H, G, D, dtype in [(1, 4096, 8, 4, 128, bf16),
+                                 (2, 4096, 3, 3, 64, f32)]:
+        slots = device_slots(torch.device("cuda"), dtype, G, D)
+        chunk, n_split = split_plan(B, H, S, slots)
+        check(n_split > 2, f"S={S}: the plan has {n_split} splits")
+        q, k, v = (t(rng.normal(size=s), dtype)
+                   for s in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
+        for L in (chunk - 1, chunk, chunk + 1, 2 * chunk - 1, 2 * chunk,
+                  2 * chunk + 1):
+            run(q, k, v, L, f"split boundary B={B} S={S} H={H} G={G} D={D} "
+                f"L={L} (chunk {chunk}, {n_split} splits, {slots} slots) "
+                f"{str(dtype)[6:]}", TOL_BF16 if dtype == bf16 else TOL_F32)
 
     gen = torch.Generator("cuda").manual_seed(0)
     paths = [("flash_decode", "LM service (smollm-135m)", 4, 64, 3, 3, 64, 40,
@@ -504,6 +561,9 @@ def flash_decode_checks(results: dict, rng, t):
                  f"{str(dtype)[6:]}")
         q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=dtype)
                    for s in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
+        slots = device_slots(q.device, dtype, G, D)
+        chunk, n_split = split_plan(B, H, S, slots)
+        shape += f" ({n_split} splits of {chunk} rows, {slots} slots)"
         length, err = run(q, k, v, L, shape,
                           TOL_BF16 if dtype == bf16 else TOL_F32)
 
@@ -529,6 +589,156 @@ def flash_decode_checks(results: dict, rng, t):
             **timings(lambda: flash_decode(q, k, v, length),
                       lambda: flash_decode_ref(q, k, v, length), library))
         del q, k, v
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------- phase 3b (--baseline DIR)
+
+def baseline_run(src_dir: str):
+    """The first design of flash_decode and candidate_scorer (commit
+    61b208e: ``flash_decode.cu``, ``candidate_scorer.cu`` and
+    ``common.cuh`` in ``src_dir``, e.g. from ``git show
+    61b208e:src/repro_torch/kernels/csrc/<file>``), built with the same
+    nvcc flags and timed beside the current kernels at the path shapes of
+    phase 3, in turns (first, current, current, first; CUDA-graph
+    replay). Also: the first design under a whole-wave split plan and
+    with cache_len = 0 (its launches and combine without the cache), the
+    current kernel with cache_len = 0, and B5's two selection methods."""
+    import ctypes
+
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.candidate_scorer import ops as cs_ops
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+
+    so = os.path.join(src_dir, "libbaseline.so")
+    proc = subprocess.run(
+        [K._nvcc(), *K.NVCC_FLAGS, os.path.join(src_dir, "flash_decode.cu"),
+         os.path.join(src_dir, "candidate_scorer.cu"), "-o", so],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    check(proc.returncode == 0, "baseline build failed:\n" + proc.stdout)
+    lib = ctypes.CDLL(so)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in ("flash_decode_f32", "flash_decode_bf16"):
+        getattr(lib, name).argtypes = [P] * 6 + [I] * 7 + [Fl, P]
+    for name in ("candidate_scorer_f32", "candidate_scorer_bf16"):
+        getattr(lib, name).argtypes = [P] * 4 + [I] * 4 + [P]
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def first_plan(B, H, S):
+        """the first design's split plan: >= 256 rows a split, B·H·n_split
+        aiming at 1,056 blocks, chunks of 32-row tiles"""
+        n = max(1, min(-(-S // 256), -(-1056 // max(1, B * H))))
+        chunk = -(-(-(-S // n)) // 32) * 32
+        return chunk, -(-S // chunk)
+
+    def first_wave_plan(B, H, S, G, D):
+        """the first design's kernel with B·H·n_split filling one wave of
+        its resident blocks (shared memory sets them: 4 (2·32·D + 2·G·D +
+        32·G + 3·G) bytes a block, 1 KB reserved, at most 16 blocks of 128
+        threads)"""
+        smem = 4 * (2 * 32 * D + 2 * G * D + 32 * G + 3 * G)
+        per_sm = min(16, 233472 // (smem + 1024))
+        n = max(1, 132 * per_sm // (B * H))
+        chunk = -(-(-(-S // n)) // 32) * 32
+        return chunk, -(-S // chunk)
+
+    def first_fd(q, k, v, length, plan):
+        B, H, G, D = q.shape
+        S = k.shape[1]
+        chunk, n_split = plan
+        work = torch.empty((B * H * n_split * G * (D + 2),),
+                           dtype=torch.float32, device=q.device)
+        out = torch.empty_like(q)
+        fn = (lib.flash_decode_bf16 if q.dtype == torch.bfloat16
+              else lib.flash_decode_f32)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+                 work.data_ptr(), out.data_ptr(), B, H, G, D, S, chunk,
+                 n_split, 1.0 / math.sqrt(D), stream())
+        check(err == 0, f"baseline flash_decode: CUDA error {err}")
+        return out
+
+    def first_cs(c, qq, k):
+        C, D = c.shape
+        blocks = -(-C // 1024)
+        vals = torch.empty((blocks * k,), dtype=torch.float32, device=c.device)
+        idx = torch.empty((blocks * k,), dtype=torch.int64, device=c.device)
+        fn = (lib.candidate_scorer_bf16 if c.dtype == torch.bfloat16
+              else lib.candidate_scorer_f32)
+        err = fn(c.data_ptr(), qq.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                 C, D, k, int(D % (16 // c.element_size()) == 0), stream())
+        check(err == 0, f"baseline candidate_scorer: CUDA error {err}")
+        if blocks == 1:
+            return vals, idx
+        v, pos = torch.topk(vals, k)
+        return v, idx[pos]
+
+    def current_cs(c, qq, k, sort):
+        """the current kernel with its selection method given"""
+        C, D = c.shape
+        blocks = -(-C // cs_ops.BLOCK_C)
+        threads, _ = cs_ops.block_plan(C, k)
+        vals = torch.empty((blocks * k,), dtype=torch.float32, device=c.device)
+        idx = torch.empty((blocks * k,), dtype=torch.int64, device=c.device)
+        K.launch(cs_ops._ENTRY[c.dtype], "candidate_scorer", c.device,
+                 c.data_ptr(), qq.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                 C, D, k, int(D % (16 // c.element_size()) == 0), threads,
+                 int(sort))
+        return vals, idx
+
+    def turns(label, first, current, extra=()):
+        a, b, c, d = (device_ms(f) for f in (first, current, current, first))
+        line = {"shape": label, "first_ms": [a, d], "current_ms": [b, c]}
+        line.update({key: device_ms(f) for key, f in extra})
+        print(f"[3b] {json.dumps(line)}", flush=True)
+
+    print(f"[3b] first design built from {src_dir}; times in ms, CUDA-graph "
+          f"replay", flush=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(0)
+    for label, B, S, H, G, D, L, dtype in [
+            ("flash_decode serve_lm", 4, 64, 3, 3, 64, 40, f32),
+            ("flash_decode serve_lm L=9", 4, 64, 3, 3, 64, 9, f32),
+            ("flash_decode decode_32k", 128, 32768, 3, 3, 64, 32763, f32),
+            ("flash_decode long_500k", 1, 524288, 8, 4, 128, 524283, bf16),
+            ("flash_decode starcoder2", 8, 4096, 4, 9, 128, 4001, bf16),
+            ("flash_decode bf16 serve-like qwen3-8b", 4, 64, 8, 4, 128, 40,
+             bf16)]:
+        q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=dtype)
+                   for s in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
+        length = torch.tensor(L, dtype=torch.int32, device="cuda")
+        empty = torch.zeros((), dtype=torch.int32, device="cuda")
+        own, wave = first_plan(B, H, S), first_wave_plan(B, H, S, G, D)
+        extra = [(f"first_whole_wave_ms {wave}",
+                  lambda: first_fd(q, k, v, length, wave)),
+                 ("first_cache_len_0_ms",
+                  lambda: first_fd(q, k, v, empty, own)),
+                 ("current_cache_len_0_ms",
+                  lambda: flash_decode(q, k, v, empty))] if S > 64 else []
+        turns(f"{label} (first plan {own}, current plan "
+              f"{fd_ops.split_plan(B, H, S, fd_ops.device_slots(q.device, dtype, G, D))})",
+              lambda: first_fd(q, k, v, length, own),
+              lambda: flash_decode(q, k, v, length), extra)
+        del q, k, v
+        torch.cuda.empty_cache()
+    from repro_torch.kernels.candidate_scorer import candidate_scorer
+    for label, C, k, dtype in [("service", 64, 64, f32),
+                               ("service bf16", 64, 64, bf16),
+                               ("recall", 1_000_000, 8, f32),
+                               ("recall bf16", 1_000_000, 8, bf16),
+                               ("recall k=24", 1_000_000, 24, f32),
+                               ("recall k=32", 1_000_000, 32, f32)]:
+        c = torch.randn((C, 256), generator=gen, device="cuda", dtype=dtype)
+        qq = torch.randn((256,), generator=gen, device="cuda", dtype=dtype)
+        turns(f"candidate_scorer {label} C={C} D=256 k={k}",
+              lambda: first_cs(c, qq, k), lambda: candidate_scorer(c, qq, k),
+              [("current_sort_ms", lambda: current_cs(c, qq, k, True)),
+               ("current_argmax_ms", lambda: current_cs(c, qq, k, False)),
+               ("current_argmax_k1_ms", lambda: current_cs(c, qq, 1, False))])
+        del c
         torch.cuda.empty_cache()
 
 
@@ -970,7 +1180,16 @@ def _leaves(tree):
 # --------------------------------------------------------------------- main
 
 def main() -> int:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="after phase 3, build the first design of "
+                         "flash_decode and candidate_scorer from DIR and time "
+                         "it beside the current kernels (phase 3b); phases "
+                         "4-8 are skipped")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
         return 1
@@ -1008,6 +1227,15 @@ def main() -> int:
         results: dict = {}
         kernel_checks(results)
         print(f"[3] done at {time.perf_counter() - t_run:.1f} s", flush=True)
+        if args.baseline:
+            baseline_run(args.baseline)
+            print(f"[3b] done at {time.perf_counter() - t_run:.1f} s",
+                  flush=True)
+            print(card, flush=True)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+            return 0
         model_check()
         print(f"[4] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         service_run()

@@ -1,43 +1,88 @@
 """Wrapper of the split-K flash-decode kernel (``csrc/flash_decode.cu``).
 
 The kernel splits the cache's sequence axis across blocks, one block per
-(batch row, kv head, split); each block writes a partial (m, l, acc) to a
-float32 workspace this wrapper allocates, and a second kernel combines the
-splits in a fixed order. The valid length is read on the device, so a
-decode loop never waits on the host, and the launch can be captured into a
-CUDA graph.
+(batch row, kv head, split). :func:`split_plan` sizes the splits from the
+shapes and the card alone (its SM count and the kernel's resident blocks
+per SM, read once per device), so that the blocks fill whole waves. With
+one split the block writes the output itself; otherwise each block writes
+a partial (m, l, acc) to a float32 workspace this wrapper allocates and a
+second kernel combines the splits in a fixed order. The valid length is
+read on the device, so a decode loop never waits on the host, and the
+launch can be captured into a CUDA graph.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
 
+from repro_torch import kernels as K
 from repro_torch.kernels import launch, on_cpu, require
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
-#: cache rows per tile (``kTile`` in the source)
-TILE = 32
-#: the least cache rows a split covers, and the blocks the split aims for
-MIN_CHUNK, TARGET_BLOCKS = 256, 1056
+#: cache rows of a split granule (``kTile`` in the source): each of a
+#: block's four warps takes 16-row tiles; chunks are multiples of TILE
+TILE = 64
+#: the least cache rows a split covers
+MIN_CHUNK = 256
+#: a block's cost beyond its tiles (q, the ring's fill, the warps' merge,
+#: the partial it writes), in tiles: keeps the plan off many tiny splits
+SPLIT_OVERHEAD = 2
 SMEM_BYTES = 232448
 HEAD_DIMS = (16, 32, 64, 128)
+#: query heads per kv head the bf16 path takes (two 8-wide mma N tiles)
+MAX_GROUP_BF16 = 16
 _ENTRY = {torch.float32: "flash_decode_f32", torch.bfloat16: "flash_decode_bf16"}
+_slots: dict = {}
 
 
-def split_plan(B: int, H: int, S: int) -> tuple[int, int]:
+@functools.lru_cache(maxsize=4096)
+def split_plan(B: int, H: int, S: int, slots: int) -> tuple[int, int]:
     """(chunk, n_split): cache rows per split (a multiple of TILE) and the
-    number of splits, fixed by the shapes alone. Each split covers at least
-    MIN_CHUNK rows; B·H·n_split aims at TARGET_BLOCKS blocks."""
-    n = max(1, min(-(-S // MIN_CHUNK), -(-TARGET_BLOCKS // max(1, B * H))))
-    rows = -(-S // n)
-    chunk = -(-rows // TILE) * TILE
-    return chunk, -(-S // chunk)
+    number of splits, from the shapes and ``slots`` (the blocks the card
+    holds at once: SM count x resident blocks per SM) alone. Of the
+    splittings into chunks of at least MIN_CHUNK rows, the one whose
+    waves x (tiles per chunk + SPLIT_OVERHEAD) is least: B·H·n_split
+    blocks fill whole waves as far as the shapes allow. Ties go to fewer
+    splits (less to combine)."""
+    bh, slots = max(1, B * H), max(1, slots)
+    best = None
+    for n in range(1, max(1, -(-S // MIN_CHUNK)) + 1):
+        chunk = -(-(-(-S // n)) // TILE) * TILE
+        n_split = -(-S // chunk)
+        cost = (-(-bh * n_split // slots) * (chunk // TILE + SPLIT_OVERHEAD),
+                n_split)
+        if best is None or cost < best[0]:
+            best = (cost, chunk, n_split)
+    return best[1], best[2]
 
 
 def smem_bytes(G: int, D: int) -> int:
-    """K and V tiles, q, the tile's scores, the accumulator and (m, l,
-    alpha), all float32."""
-    return 4 * (2 * TILE * D + 2 * G * D + G * TILE + 3 * G)
+    """Shared memory of a float32 split block: K and V tiles of 32 rows, q,
+    the tile's scores, the accumulator and (m, l, alpha). (A bf16 block
+    holds at most 96 KB: four warps' rings of 16-row tiles.)"""
+    return 4 * (2 * 32 * D + 2 * G * D + G * 32 + 3 * G)
+
+
+def device_slots(device: torch.device, dtype, G: int, D: int) -> int:
+    """SM count x resident split blocks per SM for (dtype, G, D) on
+    ``device``, from the CUDA occupancy calculator; read once per device
+    and configuration."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    key = (idx, dtype, G, D)
+    if key not in _slots:
+        res = (ctypes.c_int * 2)()
+        fn = K.kernel("flash_decode_residency", device)
+        with torch.cuda.device(device):
+            err = fn(int(dtype == torch.bfloat16), G, D, ctypes.addressof(res),
+                     None)
+        if err != 0 or res[0] < 1:
+            raise RuntimeError(f"flash_decode: no resident block for G={G} "
+                               f"D={D} {dtype} (CUDA error {err})")
+        _slots[key] = res[0] * res[1]
+    return _slots[key]
 
 
 def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
@@ -46,7 +91,8 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
     (B,H,G,D) in q's dtype. Scores are scaled by ``scale`` (1/√D by
     default), accumulated in float32, positions at or past cache_len
     masked. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which reads cache_len on the device (no host sync).
+    kernel, which reads cache_len on the device (no host sync). In bf16
+    the kernel rounds p to bf16 for the PV product, as the TPU kernel does.
 
     cache_len = 0 lies outside the references' agreement (the Pallas
     kernel gives 0, its jnp oracle the mean of V); the kernel gives 0. The
@@ -67,20 +113,26 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         require(t.is_contiguous() and t.data_ptr() % 16 == 0,
                 f"{name} must be contiguous and 16-byte aligned")
-    require(smem_bytes(G, D) <= SMEM_BYTES, f"G={G} D={D}: too large a group")
+    if q.dtype == torch.bfloat16:
+        require(G <= MAX_GROUP_BF16,
+                f"G={G}: the bf16 kernel takes at most {MAX_GROUP_BF16} "
+                f"query heads per kv head")
+    else:
+        require(smem_bytes(G, D) <= SMEM_BYTES,
+                f"G={G} D={D}: too large a group")
     require(hasattr(cache_len, "data_ptr") and cache_len.numel() == 1
             and cache_len.dtype == torch.int32 and cache_len.device == q.device,
             "cache_len must be one int32 tensor on q's device")
     out = torch.empty((B, H, G, D), dtype=q.dtype, device=q.device)
     if B == 0 or H == 0 or G == 0:
         return out
-    chunk, n_split = split_plan(B, H, S)
+    chunk, n_split = split_plan(B, H, S, device_slots(q.device, q.dtype, G, D))
     # per (b, h, split): m and l per query head, then acc (G, D)
-    work = torch.empty((B * H * n_split * G * (D + 2),), dtype=torch.float32,
-                       device=q.device)
+    work = (torch.empty((B * H * n_split * G * (D + 2),), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     launch(_ENTRY[q.dtype], "flash_decode", q.device,
            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-           cache_len.data_ptr(), work.data_ptr(), out.data_ptr(),
-           B, H, G, D, S, chunk, n_split,
+           cache_len.data_ptr(), None if work is None else work.data_ptr(),
+           out.data_ptr(), B, H, G, D, S, chunk, n_split,
            float(scale if scale is not None else 1.0 / np.sqrt(D)))
     return out

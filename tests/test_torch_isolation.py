@@ -276,6 +276,10 @@ class FakeCuda:
         return self.t[key]
 
 
+#: SM count x resident blocks per SM the fake card states for the split plan
+STATED_SLOTS = 132 * 2
+
+
 @pytest.fixture()
 def fake_card(monkeypatch):
     """Stands in for the card: outputs allocated "on cuda" are FakeCuda,
@@ -311,6 +315,8 @@ def fake_card(monkeypatch):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    # the split plan's card: 132 SMs, two resident split blocks each
+    monkeypatch.setattr(decode_ops, "device_slots", lambda *a: STATED_SLOTS)
     for mod, ref in ((bag_ops, "embedding_bag_ref"),
                      (din_ops, "din_attention_ref"),
                      (rerank_ops, "rerank_score_ref"),
@@ -421,7 +427,9 @@ def test_failed_launch_raises_and_is_not_counted(kernel, fake_card, rng):
 def test_flash_decode_wrapper_reads_the_length_on_the_device(fake_card, rng):
     """The wrapper hands the kernel the length's device address (never its
     value), allocates the (B,H,G,D) output and a float32 workspace of one
-    (m, l, acc[G,D]) per (b, h, split), and splits S by the shapes alone."""
+    (m, l, acc[G,D]) per (b, h, split), and splits S by the shapes and the
+    card alone; with one split there is no workspace (the kernel writes
+    the output itself)."""
     calls, _status = fake_card
     B, S, H, G, D = 2, 700, 3, 4, 32
     q, kc, vc = _rng_tensors(rng, (B, H, G, D), (B, S, H, D), (B, S, H, D))
@@ -430,21 +438,134 @@ def test_flash_decode_wrapper_reads_the_length_on_the_device(fake_card, rng):
     (name, args), = calls
     assert name == "flash_decode_f32" and isinstance(out, FakeCuda)
     assert tuple(out.shape) == (B, H, G, D)
-    chunk, n_split = decode_ops.split_plan(B, H, S)
-    assert chunk % decode_ops.TILE == 0 and (n_split - 1) * chunk < S <= \
-        n_split * chunk
+    chunk, n_split = decode_ops.split_plan(B, H, S, STATED_SLOTS)
+    assert (chunk, n_split) == (256, 3)
     ptrs = args[:6]
     assert ptrs[:4] == (q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                         length.data_ptr())
-    assert ptrs[5] == out.data_ptr()
+    assert ptrs[4] is not None and ptrs[5] == out.data_ptr()
     assert args[6:13] == (B, H, G, D, S, chunk, n_split)
     assert args[13] == 0.25
+    calls.clear()
+    q1, k1, v1 = _rng_tensors(rng, (4, 3, 3, 64), (4, 64, 3, 64),
+                              (4, 64, 3, 64))
+    out = decode_ops.flash_decode(q1, k1, v1, DeviceLength(40))
+    (name, args), = calls
+    assert args[4] is None and args[5] == out.data_ptr()
+    assert args[11:13] == (64, 1)
     with pytest.raises(ValueError, match="int32"):
         decode_ops.flash_decode(q, kc, vc, FakeCuda(torch.tensor(5)))
     with pytest.raises(ValueError, match="head dim"):
         q2, k2, v2 = _rng_tensors(rng, (1, 1, 1, 24), (1, 8, 1, 24),
                                   (1, 8, 1, 24))
         decode_ops.flash_decode(q2, k2, v2, DeviceLength(4))
+    with pytest.raises(ValueError, match="at most 16 query heads"):
+        q3, k3, v3 = (FakeCuda(torch.zeros(s, dtype=torch.bfloat16))
+                      for s in ((1, 1, 17, 16), (1, 8, 1, 16), (1, 8, 1, 16)))
+        decode_ops.flash_decode(q3, k3, v3, DeviceLength(4))
+
+
+#: B6's path shapes (B, H, S, dtype, G, D) and the stated resident split
+#: blocks per SM at their (dtype, G, D): the LM service (smollm-135m),
+#: decode_32k, long_500k (qwen3-8b), starcoder2-7b's geometry, the
+#: bf16 serve-like shape at qwen3-8b's, and the reduced LM configs'
+#: (d_head 16, up to 2 kv heads, G 1-2, s_max 64)
+PLAN_SHAPES = [(4, 3, 64, "f32 serve_lm", 12), (128, 3, 32768, "decode_32k", 12),
+               (1, 8, 524288, "long_500k", 2), (8, 4, 4096, "starcoder2", 2),
+               (4, 8, 64, "bf16 serve-like", 2), (4, 2, 64, "reduced", 16),
+               (1, 1, 64, "reduced B=1", 16), (3, 2, 700, "ragged S", 4)]
+
+
+@pytest.mark.parametrize("B,H,S,label,per_sm", PLAN_SHAPES,
+                         ids=[p[3] for p in PLAN_SHAPES])
+def test_flash_decode_split_plan_fills_whole_waves(B, H, S, label, per_sm):
+    """On a card of 132 SMs holding ``per_sm`` split blocks each: the
+    splits cover [0, S) exactly, each chunk is a whole number of tiles of
+    at least MIN_CHUNK rows (or all of S), and no other splitting takes
+    fewer waves x (tiles per chunk + SPLIT_OVERHEAD), i.e. B·H·n_split
+    fills whole waves as far as the shapes allow. The plan reads no length: cache_len is not
+    among its inputs."""
+    slots = 132 * per_sm
+    chunk, n_split = decode_ops.split_plan(B, H, S, slots)
+    assert chunk % decode_ops.TILE == 0
+    assert (n_split - 1) * chunk < S <= n_split * chunk
+    assert chunk >= min(decode_ops.MIN_CHUNK, -(-S // decode_ops.TILE)
+                        * decode_ops.TILE)
+
+    def cost(c, n):
+        return -(-B * H * n // slots) * (c // decode_ops.TILE
+                                          + decode_ops.SPLIT_OVERHEAD)
+    for n in range(1, -(-S // decode_ops.MIN_CHUNK) + 1):
+        c = -(-(-(-S // n)) // decode_ops.TILE) * decode_ops.TILE
+        assert cost(chunk, n_split) <= cost(c, -(-S // c))
+    waves = -(-B * H * n_split // slots)
+    if 1 < n_split < -(-S // decode_ops.MIN_CHUNK):
+        # not held back by MIN_CHUNK: the last wave is mostly full
+        assert B * H * n_split > (waves - 0.25) * slots
+    assert "cache_len" not in decode_ops.split_plan.__wrapped__.__code__.co_varnames
+
+
+def test_flash_decode_split_plan_of_the_long_shapes():
+    """long_500k at two resident blocks per SM: 33 splits of 8 blocks fill
+    one wave of 264 exactly; starcoder2-7b's geometry: 8 splits of 512
+    rows, 256 blocks in one wave."""
+    assert decode_ops.split_plan(1, 8, 524288, 264) == (15936, 33)
+    assert decode_ops.split_plan(8, 4, 4096, 264) == (512, 8)
+    assert decode_ops.split_plan(128, 3, 32768, 132 * 12) == (8192, 4)
+
+
+def test_flash_decode_reads_the_residency_once_per_configuration(monkeypatch):
+    """device_slots asks the library's residency entry (which launches
+    nothing) for (dtype, G, D) and multiplies SM count by resident blocks,
+    once per device and configuration; a configuration with no resident
+    block raises."""
+    seen = []
+
+    def residency(bf16, G, D, out, stream):
+        seen.append((bf16, G, D))
+        res = (ctypes.c_int * 2).from_address(out)
+        res[0], res[1] = (2, 132) if G < 99 else (0, 132)
+        return 0
+
+    monkeypatch.setattr(decode_ops, "_slots", {})
+    monkeypatch.setattr(K, "kernel", lambda name, device: (
+        residency if name == "flash_decode_residency" else None))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    before = K.launch_counts()
+    dev = torch.device("cuda", 0)
+    assert decode_ops.device_slots(dev, torch.bfloat16, 4, 128) == 264
+    assert decode_ops.device_slots(dev, torch.bfloat16, 4, 128) == 264
+    assert decode_ops.device_slots(dev, torch.float32, 3, 64) == 264
+    assert seen == [(1, 4, 128), (0, 3, 64)]
+    assert K.launch_counts() == before
+    with pytest.raises(RuntimeError, match="no resident block"):
+        decode_ops.device_slots(dev, torch.float32, 99, 64)
+
+
+@pytest.mark.parametrize("C,k,threads,sort", [
+    (64, 64, 256, True), (64, 16, 256, False), (64, 17, 256, True),
+    (1, 1, 128, False), (17, 17, 128, True), (17, 4, 128, False),
+    (300, 8, 256, False), (1024, 1024, 256, True), (1025, 8, 256, False),
+    (1025, 1025, 256, True), (1_000_000, 8, 256, False),
+    (1_000_000, 16, 256, False), (1_000_000, 17, 256, True)])
+def test_candidate_scorer_block_plan(C, k, threads, sort, fake_card):
+    """B5's block is sized from C (threads 4 x its slots, C rounded up to a
+    power of two within [32, BLOCK_C], within [128, 256]); the sort
+    selects at k > ARGMAX_MAX_K, the argmax rounds at or below it. At C <=
+    BLOCK_C the wrapper launches one block and returns its output
+    unmerged."""
+    calls, _status = fake_card
+    assert scorer_ops.block_plan(C, k) == (threads, sort)
+    if C > scorer_ops.BLOCK_C:
+        return
+    cands = FakeCuda(torch.zeros((C, 8)))
+    query = FakeCuda(torch.zeros(8))
+    v, i = scorer_ops.candidate_scorer(cands, query, k)
+    (name, args), = calls
+    assert name == "candidate_scorer_f32"
+    assert args[4:10] == (C, 8, k, 1, threads, int(sort))
+    assert (v.data_ptr(), i.data_ptr()) == args[2:4]
 
 
 def test_mixed_devices_reach_neither_version():
@@ -489,7 +610,8 @@ def test_library_signatures_match_the_sources():
 @pytest.mark.parametrize("source,module,names", [
     ("din_attention.cu", din_ops, {"kChunk": "CHUNK"}),
     ("rerank_score.cu", rerank_ops, {"kChunk": "CHUNK", "kCands": "CANDS"}),
-    ("candidate_scorer.cu", scorer_ops, {"kBlockC": "BLOCK_C"}),
+    ("candidate_scorer.cu", scorer_ops, {"kBlockC": "BLOCK_C",
+                                         "kMaxThreads": "MAX_THREADS"}),
     ("flash_decode.cu", decode_ops, {"kTile": "TILE"})])
 def test_wrapper_tiling_constants_match_the_sources(source, module, names):
     """The wrappers size their scratch and shared memory with the same

@@ -299,6 +299,20 @@ def test_flash_decode_sweep(B, S, H, G, D, L, dtype, rng):
                  torch.bfloat16 if bf16 else torch.float32, rng=rng)
 
 
+@pytest.mark.parametrize("B,S,H,G,D,L,dtype", [
+    (2, 96, 2, 9, 128, 90, "float32"), (2, 96, 2, 9, 128, 90, "bfloat16"),
+    (4, 64, 8, 4, 128, 40, "bfloat16"), (2, 64, 2, 16, 32, 50, "bfloat16"),
+    (1, 64, 1, 1, 16, 33, "bfloat16")])
+def test_flash_decode_path_groups(B, S, H, G, D, L, dtype, rng):
+    """The groups the kernel's paths tile for: starcoder2-7b's G=9 at
+    D=128 (two 8-wide N tiles in bf16, fp32 FMAs in f32), qwen3-8b's
+    serve-like shape, the bf16 path's widest group (16) and G=1."""
+    bf16 = dtype == "bfloat16"
+    _decode_case(B, S, H, G, D, L, TOL_BF16 if bf16 else TOL_F32,
+                 jnp.bfloat16 if bf16 else jnp.float32,
+                 torch.bfloat16 if bf16 else torch.float32, rng=rng)
+
+
 @pytest.mark.parametrize("B,S,L", [(1, 64, 1), (1, 32, 32), (3, 64, 1)])
 def test_flash_decode_edge_shapes(B, S, L, rng):
     _decode_case(B, S, 2, 2, 16, L, TOL_EDGE, rng=rng)
