@@ -33,10 +33,6 @@ Phases, each printing its lines; any failure exits nonzero:
   8. the kernel table as one JSON line (launches from phase 6, and from
      phase 7 for flash_decode), the card line, and the result.
 
-With ``--baseline DIR`` the run stops after phase 3 and times the first
-design of flash_decode and candidate_scorer, built from DIR, beside the
-current kernels (phase 3b; see ``baseline_run``).
-
 Needs a CUDA device; exits nonzero without one, and without the
 repository's ``src/repro_torch`` beside this script.
 """
@@ -150,20 +146,38 @@ def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name, got, want, tol):
-    """max-abs-diff of kernel vs plain, held to assert_allclose(rtol=atol=
-    tol) semantics."""
+def verdict(got, want, tol, scale_tol=None):
+    """(max-abs-diff, share of the allowance used, within it) of ``got``
+    against ``want``: assert_allclose(rtol=atol=tol) semantics, and with
+    ``scale_tol`` also max|got - want| <= scale_tol * max|want|, which
+    holds outputs far below tol in magnitude (long softmax averages) to
+    their own scale."""
     import torch
     got, want = got.float(), want.float()
+    if not got.numel():
+        return 0.0, 0.0, True
+    diff = (got - want).abs()
+    err = float(diff.max())
+    # share of the allowance used: |got - want| / (tol + tol * |want|) <= 1
+    used = float((diff / (tol + tol * want.abs())).max())
+    ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+    if scale_tol is not None:
+        used = max(used, err / (scale_tol * float(want.abs().max())))
+        ok = ok and used <= 1.0
+    return err, used, ok
+
+
+def compare(name, got, want, tol, scale_tol=None):
+    """max-abs-diff of kernel vs plain, held to assert_allclose(rtol=atol=
+    tol) semantics (and to ``scale_tol`` of max|want|, see ``verdict``)."""
+    import torch
     check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs "
           f"{tuple(want.shape)}")
-    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    diff = (got - want).abs()
-    err = float(diff.max()) if got.numel() else 0.0
-    # share of the allowance used: |got - want| / (tol + tol * |want|) <= 1
-    used = float((diff / (tol + tol * want.abs())).max()) if got.numel() else 0.0
-    ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
-    print(f"  {name}: max_abs_err={err:.3e} tol={tol:g} (rtol=atol) "
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
+    err, used, ok = verdict(got, want, tol, scale_tol)
+    rule = "rtol=atol" + ("" if scale_tol is None
+                          else f", and {scale_tol:g} x max|want|")
+    print(f"  {name}: max_abs_err={err:.3e} tol={tol:g} ({rule}) "
           f"allowance used {used:.3f} {'ok' if ok else 'FAIL'}", flush=True)
     check(ok, f"{name}: kernel disagrees with its plain version")
     return err
@@ -407,9 +421,10 @@ def augru_checks(results: dict, rng, t):
 def candidate_scorer_checks(results: dict, rng, t):
     """B5 against its plain version: the reference's sweep cells in f32
     (2e-5 and equal index sets) and bf16 (2e-2), its edge cells, the full
-    ranking k = C from one to four blocks, exact ties (lowest index
-    first), the two-tower service shape (C=64, D=256, k=C; f32 and bf16)
-    and the recall shape (C=10^6, D=256, k=8)."""
+    ranking k = C from one to four blocks, exact ties (lowest index first
+    within a block; across blocks distinct rows of the groups ranked), the
+    two-tower service shape (C=64, D=256, k=C; f32 and bf16), the recall
+    shape (C=10^6, D=256, k=8), and C=1024 and 4096 at k=8 between them."""
     import numpy as np
     import torch
     from repro_torch.kernels.candidate_scorer import (candidate_scorer,
@@ -457,19 +472,44 @@ def candidate_scorer_checks(results: dict, rng, t):
         check(i.cpu().numpy().tolist() == want.tolist(),
               f"ties C={C} k={k}: indices differ from score-then-index "
               f"order")
+    # exact ties across blocks (C > BLOCK_C): the merge's torch.topk
+    # orders equal scores as it likes, so the values are held to the plain
+    # version's, and the indices to distinct rows of the right groups in
+    # the right order; whether the order is lowest-index-first is printed,
+    # not checked
+    for C, k, groups in ((2048, 64, 7), (4096, 200, 40)):
+        base = rng.normal(size=(groups, 64))
+        group = rng.integers(0, groups, C)
+        c, qq = t(base[group]), t(rng.normal(size=(64,)))
+        v, i = candidate_scorer(c, qq, k)
+        plain = (c @ qq).cpu().numpy()
+        want = np.lexsort((np.arange(C), -plain))[:k]
+        label = f"ties across blocks C={C} k={k} ({groups} distinct rows)"
+        compare(label, v, torch.as_tensor(plain[want]).to(v.device), TOL_F32)
+        got = i.cpu().numpy()
+        check(len(set(got.tolist())) == k
+              and (group[got] == group[want]).all(),
+              f"{label}: the indices are not distinct rows of the groups "
+              f"ranked")
+        print(f"  {label}: indices in score-then-index order: "
+              f"{got.tolist() == want.tolist()}", flush=True)
 
     def unit(a):
         return a / np.linalg.norm(a, axis=-1, keepdims=True)
 
     case(unit(rng.normal(size=(64, 256))), unit(rng.normal(size=(256,))),
          64, "service C=64 D=256 k=64 bfloat16", torch.bfloat16)
-    for C, k, key in ((64, 64, "candidate_scorer"),
-                      (1_000_000, 8, "candidate_scorer@C=1e6")):
+    # the path shapes, and between them C of one and four blocks (no
+    # path runs those; their times are a reading of the block plan)
+    for C, k, key, where in ((64, 64, "candidate_scorer", "service"),
+                             (1_000_000, 8, "candidate_scorer@C=1e6",
+                              "recall"),
+                             (1024, 8, "candidate_scorer@C=1024", "mid-range"),
+                             (4096, 8, "candidate_scorer@C=4096", "mid-range")):
         D = 256
         c, qq, err = case(unit(rng.normal(size=(C, D))),
                           unit(rng.normal(size=(D,))), k,
-                          f"{'service' if C == 64 else 'recall'} C={C} "
-                          f"D={D} k={k}")
+                          f"{where} C={C} D={D} k={k}")
         nbytes = 4 * (C * D + D) + 12 * k
         bms, by = bound_ms(nbytes, 2 * C * D)
         results[key] = dict(
@@ -502,10 +542,13 @@ def flash_decode_checks(results: dict, rng, t):
     f32, bf16 = torch.float32, torch.bfloat16
 
     def run(q, k, v, L, label, tol):
+        """kernel vs plain; bf16 cells are also held to tol x max|want|
+        (long averages put a bf16 output far below the absolute 2e-2)"""
         length = torch.tensor(L, dtype=torch.int32, device=q.device)
         got = flash_decode(q, k, v, length)
-        return length, compare(label, got, flash_decode_ref(q, k, v, length),
-                               tol)
+        want = flash_decode_ref(q, k, v, length)
+        return length, want, compare(label, got, want, tol,
+                                     tol if q.dtype == bf16 else None)
 
     for B, S, H, G, D, L in [(2, 128, 4, 3, 16, 100), (1, 256, 2, 1, 64, 256),
                              (4, 64, 8, 4, 32, 1)]:
@@ -564,8 +607,10 @@ def flash_decode_checks(results: dict, rng, t):
         slots = device_slots(q.device, dtype, G, D)
         chunk, n_split = split_plan(B, H, S, slots)
         shape += f" ({n_split} splits of {chunk} rows, {slots} slots)"
-        length, err = run(q, k, v, L, shape,
-                          TOL_BF16 if dtype == bf16 else TOL_F32)
+        length, want, err = run(q, k, v, L, shape,
+                                TOL_BF16 if dtype == bf16 else TOL_F32)
+        if dtype == bf16 and n_split > 1:
+            _check_power(q, k, v, L, chunk, n_split, want, shape)
 
         def library():
             # (B, H*G, 1, D) queries against the valid prefix viewed as
@@ -592,154 +637,28 @@ def flash_decode_checks(results: dict, rng, t):
         torch.cuda.empty_cache()
 
 
-# ----------------------------------------------- phase 3b (--baseline DIR)
-
-def baseline_run(src_dir: str):
-    """The first design of flash_decode and candidate_scorer (commit
-    61b208e: ``flash_decode.cu``, ``candidate_scorer.cu`` and
-    ``common.cuh`` in ``src_dir``, e.g. from ``git show
-    61b208e:src/repro_torch/kernels/csrc/<file>``), built with the same
-    nvcc flags and timed beside the current kernels at the path shapes of
-    phase 3, in turns (first, current, current, first; CUDA-graph
-    replay). Also: the first design under a whole-wave split plan and
-    with cache_len = 0 (its launches and combine without the cache), the
-    current kernel with cache_len = 0, and B5's two selection methods."""
-    import ctypes
-
+def _check_power(q, k, v, L, chunk, n_split, want, shape):
+    """The bf16 check's power at a path shape: the plain version with the
+    keys of one split left out (what a kernel that lost a split's
+    partials would give), and an all-zero output, must both fail the
+    check the kernel passed."""
     import torch
-    from repro_torch import kernels as K
-    from repro_torch.kernels.candidate_scorer import ops as cs_ops
-    from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.flash_decode import ops as fd_ops
-
-    so = os.path.join(src_dir, "libbaseline.so")
-    proc = subprocess.run(
-        [K._nvcc(), *K.NVCC_FLAGS, os.path.join(src_dir, "flash_decode.cu"),
-         os.path.join(src_dir, "candidate_scorer.cu"), "-o", so],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    check(proc.returncode == 0, "baseline build failed:\n" + proc.stdout)
-    lib = ctypes.CDLL(so)
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in ("flash_decode_f32", "flash_decode_bf16"):
-        getattr(lib, name).argtypes = [P] * 6 + [I] * 7 + [Fl, P]
-    for name in ("candidate_scorer_f32", "candidate_scorer_bf16"):
-        getattr(lib, name).argtypes = [P] * 4 + [I] * 4 + [P]
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def first_plan(B, H, S):
-        """the first design's split plan: >= 256 rows a split, B·H·n_split
-        aiming at 1,056 blocks, chunks of 32-row tiles"""
-        n = max(1, min(-(-S // 256), -(-1056 // max(1, B * H))))
-        chunk = -(-(-(-S // n)) // 32) * 32
-        return chunk, -(-S // chunk)
-
-    def first_wave_plan(B, H, S, G, D):
-        """the first design's kernel with B·H·n_split filling one wave of
-        its resident blocks (shared memory sets them: 4 (2·32·D + 2·G·D +
-        32·G + 3·G) bytes a block, 1 KB reserved, at most 16 blocks of 128
-        threads)"""
-        smem = 4 * (2 * 32 * D + 2 * G * D + 32 * G + 3 * G)
-        per_sm = min(16, 233472 // (smem + 1024))
-        n = max(1, 132 * per_sm // (B * H))
-        chunk = -(-(-(-S // n)) // 32) * 32
-        return chunk, -(-S // chunk)
-
-    def first_fd(q, k, v, length, plan):
-        B, H, G, D = q.shape
-        S = k.shape[1]
-        chunk, n_split = plan
-        work = torch.empty((B * H * n_split * G * (D + 2),),
-                           dtype=torch.float32, device=q.device)
-        out = torch.empty_like(q)
-        fn = (lib.flash_decode_bf16 if q.dtype == torch.bfloat16
-              else lib.flash_decode_f32)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-                 work.data_ptr(), out.data_ptr(), B, H, G, D, S, chunk,
-                 n_split, 1.0 / math.sqrt(D), stream())
-        check(err == 0, f"baseline flash_decode: CUDA error {err}")
-        return out
-
-    def first_cs(c, qq, k):
-        C, D = c.shape
-        blocks = -(-C // 1024)
-        vals = torch.empty((blocks * k,), dtype=torch.float32, device=c.device)
-        idx = torch.empty((blocks * k,), dtype=torch.int64, device=c.device)
-        fn = (lib.candidate_scorer_bf16 if c.dtype == torch.bfloat16
-              else lib.candidate_scorer_f32)
-        err = fn(c.data_ptr(), qq.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                 C, D, k, int(D % (16 // c.element_size()) == 0), stream())
-        check(err == 0, f"baseline candidate_scorer: CUDA error {err}")
-        if blocks == 1:
-            return vals, idx
-        v, pos = torch.topk(vals, k)
-        return v, idx[pos]
-
-    def current_cs(c, qq, k, sort):
-        """the current kernel with its selection method given"""
-        C, D = c.shape
-        blocks = -(-C // cs_ops.BLOCK_C)
-        threads, _ = cs_ops.block_plan(C, k)
-        vals = torch.empty((blocks * k,), dtype=torch.float32, device=c.device)
-        idx = torch.empty((blocks * k,), dtype=torch.int64, device=c.device)
-        K.launch(cs_ops._ENTRY[c.dtype], "candidate_scorer", c.device,
-                 c.data_ptr(), qq.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                 C, D, k, int(D % (16 // c.element_size()) == 0), threads,
-                 int(sort))
-        return vals, idx
-
-    def turns(label, first, current, extra=()):
-        a, b, c, d = (device_ms(f) for f in (first, current, current, first))
-        line = {"shape": label, "first_ms": [a, d], "current_ms": [b, c]}
-        line.update({key: device_ms(f) for key, f in extra})
-        print(f"[3b] {json.dumps(line)}", flush=True)
-
-    print(f"[3b] first design built from {src_dir}; times in ms, CUDA-graph "
-          f"replay", flush=True)
-    f32, bf16 = torch.float32, torch.bfloat16
-    gen = torch.Generator("cuda").manual_seed(0)
-    for label, B, S, H, G, D, L, dtype in [
-            ("flash_decode serve_lm", 4, 64, 3, 3, 64, 40, f32),
-            ("flash_decode serve_lm L=9", 4, 64, 3, 3, 64, 9, f32),
-            ("flash_decode decode_32k", 128, 32768, 3, 3, 64, 32763, f32),
-            ("flash_decode long_500k", 1, 524288, 8, 4, 128, 524283, bf16),
-            ("flash_decode starcoder2", 8, 4096, 4, 9, 128, 4001, bf16),
-            ("flash_decode bf16 serve-like qwen3-8b", 4, 64, 8, 4, 128, 40,
-             bf16)]:
-        q, k, v = (torch.randn(s, generator=gen, device="cuda", dtype=dtype)
-                   for s in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
-        length = torch.tensor(L, dtype=torch.int32, device="cuda")
-        empty = torch.zeros((), dtype=torch.int32, device="cuda")
-        own, wave = first_plan(B, H, S), first_wave_plan(B, H, S, G, D)
-        extra = [(f"first_whole_wave_ms {wave}",
-                  lambda: first_fd(q, k, v, length, wave)),
-                 ("first_cache_len_0_ms",
-                  lambda: first_fd(q, k, v, empty, own)),
-                 ("current_cache_len_0_ms",
-                  lambda: flash_decode(q, k, v, empty))] if S > 64 else []
-        turns(f"{label} (first plan {own}, current plan "
-              f"{fd_ops.split_plan(B, H, S, fd_ops.device_slots(q.device, dtype, G, D))})",
-              lambda: first_fd(q, k, v, length, own),
-              lambda: flash_decode(q, k, v, length), extra)
-        del q, k, v
-        torch.cuda.empty_cache()
-    from repro_torch.kernels.candidate_scorer import candidate_scorer
-    for label, C, k, dtype in [("service", 64, 64, f32),
-                               ("service bf16", 64, 64, bf16),
-                               ("recall", 1_000_000, 8, f32),
-                               ("recall bf16", 1_000_000, 8, bf16),
-                               ("recall k=24", 1_000_000, 24, f32),
-                               ("recall k=32", 1_000_000, 32, f32)]:
-        c = torch.randn((C, 256), generator=gen, device="cuda", dtype=dtype)
-        qq = torch.randn((256,), generator=gen, device="cuda", dtype=dtype)
-        turns(f"candidate_scorer {label} C={C} D=256 k={k}",
-              lambda: first_cs(c, qq, k), lambda: candidate_scorer(c, qq, k),
-              [("current_sort_ms", lambda: current_cs(c, qq, k, True)),
-               ("current_argmax_ms", lambda: current_cs(c, qq, k, False)),
-               ("current_argmax_k1_ms", lambda: current_cs(c, qq, 1, False))])
-        del c
-        torch.cuda.empty_cache()
+    from repro_torch.kernels.flash_decode import flash_decode_ref
+    s = n_split // 2
+    a, b = s * chunk, min((s + 1) * chunk, L)
+    rest = torch.tensor(L - (b - a), dtype=torch.int32, device=q.device)
+    dropped = flash_decode_ref(q, torch.cat((k[:, :a], k[:, b:L]), 1),
+                               torch.cat((v[:, :a], v[:, b:L]), 1), rest)
+    for label, bad in ((f"split {s} of {n_split} (rows {a}-{b}) left out",
+                        dropped), ("all-zero output", torch.zeros_like(want))):
+        err, used, ok = verdict(bad, want, TOL_BF16, TOL_BF16)
+        alone = verdict(bad, want, TOL_BF16)[2]
+        print(f"  {shape}: check power, {label}: max_abs_err={err:.3e}, "
+              f"allowance used {used:.3f}, {'passes' if ok else 'rejected'} "
+              f"(rtol=atol alone: {'passes' if alone else 'rejected'})",
+              flush=True)
+        check(not ok, f"{shape}: the check passes an output with {label}")
+    del dropped
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1180,16 +1099,7 @@ def _leaves(tree):
 # --------------------------------------------------------------------- main
 
 def main() -> int:
-    import argparse
-
     import torch
-    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
-    ap.add_argument("--baseline", metavar="DIR",
-                    help="after phase 3, build the first design of "
-                         "flash_decode and candidate_scorer from DIR and time "
-                         "it beside the current kernels (phase 3b); phases "
-                         "4-8 are skipped")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
         return 1
@@ -1227,15 +1137,6 @@ def main() -> int:
         results: dict = {}
         kernel_checks(results)
         print(f"[3] done at {time.perf_counter() - t_run:.1f} s", flush=True)
-        if args.baseline:
-            baseline_run(args.baseline)
-            print(f"[3b] done at {time.perf_counter() - t_run:.1f} s",
-                  flush=True)
-            print(card, flush=True)
-            print(json.dumps({"ok": True, "device": {
-                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                "count": torch.cuda.device_count()}}), flush=True)
-            return 0
         model_check()
         print(f"[4] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         service_run()

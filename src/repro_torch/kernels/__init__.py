@@ -48,8 +48,8 @@ SIGNATURES = {
     "din_attention_f32": [_P] * 11 + [_I] * 5 + [_P],
     "rerank_score_f32": [_P] * 19 + [_I] * 9 + [_P],
     "augru_f32": [_P] * 7 + [_I] * 4 + [_P],
-    "candidate_scorer_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "candidate_scorer_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "candidate_scorer_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "candidate_scorer_bf16": [_P] * 4 + [_I] * 4 + [_P],
     "flash_decode_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
     "flash_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
     # a query, not a launch: SM count and resident split blocks per SM

@@ -9,37 +9,23 @@ import torch
 from repro_torch.kernels import launch, on_cpu, require
 from repro_torch.kernels.candidate_scorer.ref import candidate_scorer_ref
 
-#: candidates per block at most, threads per block at most (``kBlockC``,
-#: ``kMaxThreads`` in the source)
-BLOCK_C, MAX_THREADS = 1024, 256
-#: k up to which the block's k rounds of argmax select, the bitonic sort
-#: above. Measured with chip_smoke.py --baseline on an H100 80GB HBM3 at
-#: 700 W (the kernel alone, D=256 f32, argmax vs sort ms): C=10^6 k=8
-#: 0.3437 vs 0.3710, k=24 0.3684 vs 0.3713, k=32 0.3804 vs 0.3713; C=64
-#: k=64 0.0313 vs 0.0038. The crossover lies between k=24 and 32; the sort
-#: takes every k above 16.
+#: candidates per block at most (``kBlockC`` in the source)
+BLOCK_C = 1024
+#: k up to which each block selects by k rounds of argmax, by a bitonic
+#: sort above (``kArgmaxMaxK`` in the source, which states the crossover
+#: measured on the card); the kernel sizes its block from C
 ARGMAX_MAX_K = 16
 _ENTRY = {torch.float32: "candidate_scorer_f32",
           torch.bfloat16: "candidate_scorer_bf16"}
 
 
-def block_plan(C: int, k: int) -> tuple[int, int]:
-    """(threads, sort) of each block: 4 threads a slot within [128,
-    MAX_THREADS] (enough warps to score the slots in one pass; the kernel
-    holds min(C, BLOCK_C) rounded up to a power of two, at least 32,
-    slots), and whether the block selects by bitonic sort (else by k
-    rounds of argmax)."""
-    slots = 32
-    while slots < min(C, BLOCK_C):
-        slots *= 2
-    return min(MAX_THREADS, max(128, 4 * slots)), k > ARGMAX_MAX_K
-
-
 def candidate_scorer(cands, query, k: int = 8):
     """cands (C, D) float32 or bfloat16, query (D,) of the same dtype →
     the exact global top-k: values (k,) float32, best first, and their
-    indices (k,) int64; on equal scores the lower index first. Scores
-    accumulate in float32. CPU tensors take the plain version; CUDA
+    indices (k,) int64. Scores accumulate in float32. On equal scores the
+    lower index comes first within a block of BLOCK_C candidates, so
+    wherever C <= BLOCK_C; across blocks the merge's ``torch.topk`` orders
+    equal scores as it likes. CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     if on_cpu(cands, query):
         return candidate_scorer_ref(cands, query, k)
@@ -53,7 +39,6 @@ def candidate_scorer(cands, query, k: int = 8):
             "cands and query must be contiguous")
     require(0 < k <= C, f"k={k} must lie in [1, C={C}]")
     blocks = -(-C // BLOCK_C)
-    threads, sort = block_plan(C, k)
     vals = torch.empty((blocks * k,), dtype=torch.float32, device=cands.device)
     idx = torch.empty((blocks * k,), dtype=torch.int64, device=cands.device)
     per = 16 // cands.element_size()              # values per 16-byte load
@@ -61,7 +46,7 @@ def candidate_scorer(cands, query, k: int = 8):
               and query.data_ptr() % 16 == 0)
     launch(_ENTRY[cands.dtype], "candidate_scorer", cands.device,
            cands.data_ptr(), query.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-           C, D, k, vec, threads, int(sort))
+           C, D, k, vec)
     if blocks == 1:                   # one block: already the sorted top-k
         return vals, idx
     v, pos = torch.topk(vals, k)

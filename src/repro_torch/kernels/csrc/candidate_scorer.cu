@@ -32,23 +32,25 @@
 // between a thread's registers, strides below 32 are __shfl_xor_sync
 // between lanes, and only the strides in between go through shared
 // memory. At P <= 64 the sort runs on one warp, every stage unrolled: at
-// P = 64, 21 stages without a block barrier, whatever k is. Only the first k pairs are written; slots past
-// the block's rows hold (-inf, a local index past them) and, if k exceeds
-// the rows, come out as (-inf, -1), which the wrapper's merge never picks
-// since it requires k <= C.
+// P = 64, 21 stages without a block barrier, whatever k is. Only the
+// first k pairs are written; slots past the block's rows hold (-inf, a
+// local index past them) and, if k exceeds the rows, come out as (-inf,
+// -1), which the wrapper's merge never picks since it requires k <= C.
 //
 // The first design's selection, k rounds of block-wide argmax (each a
 // scan of the scores, a shuffle reduce and two barriers), stays as the
-// other method, for k <= 16, where a chip measurement shows it cheaper;
-// the wrapper picks by k (ops.py states the crossover).
+// other method, for k <= kArgmaxMaxK, where a chip measurement shows it
+// cheaper; launch() picks the method by k and the block size by C.
 //
-// Measured with chip_smoke.py --baseline on an H100 80GB HBM3 at 700 W
-// (device time per call by CUDA-graph replay; the first design of this
-// file, commit 61b208e, in parentheses, timed in the same run): the
-// two-tower service's shape (C = 64, D = 256, k = 64, f32) 0.0038 ms
-// (0.0322), torch.topk(torch.mv) 0.0109; the recall shape (C = 10^6,
-// k = 8, f32) 0.381 ms (0.448), byte bound 0.306, of which the kernel is
-// 0.344 and the wrapper's cross-block torch.topk the rest.
+// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W (device time per
+// call by CUDA-graph replay; in parentheses this file's first design,
+// commit 61b208e, measured by that commit's chip_smoke.py in the same chip
+// call): the two-tower service's shape (C = 64, D = 256, k = 64, f32)
+// 0.0036-0.0038 ms (0.0321), torch.topk(torch.mv) 0.0119; the recall shape
+// (C = 10^6, k = 8, f32) 0.381 ms (0.449), byte bound 0.306, library
+// 0.453. Known limit: C of one to a few blocks (1,024 and 4,096 at k = 8:
+// 0.037 and 0.048 ms, library 0.017 and 0.027) runs one block per SM on
+// one to four SMs; the block's rows are not spread over the card.
 #include <cuda_bf16.h>
 #include <climits>
 #include <cstdint>
@@ -61,6 +63,13 @@ constexpr int kMaxThreads = 256;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kBlockC = 1024;       // candidates per block at most
 constexpr int kMaxPer = kBlockC / kMaxThreads;   // pairs a sorting thread holds
+// k up to which the block selects by k rounds of argmax, the bitonic sort
+// above it. Kernel alone, C = 10^6, D = 256, f32, argmax vs sort, ms (an
+// H100 80GB HBM3 at 700 W; the reading and its script in PERF.md):
+// k = 8 0.3437 vs 0.3710, k = 24 0.3684 vs 0.3713, k = 32 0.3804 vs
+// 0.3713; at C = 64, k = 64 0.0313 vs 0.0038. The crossover lies between
+// k = 24 and 32; the sort takes every k above 16.
+constexpr int kArgmaxMaxK = 16;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -404,12 +413,12 @@ candidate_topk(const T* __restrict__ cands, const T* __restrict__ query,
 
 template <typename T>
 int launch(const void* cands, const void* query, void* vals, void* idx,
-           int C, int D, int k, int vec, int threads, int sort,
-           void* stream) {
+           int C, int D, int k, int vec, void* stream) {
+  // 4 threads a slot within [128, kMaxThreads]: enough warps to score the
+  // block's rows in one pass, and at least the P / 2 sorting threads
   const int P = block_slots(C);
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      (sort && P > kMaxPer * min(threads, max(32, P >> 1))))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = min(kMaxThreads, max(128, 4 * P));
+  const int sort = k > kArgmaxMaxK;
   const int blocks = (C + kBlockC - 1) / kBlockC;
   const size_t bytes = (((D + 3) & ~3) + 2 * P) * sizeof(float);
   static size_t smem_opted[repro_torch::kMaxDevices] = {};  // per type
@@ -426,20 +435,15 @@ int launch(const void* cands, const void* query, void* vals, void* idx,
 
 }  // namespace
 
-// vals (ceil(C / kBlockC), k) float32, idx the same shape int64; threads
-// per block and sort (1: bitonic sort, 0: k argmax rounds) from the wrapper
+// vals (ceil(C / kBlockC), k) float32, idx the same shape int64
 extern "C" int candidate_scorer_f32(const void* cands, const void* query,
                                     void* vals, void* idx, int C, int D,
-                                    int k, int vec, int threads, int sort,
-                                    void* stream) {
-  return launch<float>(cands, query, vals, idx, C, D, k, vec, threads, sort,
-                       stream);
+                                    int k, int vec, void* stream) {
+  return launch<float>(cands, query, vals, idx, C, D, k, vec, stream);
 }
 
 extern "C" int candidate_scorer_bf16(const void* cands, const void* query,
                                      void* vals, void* idx, int C, int D,
-                                     int k, int vec, int threads, int sort,
-                                     void* stream) {
-  return launch<__nv_bfloat16>(cands, query, vals, idx, C, D, k, vec, threads,
-                               sort, stream);
+                                     int k, int vec, void* stream) {
+  return launch<__nv_bfloat16>(cands, query, vals, idx, C, D, k, vec, stream);
 }

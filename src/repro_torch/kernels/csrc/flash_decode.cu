@@ -52,14 +52,15 @@
 // graph. Scores past it are masked with -1e30, as the reference masks them;
 // expf, not __expf.
 //
-// Measured with chip_smoke.py --baseline on an H100 80GB HBM3 at 700 W
-// (device time per call by CUDA-graph replay; the first design of this
-// file, commit 61b208e, in parentheses, timed in the same run):
-// long_500k (qwen3-8b geometry, bf16) 0.680 ms (2.35), byte bound 0.641;
-// starcoder2-7b's geometry (G = 9, bf16) 0.0308 ms (0.167), bound 0.0196,
-// of which 0.0045 ms is the two launches over an empty cache; decode_32k
-// (f32) 2.14-2.27 ms (2.27-2.39), bound 1.92; the LM service's shape (f32,
-// one split, one launch) 0.0068 ms (0.0091).
+// Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W (device time
+// per call by CUDA-graph replay; in parentheses this file's first design,
+// commit 61b208e, measured by that commit's chip_smoke.py in the same
+// chip call): long_500k (qwen3-8b geometry, bf16) 0.682 ms (2.35), byte
+// bound 0.641, SDPA 0.679; starcoder2-7b's geometry (G = 9, bf16) 0.0301
+// ms (0.163-0.168), bound 0.0196, SDPA 0.0287, of which 0.0045 ms is the
+// two launches over an empty cache; decode_32k (f32) 2.14 ms (2.27),
+// bound 1.92; the LM service's shape (f32, one split, one launch) 0.0068
+// ms (0.0091).
 // Known limits: the float32 path keeps the first design's block-wide tiles
 // (four barriers a tile, two shared-memory operands per multiply-add in
 // the PV product); the bf16 path takes G <= 16; with more than one split

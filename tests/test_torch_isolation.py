@@ -543,29 +543,41 @@ def test_flash_decode_reads_the_residency_once_per_configuration(monkeypatch):
         decode_ops.device_slots(dev, torch.float32, 99, 64)
 
 
-@pytest.mark.parametrize("C,k,threads,sort", [
-    (64, 64, 256, True), (64, 16, 256, False), (64, 17, 256, True),
-    (1, 1, 128, False), (17, 17, 128, True), (17, 4, 128, False),
-    (300, 8, 256, False), (1024, 1024, 256, True), (1025, 8, 256, False),
-    (1025, 1025, 256, True), (1_000_000, 8, 256, False),
-    (1_000_000, 16, 256, False), (1_000_000, 17, 256, True)])
-def test_candidate_scorer_block_plan(C, k, threads, sort, fake_card):
-    """B5's block is sized from C (threads 4 x its slots, C rounded up to a
-    power of two within [32, BLOCK_C], within [128, 256]); the sort
-    selects at k > ARGMAX_MAX_K, the argmax rounds at or below it. At C <=
-    BLOCK_C the wrapper launches one block and returns its output
-    unmerged."""
+@pytest.mark.parametrize("C,k,blocks", [
+    (64, 64, 1), (64, 16, 1), (64, 17, 1), (1, 1, 1), (17, 17, 1),
+    (17, 4, 1), (300, 8, 1), (1024, 1024, 1), (1025, 8, 2), (1025, 1025, 2),
+    (4096, 100, 4), (1_000_000, 8, 977), (1_000_000, 17, 977)])
+def test_candidate_scorer_block_plan(C, k, blocks, monkeypatch, fake_card):
+    """B5's wrapper launches ceil(C / BLOCK_C) blocks through the C entry
+    with (C, D, k, vec) alone: the kernel sizes each block from C and picks
+    its selection method by k (``kArgmaxMaxK``, checked against
+    ARGMAX_MAX_K below). At C <= BLOCK_C the one block's output is the
+    answer, returned unmerged; above, the merge's torch.topk sees every
+    block's k candidates."""
     calls, _status = fake_card
-    assert scorer_ops.block_plan(C, k) == (threads, sort)
-    if C > scorer_ops.BLOCK_C:
-        return
-    cands = FakeCuda(torch.zeros((C, 8)))
+    merged = []
+
+    class Merged(Exception):
+        pass
+
+    def topk(vals, kk):
+        merged.append((vals.numel(), kk))
+        raise Merged
+    monkeypatch.setattr(torch, "topk", topk)
+    cands = FakeCuda(torch.zeros((min(C, 4096), 8)))
+    cands.shape = (C, 8)                 # the rows themselves are never read
     query = FakeCuda(torch.zeros(8))
-    v, i = scorer_ops.candidate_scorer(cands, query, k)
+    if blocks == 1:
+        v, i = scorer_ops.candidate_scorer(cands, query, k)
+        assert (v.data_ptr(), i.data_ptr()) == calls[0][1][2:4]
+        assert v.numel() == i.numel() == k and not merged
+    else:
+        with pytest.raises(Merged):
+            scorer_ops.candidate_scorer(cands, query, k)
+        assert merged == [(blocks * k, k)]
     (name, args), = calls
     assert name == "candidate_scorer_f32"
-    assert args[4:10] == (C, 8, k, 1, threads, int(sort))
-    assert (v.data_ptr(), i.data_ptr()) == args[2:4]
+    assert args[4:8] == (C, 8, k, 1)
 
 
 def test_mixed_devices_reach_neither_version():
@@ -611,7 +623,7 @@ def test_library_signatures_match_the_sources():
     ("din_attention.cu", din_ops, {"kChunk": "CHUNK"}),
     ("rerank_score.cu", rerank_ops, {"kChunk": "CHUNK", "kCands": "CANDS"}),
     ("candidate_scorer.cu", scorer_ops, {"kBlockC": "BLOCK_C",
-                                         "kMaxThreads": "MAX_THREADS"}),
+                                         "kArgmaxMaxK": "ARGMAX_MAX_K"}),
     ("flash_decode.cu", decode_ops, {"kTile": "TILE"})])
 def test_wrapper_tiling_constants_match_the_sources(source, module, names):
     """The wrappers size their scratch and shared memory with the same
