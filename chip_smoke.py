@@ -6,10 +6,14 @@
 Phases, each printing its lines; any failure exits nonzero:
 
   1. the card (nvidia-smi name and power limit), torch, capability (9, 0);
-  2. the build of the hand-written kernels from ``kernels/csrc`` (nvcc);
+  2. the build of the hand-written kernels from ``kernels/csrc`` (nvcc),
+     with each kernel's registers, shared memory and spills as ptxas
+     reports them (a spill in ``NO_SPILL``'s kernels fails the run);
   3. every kernel against its plain PyTorch version on the card, on the
-     reference's own test cells and at the shapes of the serving path,
-     with kernel / plain / library times and the roofline bound;
+     reference's own test cells, the edges of each design and the shapes
+     of the serving path, with kernel / plain / library times, the
+     roofline bound and, for the kernels that launch more than one
+     kernel or whose design is new, the device time of each launch;
   4. DIN, DIEN, MIND and two-tower at their published widths (every table
      cut to 2**16 rows for this phase only): each model's serve_scores and
      its ranking call (score_candidates / retrieve) on the card through
@@ -85,6 +89,36 @@ KERNEL_META = {
 }
 
 
+#: kernels whose design holds its operands in registers: ptxas must report
+#: no spill for them
+NO_SPILL = ("augru_recurrence",)
+
+
+def ptxas_usage(log: str) -> list:
+    """(kernel name, resource usage) per entry function of ``nvcc -Xptxas
+    -v``'s output: registers, static shared memory, stack and spills."""
+    import re
+    out = []
+    for block in log.split("Compiling entry function")[1:]:
+        name = re.match(r"\s*'(\w+)'", block).group(1)
+        # _ZN<len><anonymous namespace><len><name>... or _Z<len><name>...
+        m = re.match(r"_ZN(\d+)", name)
+        rest = name[m.end() + int(m.group(1)):] if m else name[2:]
+        n = re.match(r"(\d+)", rest)
+        if n:
+            name = rest[n.end():n.end() + int(n.group(1))]
+
+        def num(pattern):
+            found = re.search(pattern, block)
+            return int(found.group(1)) if found else 0
+        out.append((name, dict(registers=num(r"Used (\d+) registers"),
+                               smem=num(r"(\d+) bytes smem"),
+                               stack=num(r"(\d+) bytes stack frame"),
+                               spill_stores=num(r"(\d+) bytes spill stores"),
+                               spill_loads=num(r"(\d+) bytes spill loads"))))
+    return out
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -129,6 +163,34 @@ def device_ms(fn, iters=20, replays=10):
     ms = _event_ms(run, replays * iters)
     del graph
     return ms
+
+
+def launch_split(fn, iters=20) -> dict:
+    """Device time per call of each kernel that ``fn`` launches, by kernel
+    name, from torch.profiler's ``key_averages`` over ``iters`` eager
+    calls (the split of a wrapper that launches more than one kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    split = {}
+    for _attempt in range(3):       # a profiling pass may come back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            # "void (anonymous namespace)::name<...>(args)" -> "name"
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+            split[name] = (split.get(name, 0.0)
+                           + e.self_device_time_total / 1e3 / iters)
+        if split:
+            break
+    return split
 
 
 def timings(kernel_fn, plain_fn, library_fn=None) -> dict:
@@ -318,11 +380,26 @@ def kernel_checks(results: dict):
                 f"edge C={C} T={T}")
     rr_case(64, 24, 8, 16, 8, small, np.zeros(24), TOL_F32,
             "edge fully masked history")
+    # the design's edges: one step, more chunks than a cluster's 8 blocks
+    # (each block then loops over its chunks), one candidate, odd C
+    for C, T in [(7, 1), (1, 40), (63, 257), (33, 300), (129, 100)]:
+        rr_case(C, T, 8, 16, 8, small, rng.random(T) > 0.3, TOL_F32,
+                f"design edge C={C} T={T}")
     full = (80, 40, 200, 80)
-    for C in (16, 32, 64):
-        case, err = rr_case(C, 100, 18, 36, 18, full, rng.random(100) > 0.2,
-                            TOL_F32, f"full DIN C={C} T=100", model_init=True)
+    for C, T in [(1, 100), (63, 300), (16, 100), (32, 100), (64, 100)]:
+        case, err = rr_case(C, T, 18, 36, 18, full, rng.random(T) > 0.2,
+                            TOL_F32, f"full DIN C={C} T={T}", model_init=True)
     hist, m, tgt, uo, io, attn, mlp, flat = case
+    got = rerank_score(hist, m, tgt, uo, io, attn, mlp).double()
+    plain = rerank_score_ref(hist, m, tgt, uo, io, *flat).double()
+    want64 = rerank_score_ref(*(x.double() for x in (hist, m, tgt, uo, io,
+                                                     *flat)))
+    print(f"  full DIN C=64 T=100: kernel vs f64 plain "
+          f"{float((got - want64).abs().max()):.3e}, f32 plain vs f64 plain "
+          f"{float((plain - want64).abs().max()):.3e}, max |score| "
+          f"{float(want64.abs().max()):.3e}; launches (profiler, ms per "
+          f"call): {launch_split(lambda: rerank_score(hist, m, tgt, uo, io, attn, mlp))}",
+          flush=True)
     C, T, D, d_u, d_i, (H1, H2, M1, M2) = 64, 100, 18, 36, 18, full
     K1 = 2 * D + d_u + d_i
     active = int((m != 0).sum())
@@ -369,8 +446,11 @@ def kernel_checks(results: dict):
 
 def augru_checks(results: dict, rng, t):
     """B4 against its plain version: the reference's sweep and edge cells
-    (3e-5), the zero-attention property, and DIEN's path shapes (B=16 for
-    a micro-batch, B=64 for a re-ranked request; T=100, Din=H=108)."""
+    (3e-5), the zero-attention property, the design's edges (H = 1, H off
+    the 4 x 28 split of U's rows, the largest H it holds, B = 1, B = 128,
+    T = 1), and DIEN's path shapes (B=16 for a micro-batch, B=64 for a
+    re-ranked request; T=100, Din=H=108), there beside a float64 plain
+    version and split by kernel."""
     import numpy as np
     import torch
     from repro_torch.kernels.augru import augru, augru_ref
@@ -393,6 +473,12 @@ def augru_checks(results: dict, rng, t):
     _, out, _ = case(4, 12, 8, 8, np.zeros((4, 12)), "zero attention",
                      w_scale=1.0, u_scale=1.0, b_scale=0.0)
     check(float(out.abs().max()) <= 1e-7, "zero attention moved the state")
+    from repro_torch.kernels.augru.ops import MAX_H
+    for B, T, Din, H in [(3, 9, 5, 1), (4, 17, 10, 10), (2, 33, 20, 20),
+                         (3, 40, 107, 107), (2, 20, 36, MAX_H), (1, 100, 108, 108),
+                         (128, 30, 108, 108), (5, 1, 108, 108)]:
+        case(B, T, Din, H, rng.random((B, T)),
+             f"design edge B={B} T={T} Din={Din} H={H}")
     # the path: GRU states in (-1, 1), softmax attention over a history
     # with a padded tail, the model's 1/sqrt(fan-in) weights
     path = {}
@@ -405,8 +491,15 @@ def augru_checks(results: dict, rng, t):
                        w_scale=1 / np.sqrt(H), u_scale=1 / np.sqrt(H),
                        b_scale=0.0, x=np.tanh(rng.normal(size=(B, T, H))))
     for B in (16, 64):
-        args, _out, err = path[B]
+        args, out, err = path[B]
         T, H = 100, 108
+        plain = augru_ref(*args).double()
+        want64 = augru_ref(*(a.double() for a in args))
+        print(f"  DIEN path B={B}: kernel vs f64 plain "
+              f"{float((out.double() - want64).abs().max()):.3e}, f32 plain "
+              f"vs f64 plain {float((plain - want64).abs().max()):.3e}, max "
+              f"|h| {float(want64.abs().max()):.3e}; launches (profiler, ms "
+              f"per call): {launch_split(lambda: augru(*args))}", flush=True)
         nbytes = 4 * (B * T * H + B * T + 2 * H * 3 * H + 3 * H + B * H)
         flops = 2 * B * T * H * 3 * H + B * T * (2 * H * 3 * H + 12 * H)
         bms, by = bound_ms(nbytes, flops)
@@ -421,10 +514,11 @@ def augru_checks(results: dict, rng, t):
 def candidate_scorer_checks(results: dict, rng, t):
     """B5 against its plain version: the reference's sweep cells in f32
     (2e-5 and equal index sets) and bf16 (2e-2), its edge cells, the full
-    ranking k = C from one to four blocks, exact ties (lowest index first
-    within a block; across blocks distinct rows of the groups ranked), the
-    two-tower service shape (C=64, D=256, k=C; f32 and bf16), the recall
-    shape (C=10^6, D=256, k=8), and C=1024 and 4096 at k=8 between them."""
+    ranking k = C from one to four blocks, exact ties (lowest index first,
+    within a block and across blocks, where distinct rows of the groups
+    are ranked), the two-tower service shape (C=64, D=256, k=C; f32 and
+    bf16), the recall shape (C=10^6, D=256, k=8), and C=1024 and 4096 at
+    k=8 between them."""
     import numpy as np
     import torch
     from repro_torch.kernels.candidate_scorer import (candidate_scorer,
@@ -472,11 +566,11 @@ def candidate_scorer_checks(results: dict, rng, t):
         check(i.cpu().numpy().tolist() == want.tolist(),
               f"ties C={C} k={k}: indices differ from score-then-index "
               f"order")
-    # exact ties across blocks (C > BLOCK_C): the merge's torch.topk
-    # orders equal scores as it likes, so the values are held to the plain
-    # version's, and the indices to distinct rows of the right groups in
-    # the right order; whether the order is lowest-index-first is printed,
-    # not checked
+    # exact ties across blocks (C > BLOCK_C): the values are held to the
+    # plain version's, the indices to distinct rows of the right groups in
+    # the right order, and among equal kernel scores to lower index first
+    # (the merge keeps lax.top_k's order); cuBLAS's scores may differ from
+    # the kernel's in the last bit, so the order is read off the kernel's
     for C, k, groups in ((2048, 64, 7), (4096, 200, 40)):
         base = rng.normal(size=(groups, 64))
         group = rng.integers(0, groups, C)
@@ -486,13 +580,14 @@ def candidate_scorer_checks(results: dict, rng, t):
         want = np.lexsort((np.arange(C), -plain))[:k]
         label = f"ties across blocks C={C} k={k} ({groups} distinct rows)"
         compare(label, v, torch.as_tensor(plain[want]).to(v.device), TOL_F32)
-        got = i.cpu().numpy()
+        got, vals = i.cpu().numpy(), v.cpu().numpy()
         check(len(set(got.tolist())) == k
               and (group[got] == group[want]).all(),
               f"{label}: the indices are not distinct rows of the groups "
               f"ranked")
-        print(f"  {label}: indices in score-then-index order: "
-              f"{got.tolist() == want.tolist()}", flush=True)
+        tied = vals[1:] == vals[:-1]
+        check(bool(tied.any()) and bool((got[1:][tied] > got[:-1][tied]).all()),
+              f"{label}: equal kernel scores not in lower-index-first order")
 
     def unit(a):
         return a / np.linalg.norm(a, axis=-1, keepdims=True)
@@ -1125,9 +1220,20 @@ def main() -> int:
     K.library()
     print(f"[2] built {lib.name} from {len(K.sources())} sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[2] {line.strip()}", flush=True)
+    usage = ptxas_usage((lib.parent / "build.log").read_text())
+    for name, u in usage:
+        print(f"[2] ptxas {name}: {u['registers']} registers, {u['smem']} "
+              f"bytes static smem, {u['stack']} bytes stack, spill stores "
+              f"{u['spill_stores']} / loads {u['spill_loads']} bytes",
+              flush=True)
+    # the redesigned B4 recurrence keeps U in registers: a spill would put
+    # it in local memory
+    for name, u in usage:
+        if name in NO_SPILL:
+            check(u["spill_stores"] == u["spill_loads"] == 0,
+                  f"{name} spills {u['spill_stores']} bytes")
+    check(set(NO_SPILL) <= {name for name, _ in usage},
+          f"ptxas printed no usage for {NO_SPILL}")
 
     # the cube's memory-mapped blocks go to a directory removed on exit
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")

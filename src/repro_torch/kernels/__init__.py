@@ -46,7 +46,7 @@ SIGNATURES = {
     "embedding_bag_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "embedding_bag_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "din_attention_f32": [_P] * 11 + [_I] * 5 + [_P],
-    "rerank_score_f32": [_P] * 19 + [_I] * 9 + [_P],
+    "rerank_score_f32": [_P] * 18 + [_I] * 9 + [_P],
     "augru_f32": [_P] * 7 + [_I] * 4 + [_P],
     "candidate_scorer_f32": [_P] * 4 + [_I] * 4 + [_P],
     "candidate_scorer_bf16": [_P] * 4 + [_I] * 4 + [_P],

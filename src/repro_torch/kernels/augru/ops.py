@@ -6,13 +6,15 @@ import torch
 from repro_torch.kernels import launch, on_cpu, require
 from repro_torch.kernels.augru.ref import augru_ref
 
-#: a block holds U (H x 3H floats) plus h and two gate rows in shared
-#: memory, and runs one thread per gate column
-SMEM_BYTES, MAX_THREADS = 232448, 1024
+#: the largest H a block holds U for in registers: 4 threads per hidden
+#: unit, 28 rows of U each (``kMaxH`` in the source)
+MAX_H = 112
 
 
-def _smem_bytes(H: int) -> int:
-    return 4 * ((3 * H * H + 3) // 4 * 4 + (H + 3) // 4 * 4 + 4 * H)
+def gx_cols(H: int) -> int:
+    """Row stride of the projection scratch: 3H rounded up to whole
+    float4s, for the recurrence's 16-byte copies."""
+    return -(-3 * H // 4) * 4
 
 
 def augru(x, att, w, u, b):
@@ -29,13 +31,14 @@ def augru(x, att, w, u, b):
                 f"argument {i}: shape {tuple(t.shape)}, expected {shape}")
         require(t.dtype == torch.float32, f"argument {i} must be float32")
         require(t.is_contiguous(), f"argument {i} must be contiguous")
-    require(H >= 1 and 3 * H <= MAX_THREADS and _smem_bytes(H) <= SMEM_BYTES,
-            f"H={H}: U does not fit one block's shared memory")
+    require(1 <= H <= MAX_H,
+            f"H={H}: the kernel holds U in registers for H <= {MAX_H}")
     out = torch.empty((B, H), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
     # the input projection of every step, x @ W + b, written by the kernel
-    gx = torch.empty((B * T, 3 * H), dtype=torch.float32, device=x.device)
+    gx = torch.empty((B * T, gx_cols(H)), dtype=torch.float32,
+                     device=x.device)
     launch("augru_f32", "augru", x.device,
            x.data_ptr(), att.data_ptr(), w.data_ptr(), u.data_ptr(),
            b.data_ptr(), gx.data_ptr(), out.data_ptr(), B, T, Din, H)

@@ -1,13 +1,14 @@
 """Wrapper of the candidate scorer (``csrc/candidate_scorer.cu``): the
 kernel scores blocks of candidates and keeps each block's top-k; the
-small cross-block merge is one ``torch.topk`` here, as the reference
-merges outside its kernel."""
+small cross-block merge is a top-k in ``lax.top_k``'s order here, as the
+reference merges outside its kernel."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import launch, on_cpu, require
 from repro_torch.kernels.candidate_scorer.ref import candidate_scorer_ref
+from repro_torch.topk import ordered_topk
 
 #: candidates per block at most (``kBlockC`` in the source)
 BLOCK_C = 1024
@@ -23,10 +24,9 @@ def candidate_scorer(cands, query, k: int = 8):
     """cands (C, D) float32 or bfloat16, query (D,) of the same dtype →
     the exact global top-k: values (k,) float32, best first, and their
     indices (k,) int64. Scores accumulate in float32. On equal scores the
-    lower index comes first within a block of BLOCK_C candidates, so
-    wherever C <= BLOCK_C; across blocks the merge's ``torch.topk`` orders
-    equal scores as it likes. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    lower index comes first, as in ``lax.top_k``: the kernel orders each
+    block so, and the merge keeps the blocks' order among equal scores.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if on_cpu(cands, query):
         return candidate_scorer_ref(cands, query, k)
     require(cands.dim() == 2, f"cands (C, D) expected, got {tuple(cands.shape)}")
@@ -49,5 +49,13 @@ def candidate_scorer(cands, query, k: int = 8):
            C, D, k, vec)
     if blocks == 1:                   # one block: already the sorted top-k
         return vals, idx
-    v, pos = torch.topk(vals, k)
+    return merge_blocks(vals, idx, k)
+
+
+def merge_blocks(vals, idx, k: int):
+    """The global top-k from the blocks' winners as the kernel writes them:
+    block by block, each block's best first and, among equal scores, in
+    index order. Blocks cover ascending index ranges, so a stable
+    selection over the winners gives ``lax.top_k``'s global order."""
+    v, pos = ordered_topk(vals, k)
     return v, idx[pos]

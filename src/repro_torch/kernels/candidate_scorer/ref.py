@@ -1,8 +1,9 @@
 """Plain PyTorch version of the candidate scorer (its CPU path and the
 oracle it is held against on the card)."""
-import torch
+from repro_torch.topk import ordered_topk
 
 
 def candidate_scorer_ref(cands, query, k: int):
-    """cands (C, D), query (D,) → (top-k values desc, top-k indices)."""
-    return torch.topk(cands.float() @ query.float(), k)
+    """cands (C, D), query (D,) → (top-k values desc, top-k indices), the
+    lower index first among equal values."""
+    return ordered_topk(cands.float() @ query.float(), k)

@@ -12,9 +12,9 @@ import torch
 from repro_torch.kernels import launch, on_cpu, require
 from repro_torch.kernels.rerank_score.ref import rerank_score_ref
 
-#: candidates and history steps per attention block (``kCands`` and
-#: ``kChunk`` in the source); they size the scratch
-CANDS, CHUNK = 2, 32
+#: candidates per block (``kCands`` in the source), and the widths of the
+#: attention tower's register tiles (``kMaxH1``, ``kMaxH2``)
+CANDS, MAX_H1, MAX_H2 = 4, 80, 40
 _MAX_GRID_Y = 65535
 
 
@@ -49,14 +49,14 @@ def rerank_score(hist, mask, target, user_other, item_other,
                 f"argument {i}: shape {tuple(t.shape)}, expected {shape}")
         require(t.dtype == torch.float32, f"argument {i} must be float32")
         require(t.is_contiguous(), f"argument {i} must be contiguous")
+    require(H1 <= MAX_H1 and H2 <= MAX_H2,
+            f"attention widths {H1}-{H2} exceed the kernel's tiles "
+            f"({MAX_H1}-{MAX_H2})")
     require(-(-C // CANDS) <= _MAX_GRID_Y, f"C={C} exceeds the grid's y extent")
     out = torch.empty((C,), dtype=torch.float32, device=hist.device)
     if C == 0:
         return out
-    # per (candidate, chunk) pooled partials, summed in chunk order
-    partial = torch.empty((C, -(-T // CHUNK), D), dtype=torch.float32,
-                          device=hist.device)
     launch("rerank_score_f32", "rerank_score", hist.device,
-           *(t.data_ptr() for t in args), partial.data_ptr(), out.data_ptr(),
+           *(t.data_ptr() for t in args), out.data_ptr(),
            T, D, C, d_u, d_i, H1, H2, M1, M2)
     return out

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.models.layers import activation, as_dtype, randn_scaled
+from repro_torch.topk import ordered_topk
 
 
 def moe_expert_init(generator: torch.Generator, d_model: int, cfg, dtype,
@@ -39,7 +40,7 @@ def _capacity(tokens: int, cfg) -> int:
 def _route(x, router_w, top_k: int):
     logits = x.float() @ router_w
     probs = torch.softmax(logits, dim=-1)
-    gate, idx = torch.topk(probs, top_k, dim=-1)                  # (T, k)
+    gate, idx = ordered_topk(probs, top_k)                        # (T, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     # load-balance aux (Switch-style), for a training loss
     T, E = logits.shape

@@ -21,6 +21,7 @@ from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
 from repro_torch.models.recsys.common import bce_loss, embed_fields, tables_init
 from repro_torch.sparse.sharded import (sharded_embedding_bag_2d,
                                         sharded_gather_a2a)
+from repro_torch.topk import ordered_topk
 
 
 def _randn(generator, shape, dev):
@@ -149,8 +150,8 @@ def score_candidates(params, user_batch: dict, cand_ids: dict,
                      cfg: RecsysConfig, top_k: int = 100):
     """Re-rank vs C candidates: GRU once, AUGRU per candidate (C rows of
     one ``augru`` launch). Returns (values, indices) of the ``top_k`` best
-    scores, best first; ``torch.topk`` does not fix the order of equal
-    scores."""
+    scores, best first, the lower index first among equal scores
+    (``lax.top_k``'s order)."""
     C = cand_ids["item_id"].shape[0]
     hist, mask = _hist_emb(params, user_batch["hist"], cfg)   # (1,T,D)
     states = gru_apply(params["gru"], hist)                   # (1,T,H)
@@ -168,4 +169,4 @@ def score_candidates(params, user_batch: dict, cand_ids: dict,
                            cand_ids)
     x = torch.cat([final, target, other_u, other_i], dim=-1)
     scores = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
-    return torch.topk(scores.float(), top_k, sorted=True)
+    return ordered_topk(scores.float(), top_k)

@@ -19,6 +19,7 @@ from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
 from repro_torch.models.recsys.common import bce_loss, embed_fields, tables_init
 from repro_torch.sparse.sharded import (sharded_embedding_bag_2d,
                                         sharded_gather_a2a)
+from repro_torch.topk import ordered_topk
 
 
 def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
@@ -99,8 +100,8 @@ def score_candidates(params, user_batch: dict, cand_ids: dict,
     (serve/bucketing.compact_history) so the fused pass scores only the
     valid history rows.
 
-    Returns (values, indices) of the ``top_k`` best scores, best first;
-    ``torch.topk`` does not fix the order of equal scores."""
+    Returns (values, indices) of the ``top_k`` best scores, best first,
+    the lower index first among equal scores (``lax.top_k``'s order)."""
     C = cand_ids["item_id"].shape[0]
     hist, mask = _hist_emb(params, user_batch["hist"], cfg)   # (1,T,D)
     target = sharded_gather_a2a(params["tables"]["item_id"],
@@ -122,4 +123,4 @@ def score_candidates(params, user_batch: dict, cand_ids: dict,
         other_i = embed_fields(params["tables"], item_side, cand_ids)
         x = torch.cat([pooled, target, other_u, other_i], dim=-1)
         scores = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
-    return torch.topk(scores.float(), top_k, sorted=True)
+    return ordered_topk(scores.float(), top_k)

@@ -6,8 +6,8 @@ iterations, per the paper). Label-aware attention (pow-2) for training;
 serving scores are max over interests. Table lookups run as the
 ``embedding_bag`` kernel; ``retrieve`` takes a max over K interests, which
 is not the ``candidate_scorer`` kernel's single-query function, so it is a
-plain product and ``torch.topk``, as the reference keeps it outside any
-kernel. Forward only.
+plain product and a top-k in ``lax.top_k``'s order, as the reference
+keeps it outside any kernel. Forward only.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch.models.recsys.common import (l2_normalize,
                                               sampled_softmax_loss, tables_init)
 from repro_torch.sparse.sharded import (sharded_embedding_bag_2d,
                                         sharded_gather_a2a)
+from repro_torch.topk import ordered_topk
 
 
 def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
@@ -114,4 +115,4 @@ def retrieve(params, user_batch: dict, cand_ids: dict, cfg: RecsysConfig,
     v = l2_normalize(sharded_gather_a2a(params["tables"]["item_id"],
                                         cand_ids["item_id"]))
     scores = torch.amax(v @ I.T, dim=-1).float()              # (C,)
-    return torch.topk(scores, top_k, sorted=True)
+    return ordered_topk(scores, top_k)

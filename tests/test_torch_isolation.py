@@ -465,6 +465,97 @@ def test_flash_decode_wrapper_reads_the_length_on_the_device(fake_card, rng):
         decode_ops.flash_decode(q3, k3, v3, DeviceLength(4))
 
 
+def _record_allocations(monkeypatch):
+    """The shapes of everything the wrapper allocates on the card."""
+    shapes, empty = [], torch.empty
+
+    def recording(*shape, **kw):
+        t = empty(*shape, **kw)
+        if isinstance(t, FakeCuda):
+            shapes.append(tuple(t.shape))
+        return t
+    monkeypatch.setattr(torch, "empty", recording)
+    return shapes
+
+
+#: B4 shapes (B, T, Din, H): DIEN's path, the reference's sweep and edge
+#: cells, H = 1, and the largest H the kernel holds in registers
+AUGRU_SHAPES = [(64, 100, 108, 108), (16, 100, 108, 108), (8, 8, 8, 8),
+                (16, 100, 18, 108), (4, 25, 12, 20), (1, 7, 6, 10),
+                (4, 1, 6, 10), (2, 3, 5, 1), (3, 4, 9, 112)]
+
+
+@pytest.mark.parametrize("B,T,Din,H", AUGRU_SHAPES)
+def test_augru_wrapper_hands_the_kernel_its_projection_scratch(
+        B, T, Din, H, fake_card, monkeypatch, rng):
+    """B4's wrapper admits the shape and hands the C entry the (B, H)
+    output and a (B*T, NP) float32 scratch for the input projection, NP =
+    3H rounded up to a multiple of 4 (the recurrence copies gx rows in
+    16-byte pieces)."""
+    calls, _status = fake_card
+    shapes = _record_allocations(monkeypatch)
+    args_in = _rng_tensors(rng, (B, T, Din), (B, T), (Din, 3 * H), (H, 3 * H),
+                           (3 * H,))
+    out = augru_ops.augru(*args_in)
+    (name, args), = calls
+    np_cols = augru_ops.gx_cols(H)
+    assert np_cols % 4 == 0 and 3 * H <= np_cols < 3 * H + 4
+    assert name == "augru_f32" and shapes == [(B, H), (B * T, np_cols)]
+    assert args[:5] == tuple(t.data_ptr() for t in args_in)
+    assert args[6] == out.data_ptr() and args[5] not in args[:5] + (args[6],)
+    assert args[7:11] == (B, T, Din, H)
+
+
+@pytest.mark.parametrize("H", [augru_ops.MAX_H + 1, 200, 341])
+def test_augru_wrapper_raises_beyond_the_register_limit(H, fake_card, rng):
+    """Above MAX_H (U held in registers, 4 threads of 28 rows per unit) the
+    wrapper raises before it allocates or launches anything."""
+    calls, _status = fake_card
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="registers"):
+        augru_ops.augru(*_rng_tensors(rng, (2, 3, 4), (2, 3), (4, 3 * H),
+                                      (H, 3 * H), (3 * H,)))
+    assert calls == [] and K.launch_counts() == before
+
+
+def _rerank_args(rng, C, T, D, du, di, H1, H2, M1, M2):
+    hist, mask, tgt, uo, io = _rng_tensors(rng, (T, D), (T,), (C, D), (du,),
+                                           (C, di))
+
+    def tower(*dims):
+        return [dict(zip(("w", "b"), _rng_tensors(rng, (a, b), (b,))))
+                for a, b in zip(dims[:-1], dims[1:])]
+    return (hist, mask, tgt, uo, io, tower(4 * D, H1, H2, 1),
+            tower(2 * D + du + di, M1, M2, 1))
+
+
+@pytest.mark.parametrize("C,T", [(64, 100), (1, 1), (33, 300)])
+def test_rerank_wrapper_hands_the_kernel_no_scratch(C, T, fake_card,
+                                                    monkeypatch, rng):
+    """B1 runs as one launch whose blocks sum their partial pooled vectors
+    through distributed shared memory: the wrapper allocates the (C,)
+    output and nothing else, and hands the C entry the shapes."""
+    calls, _status = fake_card
+    shapes = _record_allocations(monkeypatch)
+    args_in = _rerank_args(rng, C, T, 18, 36, 18, 80, 40, 200, 80)
+    out = rerank_ops.rerank_score(*args_in)
+    (name, args), = calls
+    assert name == "rerank_score_f32" and shapes == [(C,)]
+    assert args[17] == out.data_ptr()
+    assert args[18:27] == (T, 18, C, 36, 18, 80, 40, 200, 80)
+
+
+@pytest.mark.parametrize("H1,H2", [(rerank_ops.MAX_H1 + 1, 40),
+                                   (80, rerank_ops.MAX_H2 + 1)])
+def test_rerank_wrapper_raises_beyond_its_tiles(H1, H2, fake_card, rng):
+    calls, _status = fake_card
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="tiles"):
+        rerank_ops.rerank_score(*_rerank_args(rng, 8, 10, 4, 3, 2, H1, H2,
+                                              7, 6))
+    assert calls == [] and K.launch_counts() == before
+
+
 #: B6's path shapes (B, H, S, dtype, G, D) and the stated resident split
 #: blocks per SM at their (dtype, G, D): the LM service (smollm-135m),
 #: decode_32k, long_500k (qwen3-8b), starcoder2-7b's geometry, the
@@ -552,7 +643,7 @@ def test_candidate_scorer_block_plan(C, k, blocks, monkeypatch, fake_card):
     with (C, D, k, vec) alone: the kernel sizes each block from C and picks
     its selection method by k (``kArgmaxMaxK``, checked against
     ARGMAX_MAX_K below). At C <= BLOCK_C the one block's output is the
-    answer, returned unmerged; above, the merge's torch.topk sees every
+    answer, returned unmerged; above, the merge's ordered top-k sees every
     block's k candidates."""
     calls, _status = fake_card
     merged = []
@@ -563,7 +654,7 @@ def test_candidate_scorer_block_plan(C, k, blocks, monkeypatch, fake_card):
     def topk(vals, kk):
         merged.append((vals.numel(), kk))
         raise Merged
-    monkeypatch.setattr(torch, "topk", topk)
+    monkeypatch.setattr(scorer_ops, "ordered_topk", topk)
     cands = FakeCuda(torch.zeros((min(C, 4096), 8)))
     cands.shape = (C, 8)                 # the rows themselves are never read
     query = FakeCuda(torch.zeros(8))
@@ -621,7 +712,9 @@ def test_library_signatures_match_the_sources():
 
 @pytest.mark.parametrize("source,module,names", [
     ("din_attention.cu", din_ops, {"kChunk": "CHUNK"}),
-    ("rerank_score.cu", rerank_ops, {"kChunk": "CHUNK", "kCands": "CANDS"}),
+    ("rerank_score.cu", rerank_ops, {"kCands": "CANDS", "kMaxH1": "MAX_H1",
+                                     "kMaxH2": "MAX_H2"}),
+    ("augru.cu", augru_ops, {"kMaxH": "MAX_H"}),
     ("candidate_scorer.cu", scorer_ops, {"kBlockC": "BLOCK_C",
                                          "kArgmaxMaxK": "ARGMAX_MAX_K"}),
     ("flash_decode.cu", decode_ops, {"kTile": "TILE"})])
