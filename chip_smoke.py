@@ -14,6 +14,10 @@ Phases, each printing its lines; any failure exits nonzero:
      of the serving path, with kernel / plain / library times, the
      roofline bound and, for the kernels that launch more than one
      kernel or whose design is new, the device time of each launch;
+     embedding_bag both per table and grouped (one launch for all of a
+     model call's lookups, against the per-field launches it replaces),
+     an empty kernel's launch as the floor under both, and the candidate
+     scorer on -inf, NaN and signed-zero scores;
   4. DIN, DIEN, MIND and two-tower at their published widths (every table
      cut to 2**16 rows for this phase only): each model's serve_scores and
      its ranking call (score_candidates / retrieve) on the card through
@@ -23,7 +27,8 @@ Phases, each printing its lines; any failure exits nonzero:
      widths with user_id / item_id cut to 2**20 rows: two waves of 64
      requests on the AsyncExecutor, every answer checked, and the launch
      count of every kernel checked against the micro-batches and
-     re-ranked requests;
+     re-ranked requests (one grouped embedding_bag launch per model
+     call);
   6. the multi-scenario service (MultiScenarioService on ``cuda``: DIN,
      DIEN, MIND, two-tower) at published widths and vocabularies, with
      two-tower's tables capped at 2**21 rows: two waves of 64 requests,
@@ -288,38 +293,40 @@ def kernel_checks(results: dict):
         compare(f"edge all-zero weights {comb}", got,
                 embedding_bag_ref(table, ids, w, comb), TOL_EDGE)
         check(float(got.abs().max()) <= 1e-6, "all-zero bag is not zero")
-    # the serving path's dominant call: the history lookup of a 16-request
-    # micro-batch (16 x 100 single-id bags) into the item_id table
+    # PR 11's main-path cell, the per-bag launch: the history lookup of a
+    # 16-request micro-batch (16 x 100 single-id bags) into the item_id
+    # table
     V, D, n = 1 << MAIN_VOCAB_LOG2, 18, 16 * 100
     table = torch.randn((V, D), device=dev).mul_(0.01)
     from repro_torch.data.synthetic import zipf_ids
     ids = t(zipf_ids(rng, n, V).reshape(n, 1), torch.int64)
-    err = compare(f"main path V=2^{MAIN_VOCAB_LOG2} D=18 B={n} K=1",
+    err = compare(f"per-bag launch V=2^{MAIN_VOCAB_LOG2} D=18 B={n} K=1",
                   embedding_bag(table, ids), embedding_bag_ref(table, ids),
                   TOL_F32)
     uniq = int(torch.unique(ids).numel())
     nbytes = n * 8 + uniq * D * 4 + n * D * 4
     bms, by = bound_ms(nbytes, 2 * n * D)
-    results["embedding_bag"] = dict(
+    results["embedding_bag@per-bag"] = dict(
         max_abs_err=err, bound_ms=bms, bound_by=by,
-        shape=f"V=2^{MAIN_VOCAB_LOG2} D=18 B={n} K=1",
+        shape=f"V=2^{MAIN_VOCAB_LOG2} D=18 B={n} K=1, one table a launch",
         **timings(lambda: embedding_bag(table, ids),
                   lambda: embedding_bag_ref(table, ids),
                   lambda: F.embedding_bag(ids, table, mode="sum")))
     del table
     torch.cuda.empty_cache()
+    embedding_bag_group_checks(results, rng, t)
 
     # ---- B2 din_attention
     print("[3] din_attention vs plain", flush=True)
 
-    def din_case(B, T, D, H1, H2, mask, tol, label):
+    def din_case(B, T, D, H1, H2, mask, tol, label, bias=False):
         hist = t(rng.normal(size=(B, T, D)))
         tgt = t(rng.normal(size=(B, D)))
         w1 = t(rng.normal(size=(4 * D, H1)) * 0.2)
         w2 = t(rng.normal(size=(H1, H2)) * 0.2)
         w3 = t(rng.normal(size=(H2, 1)) * 0.2)
-        b1, b2, b3 = (torch.zeros(H1, device=dev), torch.zeros(H2, device=dev),
-                      torch.zeros(1, device=dev))
+        b1, b2, b3 = (t(rng.normal(size=(n,)) * 0.1 if bias else np.zeros(n))
+                      for n in (H1, H2, 1))
         args = (hist, t(mask), tgt, w1, b1, w2, b2, w3, b3)
         err = compare(label, din_attention(*args), din_attention_ref(*args), tol)
         return args, err
@@ -333,6 +340,24 @@ def kernel_checks(results: dict):
     for B, T in [(1, 1), (1, 9), (5, 1)]:
         din_case(B, T, 8, 16, 8, np.ones((B, T)), TOL_EDGE, f"edge B={B} T={T}")
     din_case(2, 6, 8, 16, 8, np.zeros((2, 6)), TOL_EDGE, "edge zero mask")
+    # the one-launch design's edges: T just past a chunk (16 steps) and
+    # past a cluster's span (8 chunks: each block then loops over its
+    # chunks), T = 1, B = 256 (the cluster narrows for large B), and a
+    # row whose mask is all zero inside a batch of non-zero rows
+    from repro_torch.kernels.din_attention.ops import CHUNK, MAX_CLUSTER
+    span = CHUNK * MAX_CLUSTER
+    for B, T in [(16, CHUNK + 1), (16, 2 * CHUNK + 1), (4, span),
+                 (4, span + 1), (3, 2 * span + 5), (16, 1), (256, 100)]:
+        din_case(B, T, 18, 80, 40, rng.random((B, T)) > 0.2, TOL_F32,
+                 f"design edge B={B} T={T} D=18 H1=80 H2=40")
+    for H1, H2 in [(80, 40), (37, 11)]:          # non-zero biases, padding
+        din_case(16, 100, 18, H1, H2, rng.random((16, 100)) > 0.2, TOL_F32,
+                 f"design edge B=16 T=100 H1={H1} H2={H2}, non-zero biases",
+                 bias=True)
+    zero_row = rng.random((16, 100)) > 0.2
+    zero_row[5] = False
+    din_case(16, 100, 18, 80, 40, zero_row, TOL_F32,
+             "design edge B=16 T=100, row 5's mask all zero")
     B, T, D, H1, H2 = 16, 100, 18, 80, 40
     active = int((full_args[1] != 0).sum())
     nbytes = 4 * (B * T * D + B * T + B * D + 4 * D * H1 + H1 + H1 * H2
@@ -438,10 +463,181 @@ def kernel_checks(results: dict):
     candidate_scorer_checks(results, rng, t)
     flash_decode_checks(results, rng, t)
     for name, r in results.items():
+        if name == "launch_floor":
+            continue
         print(f"[3] {name} @ {r['shape']}: device time per call (CUDA graph "
               f"replay): kernel {r['ms']} ms, plain {r['plain_ms']} ms, "
               f"library {r['library_ms']} ms, bound {r['bound_ms']} ms "
               f"({r['bound_by']})", flush=True)
+
+
+def embedding_bag_group_checks(results: dict, rng, t):
+    """The grouped B3 launch against its plain version (2e-5 f32, 2e-2
+    bf16) on the lookups of the path's model calls, each in f32 and bf16
+    with sum and mean: a DIN/DIEN ranker micro-batch (B=16, T=100: the
+    history into the 2^26-row item_id table, the target, user_id,
+    user_profile (K=4), item_cat; 5 groups, 1 launch where PR 15 made 5), a
+    re-rank at C=64 (history, user fields, the candidates' item_cat) and a
+    two-tower user call (D=256: user_id, user_hist K=50, user_geo,
+    user_ctx K=8); then a group of zero bags, 8 groups, all-zero weights.
+    Times the micro-batch's grouped launch against the per-field plan it
+    replaces (5 launches of the per-bag kernel, unchanged since PR 11, and
+    the concatenation), the plain version, F.embedding_bag over the groups
+    and an empty kernel's launch in the same graph replay."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    from repro_torch.data.synthetic import zipf_ids
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_group,
+                                                   embedding_bag_group_ref)
+
+    print("[3] embedding_bag_group vs plain", flush=True)
+    big = 1 << MAIN_VOCAB_LOG2
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (name, V, D) -> f32 table; bf16 copies made per cell
+    tables = {}
+
+    def table(name, V, D):
+        if (name, V, D) not in tables:
+            tables[name, V, D] = torch.randn((V, D), device="cuda").mul_(0.01)
+        return tables[name, V, D]
+
+    def ids(V, B, K):
+        return t(zipf_ids(rng, B * K, V).astype(np.int64).reshape(B, K),
+                 torch.int64)
+
+    def weights(B, K):
+        return t(rng.random((B, K)) * (rng.random((B, K)) > 0.2))
+
+    def din_batch(B=16, T=100):
+        return ([("item_id", big, 18, ids(big, B * T, 1), None),
+                 ("item_id", big, 18, ids(big, B, 1), None),
+                 ("user_id", big, 18, ids(big, B, 1), None),
+                 ("user_profile", 1 << 20, 18, ids(1 << 20, B, 4),
+                  weights(B, 4)),
+                 ("item_cat", 1 << 20, 18, ids(1 << 20, B, 1), None)],
+                (1, 4))
+
+    def rerank(C=64, T=100):
+        return ([("item_id", big, 18, ids(big, T, 1), None),
+                 ("user_id", big, 18, ids(big, 1, 1), None),
+                 ("user_profile", 1 << 20, 18, ids(1 << 20, 1, 4), None),
+                 ("item_cat", 1 << 20, 18, ids(1 << 20, C, 1), None)],
+                (1, 2, 1))
+
+    def towers_user():
+        V = 1 << TOWERS_VOCAB_LOG2
+        return ([("user_id", V, 256, ids(V, 1, 1), None),
+                 ("user_hist", V, 256, ids(V, 1, 50), None),
+                 ("user_geo", 1 << 20, 256, ids(1 << 20, 1, 1), None),
+                 ("user_ctx", V, 256, ids(V, 1, 8), weights(1, 8))],
+                (4,))
+
+    def lookups(spec, dtype, comb):
+        """comb: one combiner for every group, or one per group"""
+        groups, blocks = spec
+        combs = [comb] * len(groups) if isinstance(comb, str) else comb
+        return ([(table(name, V, D).to(dtype), i, w, c)
+                 for (name, V, D, i, w), c in zip(groups, combs)], blocks)
+
+    def case(label, spec, dtype, comb):
+        look, blocks = lookups(spec, dtype, comb)
+        before = K.launch_counts()["embedding_bag"]
+        got = embedding_bag_group(look, blocks)
+        check(K.launch_counts()["embedding_bag"] == before + 1,
+              f"{label}: not one launch")
+        want = embedding_bag_group_ref(look, blocks)
+        err = 0.0
+        for j, (g, w) in enumerate(zip(got, want)):
+            err = max(err, compare(f"{label} block {j} {tuple(g.shape)}", g, w,
+                                   TOL_BF16 if dtype == bf16 else TOL_F32))
+        return look, blocks, err
+
+    # each call's combiners on the path: sum everywhere but two-tower's
+    # user_hist (mean)
+    path = {}
+    for label, make, on_path in (
+            ("DIN micro-batch B=16 T=100", din_batch, "sum"),
+            ("re-rank C=64 T=100", rerank, "sum"),
+            ("two-tower user call D=256", towers_user,
+             ("sum", "mean", "sum", "sum"))):
+        spec = make()
+        for dtype in (f32, bf16):
+            for comb in dict.fromkeys(("sum", "mean", on_path)):
+                look, blocks, err = case(
+                    f"{label} {str(dtype)[6:]} "
+                    f"{comb if isinstance(comb, str) else '/'.join(comb)}",
+                    spec, dtype, comb)
+                if dtype == f32 and comb == on_path:
+                    path[label] = (look, blocks, err)
+    # edges: a group of zero bags between others, 8 groups (the most a
+    # launch takes) of mixed K and combiners, all-zero weights under mean
+    for dtype in (f32, bf16):
+        groups = [("e0", 1000, 18, ids(1000, 5, 3), None),
+                  ("e1", 1000, 18, ids(1000, 0, 2), None),
+                  ("e2", 1000, 18, ids(1000, 7, 1), weights(7, 1))]
+        case(f"zero-bag group {str(dtype)[6:]}", (groups, (1, 1, 1)), dtype,
+             "mean")
+        groups = [(f"g{j}", 500 + j, 18, ids(500 + j, 9, 1 + j),
+                   weights(9, 1 + j) if j % 2 else None) for j in range(8)]
+        case(f"8 groups K=1..8 {str(dtype)[6:]}", (groups, (3, 5)), dtype,
+             "mean")
+        case(f"8 groups K=1..8 {str(dtype)[6:]} sum", (groups, None), dtype,
+             "sum")
+        zero = [("z0", 64, 18, ids(64, 4, 3),
+                 torch.zeros((4, 3), device="cuda"))]
+        _, _, err = case(f"all-zero weights {str(dtype)[6:]}", (zero, None),
+                         dtype, "mean")
+        check(err <= 1e-6, "an all-zero bag is not zero")
+
+    floor = K.kernel("launch_floor", torch.device("cuda"))
+
+    def empty():
+        floor(torch.cuda.current_stream().cuda_stream)
+    results["launch_floor"] = dict(ms=device_ms(empty))
+    print(f"[3] launch floor (an empty kernel, CUDA graph replay): "
+          f"{results['launch_floor']['ms']} ms", flush=True)
+    for label, key in (("DIN micro-batch B=16 T=100", "embedding_bag"),
+                       ("re-rank C=64 T=100", "embedding_bag@rerank"),
+                       ("two-tower user call D=256", "embedding_bag@towers")):
+        look, blocks, err = path[label]
+        nbytes, flops = 0, 0
+        for table_, i, w, _comb in look:
+            B, Kb = i.shape
+            D = table_.shape[1]
+            nbytes += (i.numel() * 8 + (0 if w is None else w.numel() * 4)
+                       + int(torch.unique(i).numel()) * D * 4 + B * D * 4)
+            flops += 2 * i.numel() * D
+        bms, by = bound_ms(nbytes, flops)
+
+        def per_field():
+            outs = [embedding_bag(*g) for g in look]
+            res, at = [], 0
+            for n in blocks:
+                res.append(outs[at] if n == 1
+                           else torch.cat(outs[at:at + n], -1))
+                at += n
+            return res
+
+        def library():
+            return [F.embedding_bag(i, table_, mode=comb) for table_, i, _w,
+                    comb in look]
+        results[key] = dict(
+            max_abs_err=err, bound_ms=bms, bound_by=by,
+            shape=f"{label}, {len(look)} groups in one launch",
+            per_field_ms=device_ms(per_field),
+            **timings(lambda: embedding_bag_group(look, blocks),
+                      lambda: embedding_bag_group_ref(look, blocks), library))
+        print(f"  {label}: grouped launch {results[key]['ms']} ms, the "
+              f"per-field plan ({len(look)} launches + concatenation) "
+              f"{results[key]['per_field_ms']} ms, plain "
+              f"{results[key]['plain_ms']} ms, F.embedding_bag over the "
+              f"groups {results[key]['library_ms']} ms, bound {bms} ms "
+              f"({by})", flush=True)
+    tables.clear()
+    torch.cuda.empty_cache()
 
 
 def augru_checks(results: dict, rng, t):
@@ -588,6 +784,40 @@ def candidate_scorer_checks(results: dict, rng, t):
         tied = vals[1:] == vals[:-1]
         check(bool(tied.any()) and bool((got[1:][tied] > got[:-1][tied]).all()),
               f"{label}: equal kernel scores not in lower-index-first order")
+
+    # non-finite and signed-zero scores: the query is the first unit
+    # vector and each row's other entries +0, so a row's score is its
+    # first entry exactly, in any summation order (a -0 entry scores +0,
+    # a NaN of either sign the card's NaN); every row is ranked, -inf and
+    # NaN included, in the floats' total order, lower index first among
+    # equal scores, index for index with the plain version, never -1
+    special = np.array([-np.inf, np.inf, np.nan, -np.nan, 0.0, -0.0, 1.0,
+                        -1.0, 2.0], np.float32)
+    for C, k, fill in ((64, 8, "mixed"), (64, 64, "mixed"),
+                       (64, 8, "-inf"), (64, 64, "-inf"), (64, 8, "nan"),
+                       (3000, 8, "mixed"), (3000, 8, "-inf"),
+                       (3000, 64, "mixed"), (1025, 1025, "mixed")):
+        first = (special[rng.integers(0, special.size, C)] if fill == "mixed"
+                 else np.full(C, -np.inf if fill == "-inf" else np.nan,
+                              np.float32))
+        if fill != "mixed":                # a few finite rows among them
+            first[rng.integers(0, C, 3)] = rng.normal(size=3)
+        rows = np.zeros((C, 32), np.float32)
+        rows[:, 0] = first
+        q = np.zeros(32, np.float32)
+        q[0] = 1.0
+        c, qq = t(rows), t(q)
+        v, i = candidate_scorer(c, qq, k)
+        rv, ri = candidate_scorer_ref(c, qq, k)
+        label = f"non-finite scores C={C} k={k} ({fill})"
+        same_v = bool(((v == rv) | (torch.isnan(v) & torch.isnan(rv))).all())
+        print(f"  {label}: indices equal {bool(torch.equal(i, ri))}, values "
+              f"equal {same_v}, -1 among them {bool((i < 0).any())}",
+              flush=True)
+        check(bool((i >= 0).all()), f"{label}: index -1 returned")
+        check(torch.equal(i, ri), f"{label}: indices differ from the plain "
+              f"version's")
+        check(same_v, f"{label}: values differ from the plain version's")
 
     def unit(a):
         return a / np.linalg.norm(a, axis=-1, keepdims=True)
@@ -917,11 +1147,11 @@ def service_run() -> dict:
               f"re-ranked {st.events}; stage busy s: {_stage_line(rep)}",
               flush=True)
     expected = dict.fromkeys(K.LAUNCHES, 0)
-    expected.update(embedding_bag=5 * batches + 4 * reranked,
+    expected.update(embedding_bag=batches + reranked,
                     din_attention=batches, rerank_score=reranked)
-    print(f"[5] launches {counts}, expected {expected} (per micro-batch 5 "
-          f"embedding_bag + 1 din_attention; per re-ranked request 4 "
-          f"embedding_bag + 1 rerank_score)", flush=True)
+    print(f"[5] launches {counts}, expected {expected} (per micro-batch 1 "
+          f"grouped embedding_bag + 1 din_attention; per re-ranked request "
+          f"1 grouped embedding_bag + 1 rerank_score)", flush=True)
     check(all(counts[k] > 0 for k in ("embedding_bag", "din_attention",
                                       "rerank_score")),
           "a kernel of the DIN path was never launched")
@@ -956,13 +1186,13 @@ def _check_retrieval_answer(r):
 
 #: launches per micro-batch (serve_scores) and per ranked request
 #: (score_candidates / retrieve) of each scenario's model
-PER_BATCH = {"din-rerank": {"embedding_bag": 5, "din_attention": 1},
-             "dien-rerank": {"embedding_bag": 5, "augru": 1},
+PER_BATCH = {"din-rerank": {"embedding_bag": 1, "din_attention": 1},
+             "dien-rerank": {"embedding_bag": 1, "augru": 1},
              "mind-retrieval": {}, "towers-retrieval": {}}
-PER_REQUEST = {"din-rerank": {"embedding_bag": 4, "rerank_score": 1},
-               "dien-rerank": {"embedding_bag": 4, "augru": 1},
+PER_REQUEST = {"din-rerank": {"embedding_bag": 1, "rerank_score": 1},
+               "dien-rerank": {"embedding_bag": 1, "augru": 1},
                "mind-retrieval": {"embedding_bag": 1},
-               "towers-retrieval": {"embedding_bag": 4,
+               "towers-retrieval": {"embedding_bag": 1,
                                     "candidate_scorer": 1}}
 RECSYS_KERNELS = ("embedding_bag", "din_attention", "rerank_score", "augru",
                   "candidate_scorer")

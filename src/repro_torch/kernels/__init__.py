@@ -45,15 +45,20 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "embedding_bag_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     "embedding_bag_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
-    "din_attention_f32": [_P] * 11 + [_I] * 5 + [_P],
+    # a host pointer to the groups' descriptors (passed on by value)
+    "embedding_bag_group_f32": [_P, _P],
+    "embedding_bag_group_bf16": [_P, _P],
+    "din_attention_f32": [_P] * 10 + [_I] * 5 + [_P],
     "rerank_score_f32": [_P] * 18 + [_I] * 9 + [_P],
     "augru_f32": [_P] * 7 + [_I] * 4 + [_P],
-    "candidate_scorer_f32": [_P] * 4 + [_I] * 4 + [_P],
-    "candidate_scorer_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "candidate_scorer_f32": [_P] * 4 + [_I] * 4 + [_P, _P],
+    "candidate_scorer_bf16": [_P] * 4 + [_I] * 4 + [_P, _P],
     "flash_decode_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
     "flash_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
     # a query, not a launch: SM count and resident split blocks per SM
     "flash_decode_residency": [_I] * 3 + [_P, _P],
+    # an empty kernel, timed as the launch floor; no path launches it
+    "launch_floor": [_P],
 }
 
 LAUNCHES = {"embedding_bag": 0, "din_attention": 0, "rerank_score": 0,

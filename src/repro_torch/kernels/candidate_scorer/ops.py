@@ -8,7 +8,6 @@ import torch
 
 from repro_torch.kernels import launch, on_cpu, require
 from repro_torch.kernels.candidate_scorer.ref import candidate_scorer_ref
-from repro_torch.topk import ordered_topk
 
 #: candidates per block at most (``kBlockC`` in the source)
 BLOCK_C = 1024
@@ -23,9 +22,11 @@ _ENTRY = {torch.float32: "candidate_scorer_f32",
 def candidate_scorer(cands, query, k: int = 8):
     """cands (C, D) float32 or bfloat16, query (D,) of the same dtype →
     the exact global top-k: values (k,) float32, best first, and their
-    indices (k,) int64. Scores accumulate in float32. On equal scores the
-    lower index comes first, as in ``lax.top_k``: the kernel orders each
-    block so, and the merge keeps the blocks' order among equal scores.
+    indices (k,) int64. Scores accumulate in float32. The order is
+    ``lax.top_k``'s: the floats' total order (-inf and NaN scores rank
+    like any other), and on equal scores the lower index first; the
+    kernel orders each block so, and the merge orders the blocks' winners
+    by the same rank. Every index is a real row (k <= C).
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if on_cpu(cands, query):
         return candidate_scorer_ref(cands, query, k)
@@ -41,21 +42,28 @@ def candidate_scorer(cands, query, k: int = 8):
     blocks = -(-C // BLOCK_C)
     vals = torch.empty((blocks * k,), dtype=torch.float32, device=cands.device)
     idx = torch.empty((blocks * k,), dtype=torch.int64, device=cands.device)
+    # the winners' ranks, for the merge: one block's output is the answer
+    ranks = (None if blocks == 1 else
+             torch.empty((blocks * k,), dtype=torch.int64, device=cands.device))
     per = 16 // cands.element_size()              # values per 16-byte load
     vec = int(D % per == 0 and cands.data_ptr() % 16 == 0
               and query.data_ptr() % 16 == 0)
     launch(_ENTRY[cands.dtype], "candidate_scorer", cands.device,
            cands.data_ptr(), query.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-           C, D, k, vec)
+           C, D, k, vec, None if ranks is None else ranks.data_ptr())
     if blocks == 1:                   # one block: already the sorted top-k
         return vals, idx
-    return merge_blocks(vals, idx, k)
+    return merge_blocks(ranks, vals, idx, k)
 
 
-def merge_blocks(vals, idx, k: int):
+def merge_blocks(ranks, vals, idx, k: int):
     """The global top-k from the blocks' winners as the kernel writes them:
-    block by block, each block's best first and, among equal scores, in
-    index order. Blocks cover ascending index ranges, so a stable
-    selection over the winners gives ``lax.top_k``'s global order."""
-    v, pos = ordered_topk(vals, k)
-    return v, idx[pos]
+    for each winner its score, its index and its rank, the int64 that
+    orders (score, index) as ``lax.top_k`` does (``rank_of`` in the
+    source: the score's total-order key in the high 32 bits, the index's
+    complement in the low 32); a slot without a row (a block of fewer than
+    k rows) has the least int64, below every row. Every rank is distinct,
+    so a top-k of the ranks has one answer and gives the global order. No
+    host sync: a CUDA graph can hold it."""
+    _, pos = torch.topk(ranks, k)
+    return vals[pos], idx[pos]

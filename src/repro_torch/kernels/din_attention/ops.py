@@ -6,8 +6,10 @@ import torch
 from repro_torch.kernels import launch, on_cpu, require
 from repro_torch.kernels.din_attention.ref import din_attention_ref
 
-#: history steps per block (``kChunk`` in the source); sizes the scratch
-CHUNK = 32
+#: history steps per chunk (``kChunk`` in the source), the widths of the
+#: register tiles (``kMaxH1``, ``kMaxH2``) and the most blocks a row's
+#: cluster has (``kMaxCluster``)
+CHUNK, MAX_H1, MAX_H2, MAX_CLUSTER = 16, 80, 40, 8
 _MAX_GRID_Y = 65535
 
 
@@ -29,14 +31,13 @@ def din_attention(hist, mask, target, w1, b1, w2, b2, w3, b3):
         require(t.is_contiguous(), f"{name} must be contiguous")
         require(name == "hist" or tuple(t.shape) == shapes[name],
                 f"{name} shape {tuple(t.shape)}, expected {shapes.get(name)}")
+    require(H1 <= MAX_H1 and H2 <= MAX_H2,
+            f"attention MLP {H1}-{H2} exceeds the kernel's tiles "
+            f"({MAX_H1}-{MAX_H2})")
     require(B <= _MAX_GRID_Y, f"B={B} exceeds the grid's y extent")
     out = torch.empty((B, D), dtype=hist.dtype, device=hist.device)
     if B == 0 or D == 0:
         return out
-    # per (row, chunk) pooled partials, summed in chunk order by the kernel
-    partial = torch.empty((B, -(-T // CHUNK), D), dtype=torch.float32,
-                          device=hist.device)
     launch("din_attention_f32", "din_attention", hist.device,
-           *(t.data_ptr() for t in args), partial.data_ptr(), out.data_ptr(),
-           B, T, D, H1, H2)
+           *(t.data_ptr() for t in args), out.data_ptr(), B, T, D, H1, H2)
     return out

@@ -1,13 +1,22 @@
-"""Wrapper of the embedding_bag kernel (``csrc/embedding_bag.cu``)."""
+"""Wrappers of the embedding_bag kernels (``csrc/embedding_bag.cu``): one
+launch per table (:func:`embedding_bag`), or one launch for all of a model
+call's tables (:func:`embedding_bag_group`)."""
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import launch, on_cpu, require
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_group_ref,
+                                                   embedding_bag_ref)
 
 _ENTRY = {torch.float32: "embedding_bag_f32",
           torch.bfloat16: "embedding_bag_bf16"}
+_GROUP_ENTRY = {torch.float32: "embedding_bag_group_f32",
+                torch.bfloat16: "embedding_bag_group_bf16"}
+#: groups one grouped launch takes at most (``kMaxGroups`` in the source)
+MAX_GROUPS = 8
 
 
 def embedding_bag(table, ids, weights=None, combiner: str = "sum"):
@@ -19,6 +28,22 @@ def embedding_bag(table, ids, weights=None, combiner: str = "sum"):
     require(combiner in ("sum", "mean"), f"unknown combiner {combiner!r}")
     if on_cpu(table, ids, weights):
         return embedding_bag_ref(table, ids, weights, combiner)
+    table, ids, weights = _checked(table, ids, weights)
+    (V, D), (B, K) = table.shape, ids.shape
+    out = torch.empty((B, D), dtype=table.dtype, device=table.device)
+    if B == 0 or D == 0:
+        return out
+    require(V > 0, "empty table")
+    launch(_ENTRY[table.dtype], "embedding_bag", table.device,
+           table.data_ptr(), ids.data_ptr(),
+           None if weights is None else weights.data_ptr(), out.data_ptr(),
+           V, D, B, K, int(combiner == "mean"))
+    return out
+
+
+def _checked(table, ids, weights):
+    """The kernel's operands: shapes and types checked, ids as int64 and
+    weights as float32, every one contiguous."""
     require(table.dim() == 2 and ids.dim() == 2,
             f"table (V, D) and ids (B, K) expected, got "
             f"{tuple(table.shape)} and {tuple(ids.shape)}")
@@ -31,13 +56,83 @@ def embedding_bag(table, ids, weights=None, combiner: str = "sum"):
         weights = weights.float()
     for name, t in (("table", table), ("ids", ids), ("weights", weights)):
         require(t is None or t.is_contiguous(), f"{name} must be contiguous")
-    (V, D), (B, K) = table.shape, ids.shape
-    out = torch.empty((B, D), dtype=table.dtype, device=table.device)
-    if B == 0 or D == 0:
-        return out
-    require(V > 0, "empty table")
-    launch(_ENTRY[table.dtype], "embedding_bag", table.device,
-           table.data_ptr(), ids.data_ptr(),
-           None if weights is None else weights.data_ptr(), out.data_ptr(),
-           V, D, B, K, int(combiner == "mean"))
-    return out
+    return table, ids, weights
+
+
+class _Group(ctypes.Structure):
+    """One group's descriptor (``BagGroup`` in the source)."""
+    _fields_ = [("table", ctypes.c_void_p), ("ids", ctypes.c_void_p),
+                ("weights", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("V", ctypes.c_longlong), ("K", ctypes.c_int),
+                ("mean", ctypes.c_int), ("out_stride", ctypes.c_int),
+                ("out_col", ctypes.c_int), ("bag0", ctypes.c_int)]
+
+
+class _Groups(ctypes.Structure):
+    """Every group of a launch (``BagGroups`` in the source), handed to the
+    kernel by value as one parameter; ``lanes`` is set by the C entry."""
+    _fields_ = [("g", _Group * MAX_GROUPS), ("n", ctypes.c_int),
+                ("D", ctypes.c_int), ("total", ctypes.c_int),
+                ("lanes", ctypes.c_int)]
+
+
+def embedding_bag_group(lookups, blocks=None):
+    """Several embedding bags in one launch. ``lookups`` is a sequence of
+    (table (V_g, D), ids (B_g, K_g), weights (B_g, K_g) or None, combiner)
+    groups, each computed as :func:`embedding_bag` computes it; every table
+    has the same dtype (float32 or bfloat16) and the same D, and there are
+    at most MAX_GROUPS groups.
+
+    ``blocks`` splits the groups, in order, into runs that share their bag
+    count: each run comes back as one (B, n * D) tensor, its groups side by
+    side, as ``torch.cat(dim=-1)`` would give them. The default is one run
+    per group: one (B_g, D) tensor each. The returned tensors are views of
+    one buffer. CPU tensors take the plain version; CUDA tensors launch
+    one kernel, counted once, with every descriptor passed by value (no
+    copy to the device, no host sync: a CUDA graph can hold the launch)."""
+    lookups = [tuple(g) for g in lookups]
+    blocks = (1,) * len(lookups) if blocks is None else tuple(blocks)
+    require(0 < len(lookups) <= MAX_GROUPS,
+            f"{len(lookups)} groups; a launch takes 1 to {MAX_GROUPS}")
+    require(all(n > 0 for n in blocks) and sum(blocks) == len(lookups),
+            f"blocks {blocks} do not split {len(lookups)} groups")
+    dtype, D = lookups[0][0].dtype, lookups[0][0].shape[-1]
+    for table, ids, _weights, combiner in lookups:
+        require(combiner in ("sum", "mean"), f"unknown combiner {combiner!r}")
+        require(table.dim() == 2 and ids.dim() == 2,
+                f"table (V, D) and ids (B, K) expected, got "
+                f"{tuple(table.shape)} and {tuple(ids.shape)}")
+        require(table.dtype == dtype and table.shape[1] == D,
+                f"every table must be {dtype} with D={D}, got {table.dtype} "
+                f"(V, {table.shape[1]})")
+    places, size, at = [], 0, 0      # the blocks' places in one buffer
+    for n in blocks:
+        B = lookups[at][1].shape[0]
+        require(all(g[1].shape[0] == B for g in lookups[at:at + n]),
+                "the groups of a block must share their bag count")
+        places.append((size, B, n))
+        size += B * n * D
+        at += n
+    if on_cpu(*(t for g in lookups for t in g[:3])):
+        return embedding_bag_group_ref(lookups, blocks)
+    groups = [(*_checked(*g[:3]), g[3]) for g in lookups]
+    require(all(g[0].shape[0] > 0 for g in groups), "empty table")
+    device = groups[0][0].device
+    buf = torch.empty((size,), dtype=dtype, device=device)
+    outs = [buf[off:off + B * n * D].view(B, n * D) for off, B, n in places]
+    desc, bag0, at = _Groups(), 0, 0
+    for off, B, n in places:
+        for j in range(n):
+            table, ids, weights, combiner = groups[at]
+            desc.g[at] = _Group(
+                table.data_ptr(), ids.data_ptr(),
+                None if weights is None else weights.data_ptr(),
+                buf.data_ptr() + off * buf.element_size(), table.shape[0],
+                ids.shape[1], int(combiner == "mean"), n * D, j * D, bag0)
+            bag0 += B
+            at += 1
+    desc.n, desc.D, desc.total = len(groups), D, bag0
+    if bag0 and D:
+        launch(_GROUP_ENTRY[dtype], "embedding_bag", device,
+               ctypes.addressof(desc))
+    return outs

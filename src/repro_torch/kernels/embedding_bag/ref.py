@@ -15,3 +15,17 @@ def embedding_bag_ref(table, ids, weights=None, combiner: str = "sum"):
     if combiner == "mean":
         out = out / weights.sum(-1, keepdim=True).clamp_min(1e-9).to(out.dtype)
     return out
+
+
+def embedding_bag_group_ref(lookups, blocks=None):
+    """The grouped call's plain version: one :func:`embedding_bag_ref` per
+    (table, ids, weights, combiner) group, the groups of each block of
+    ``blocks`` (consecutive group counts; default one a group)
+    concatenated along columns."""
+    outs = [embedding_bag_ref(*g) for g in lookups]
+    blocks = (1,) * len(outs) if blocks is None else blocks
+    res, at = [], 0
+    for n in blocks:
+        res.append(outs[at] if n == 1 else torch.cat(outs[at:at + n], dim=-1))
+        at += n
+    return res

@@ -6,7 +6,7 @@ import torch.nn.functional as F
 
 from repro_torch import default_device
 from repro_torch.configs.base import FeatureField, RecsysConfig
-from repro_torch.sparse.sharded import sharded_embedding_bag_2d
+from repro_torch.sparse.sharded import sharded_embedding_bag_group
 
 
 def tables_init(generator: torch.Generator, cfg: RecsysConfig,
@@ -20,14 +20,33 @@ def tables_init(generator: torch.Generator, cfg: RecsysConfig,
             for f in fields}
 
 
+def field_lookups(tables: dict, fields: tuple[FeatureField, ...],
+                  ids: dict) -> list:
+    """The embedding-bag groups of ``fields``: (table, ids, None,
+    combiner) each, for ``sharded_embedding_bag_group``."""
+    return [(tables[f.name], ids[f.name], None, f.combiner) for f in fields]
+
+
+def hist_lookup(tables: dict, hist_ids: torch.Tensor):
+    """The history's embedding-bag group: one item_id a bag, (B*T, 1), with
+    the padding (-1) read as row 0; :func:`masked_hist` masks it after."""
+    return (tables["item_id"], hist_ids.clamp_min(0).reshape(-1, 1), None,
+            "sum")
+
+
+def masked_hist(emb: torch.Tensor, hist_ids: torch.Tensor, dim: int):
+    """The history lookup's (B*T, D) rows as (B, T, D), zero where
+    ``hist_ids`` is padding (-1), and the (B, T) float32 mask."""
+    mask = (hist_ids >= 0).to(torch.float32)
+    return emb.reshape(*hist_ids.shape, dim) * mask[..., None], mask
+
+
 def embed_fields(tables: dict, fields: tuple[FeatureField, ...],
                  ids: dict) -> torch.Tensor:
-    """ids[name]: (B,) or (B, bag) int → concat (B, n_fields * D)."""
-    outs = []
-    for f in fields:
-        outs.append(sharded_embedding_bag_2d(tables[f.name], ids[f.name],
-                                             combiner=f.combiner))
-    return torch.cat(outs, dim=-1)
+    """ids[name]: (B,) or (B, bag) int → concat (B, n_fields * D), from one
+    grouped lookup that writes the concatenation in place."""
+    return sharded_embedding_bag_group(field_lookups(tables, fields, ids),
+                                       blocks=(len(fields),))[0]
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

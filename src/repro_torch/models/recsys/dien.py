@@ -3,7 +3,8 @@
 
 The AUGRU recurrence is the serving hot spot (one sequence scan per
 candidate); in the port it runs as the hand-written ``augru`` kernel and
-every table lookup as the ``embedding_bag`` kernel, while the GRU stays
+the table lookups of each model call as one grouped ``embedding_bag``
+launch, while the GRU stays
 plain PyTorch, as the reference keeps it in jnp. Tensors on the CPU take
 the kernels' plain versions. Forward only: the kernels on this path have
 no backward yet.
@@ -18,8 +19,10 @@ from repro_torch import default_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels.augru import augru
 from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
-from repro_torch.models.recsys.common import bce_loss, embed_fields, tables_init
-from repro_torch.sparse.sharded import (sharded_embedding_bag_2d,
+from repro_torch.models.recsys.common import (bce_loss, field_lookups,
+                                              hist_lookup, masked_hist,
+                                              tables_init)
+from repro_torch.sparse.sharded import (sharded_embedding_bag_group,
                                         sharded_gather_a2a)
 from repro_torch.topk import ordered_topk
 
@@ -86,14 +89,6 @@ def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
     }
 
 
-def _hist_emb(params, hist_ids, cfg):
-    mask = (hist_ids >= 0).to(torch.float32)
-    emb = sharded_embedding_bag_2d(
-        params["tables"]["item_id"], hist_ids.clamp_min(0).reshape(-1, 1))
-    emb = emb.reshape(*hist_ids.shape, cfg.embed_dim) * mask[..., None]
-    return emb, mask
-
-
 def _attention(states, att_w, target, mask):
     """Softmax attention of each state against the target, masked as the
     reference does it: -1e30 before the softmax, times the mask after it
@@ -110,16 +105,21 @@ def _evolved_interest(params, hist, mask, target):
 
 
 def logits_fn(params, batch: dict, cfg: RecsysConfig, return_aux=False):
-    hist, mask = _hist_emb(params, batch["user"]["hist"], cfg)
-    target = sharded_embedding_bag_2d(params["tables"]["item_id"],
-                                      batch["item"]["item_id"])
+    tables = params["tables"]
+    item_side = tuple(f for f in cfg.item_fields if f.name != "item_id")
+    hist_ids = batch["user"]["hist"]
+    # one grouped lookup: the history, then [target, user fields, item
+    # fields] side by side
+    emb, feats = sharded_embedding_bag_group(
+        [hist_lookup(tables, hist_ids),
+         (tables["item_id"], batch["item"]["item_id"], None, "sum"),
+         *field_lookups(tables, cfg.user_fields, batch["user"]["fields"]),
+         *field_lookups(tables, item_side, batch["item"])],
+        blocks=(1, 1 + len(cfg.user_fields) + len(item_side)))
+    hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)
+    target = feats[:, :cfg.embed_dim]
     states, final = _evolved_interest(params, hist, mask, target)
-    other_u = embed_fields(params["tables"], cfg.user_fields,
-                           batch["user"]["fields"])
-    other_i = embed_fields(params["tables"],
-                           tuple(f for f in cfg.item_fields if f.name != "item_id"),
-                           batch["item"])
-    x = torch.cat([final, target, other_u, other_i], dim=-1)
+    x = torch.cat([final, feats], dim=-1)
     logits = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
     if not return_aux:
         return logits
@@ -153,20 +153,22 @@ def score_candidates(params, user_batch: dict, cand_ids: dict,
     scores, best first, the lower index first among equal scores
     (``lax.top_k``'s order)."""
     C = cand_ids["item_id"].shape[0]
-    hist, mask = _hist_emb(params, user_batch["hist"], cfg)   # (1,T,D)
+    tables = params["tables"]
+    item_side = tuple(f for f in cfg.item_fields if f.name != "item_id")
+    hist_ids = user_batch["hist"]
+    emb, other_u, other_i = sharded_embedding_bag_group(
+        [hist_lookup(tables, hist_ids),
+         *field_lookups(tables, cfg.user_fields, user_batch["fields"]),
+         *field_lookups(tables, item_side, cand_ids)],
+        blocks=(1, len(cfg.user_fields), len(item_side)))
+    hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)    # (1,T,D)
     states = gru_apply(params["gru"], hist)                   # (1,T,H)
-    target = sharded_gather_a2a(params["tables"]["item_id"],
-                                cand_ids["item_id"])           # (C,D)
+    target = sharded_gather_a2a(tables["item_id"], cand_ids["item_id"])  # (C,D)
     states_b = states.expand(C, *states.shape[1:])
     mask_b = mask.expand(C, mask.shape[1])
     att = _attention(states_b, params["att_w"], target, mask_b)
     final = augru_apply(params["augru"], states_b, att)        # (C,H)
-    other_u = embed_fields(params["tables"], cfg.user_fields,
-                           user_batch["fields"])
     other_u = other_u.expand(C, other_u.shape[-1])
-    other_i = embed_fields(params["tables"],
-                           tuple(f for f in cfg.item_fields if f.name != "item_id"),
-                           cand_ids)
     x = torch.cat([final, target, other_u, other_i], dim=-1)
     scores = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
     return ordered_topk(scores.float(), top_k)

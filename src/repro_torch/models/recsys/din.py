@@ -4,8 +4,9 @@ The local activation unit scores each history item against the candidate via
 an MLP over [h, t, h−t, h⊙t] (80→40→1, paper-exact), then weighted-sum pools
 WITHOUT softmax normalization (paper §4.3). In the port the unit runs as
 the hand-written ``din_attention`` kernel, the candidate re-rank as the
-fused ``rerank_score`` kernel, and every table lookup as the
-``embedding_bag`` kernel; tensors on the CPU take their plain versions.
+fused ``rerank_score`` kernel, and the table lookups of each model call
+as one grouped ``embedding_bag`` launch; tensors on the CPU take their
+plain versions.
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels.din_attention import din_attention
 from repro_torch.kernels.rerank_score import rerank_score
 from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
-from repro_torch.models.recsys.common import bce_loss, embed_fields, tables_init
-from repro_torch.sparse.sharded import (sharded_embedding_bag_2d,
+from repro_torch.models.recsys.common import (bce_loss, field_lookups,
+                                              hist_lookup, masked_hist,
+                                              tables_init)
+from repro_torch.sparse.sharded import (sharded_embedding_bag_group,
                                         sharded_gather_a2a)
 from repro_torch.topk import ordered_topk
 
@@ -51,25 +54,22 @@ def attention_pool(params, hist: torch.Tensor, mask: torch.Tensor,
                          target.contiguous(), *flat)
 
 
-def _hist_emb(params, hist_ids, cfg):
-    mask = (hist_ids >= 0).to(torch.float32)
-    emb = sharded_embedding_bag_2d(
-        params["tables"]["item_id"], hist_ids.clamp_min(0).reshape(-1, 1))
-    emb = emb.reshape(*hist_ids.shape, cfg.embed_dim) * mask[..., None]
-    return emb, mask
-
-
 def logits_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    hist, mask = _hist_emb(params, batch["user"]["hist"], cfg)
-    target = sharded_embedding_bag_2d(params["tables"]["item_id"],
-                                      batch["item"]["item_id"])
-    other_u = embed_fields(params["tables"], cfg.user_fields,
-                           batch["user"]["fields"])
-    other_i = embed_fields(params["tables"],
-                           tuple(f for f in cfg.item_fields if f.name != "item_id"),
-                           batch["item"])
+    tables = params["tables"]
+    item_side = tuple(f for f in cfg.item_fields if f.name != "item_id")
+    hist_ids = batch["user"]["hist"]
+    # one grouped lookup: the history, then [target, user fields, item
+    # fields] side by side, as the score MLP reads them
+    emb, feats = sharded_embedding_bag_group(
+        [hist_lookup(tables, hist_ids),
+         (tables["item_id"], batch["item"]["item_id"], None, "sum"),
+         *field_lookups(tables, cfg.user_fields, batch["user"]["fields"]),
+         *field_lookups(tables, item_side, batch["item"])],
+        blocks=(1, 1 + len(cfg.user_fields) + len(item_side)))
+    hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)
+    target = feats[:, :cfg.embed_dim]
     pooled = attention_pool(params, hist, mask, target)
-    x = torch.cat([pooled, target, other_u, other_i], dim=-1)
+    x = torch.cat([pooled, feats], dim=-1)
     return mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
 
 
@@ -103,24 +103,24 @@ def score_candidates(params, user_batch: dict, cand_ids: dict,
     Returns (values, indices) of the ``top_k`` best scores, best first,
     the lower index first among equal scores (``lax.top_k``'s order)."""
     C = cand_ids["item_id"].shape[0]
-    hist, mask = _hist_emb(params, user_batch["hist"], cfg)   # (1,T,D)
-    target = sharded_gather_a2a(params["tables"]["item_id"],
-                                cand_ids["item_id"])           # (C,D)
+    tables = params["tables"]
     item_side = tuple(f for f in cfg.item_fields if f.name != "item_id")
+    hist_ids = user_batch["hist"]
+    emb, other_u, other_i = sharded_embedding_bag_group(
+        [hist_lookup(tables, hist_ids),
+         *field_lookups(tables, cfg.user_fields, user_batch["fields"]),
+         *field_lookups(tables, item_side, cand_ids)],
+        blocks=(1, len(cfg.user_fields), len(item_side)))
+    hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)    # (1,T,D)
+    target = sharded_gather_a2a(tables["item_id"], cand_ids["item_id"])  # (C,D)
     if path == "fused" and len(cfg.attn_mlp) == 2 and len(cfg.mlp) == 2:
-        other_u = embed_fields(params["tables"], cfg.user_fields,
-                               user_batch["fields"])[0]        # (d_u,)
-        other_i = embed_fields(params["tables"], item_side, cand_ids)  # (C, d_i)
-        scores = rerank_score(hist[0], mask[0], target, other_u, other_i,
+        scores = rerank_score(hist[0], mask[0], target, other_u[0], other_i,
                               params["attn_mlp"], params["mlp"])
     else:
         hist = hist.expand(C, *hist.shape[1:])
         mask = mask.expand(C, mask.shape[1])
         pooled = attention_pool(params, hist, mask, target)
-        other_u = embed_fields(params["tables"], cfg.user_fields,
-                               user_batch["fields"])           # (1, ...)
         other_u = other_u.expand(C, other_u.shape[-1])
-        other_i = embed_fields(params["tables"], item_side, cand_ids)
         x = torch.cat([pooled, target, other_u, other_i], dim=-1)
         scores = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
     return ordered_topk(scores.float(), top_k)

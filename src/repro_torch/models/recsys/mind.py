@@ -3,8 +3,8 @@
 Behavior-to-interest (B2I) dynamic routing: T history embeddings → K interest
 capsules (squash nonlinearity, routing logits NOT backpropagated across
 iterations, per the paper). Label-aware attention (pow-2) for training;
-serving scores are max over interests. Table lookups run as the
-``embedding_bag`` kernel; ``retrieve`` takes a max over K interests, which
+serving scores are max over interests. The table lookups of each model
+call run as one grouped ``embedding_bag`` launch; ``retrieve`` takes a max over K interests, which
 is not the ``candidate_scorer`` kernel's single-query function, so it is a
 plain product and a top-k in ``lax.top_k``'s order, as the reference
 keeps it outside any kernel. Forward only.
@@ -17,9 +17,10 @@ import torch
 from repro_torch import default_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
-from repro_torch.models.recsys.common import (l2_normalize,
+from repro_torch.models.recsys.common import (hist_lookup, l2_normalize,
+                                              masked_hist,
                                               sampled_softmax_loss, tables_init)
-from repro_torch.sparse.sharded import (sharded_embedding_bag_2d,
+from repro_torch.sparse.sharded import (sharded_embedding_bag_group,
                                         sharded_gather_a2a)
 from repro_torch.topk import ordered_topk
 
@@ -73,24 +74,27 @@ def interests(params, hist_emb: torch.Tensor, hist_mask: torch.Tensor,
 
 def _hist(params, batch, cfg):
     hist_ids = batch["user"]["hist"]                          # (B,T)
-    mask = (hist_ids >= 0).to(torch.float32)
-    table = params["tables"]["item_id"]
-    emb = sharded_embedding_bag_2d(
-        table, hist_ids.clamp_min(0).reshape(-1, 1))          # (B*T, D)
-    emb = emb.reshape(*hist_ids.shape, cfg.embed_dim) * mask[..., None]
-    return emb, mask
+    emb, = sharded_embedding_bag_group(
+        [hist_lookup(params["tables"], hist_ids)])            # (B*T, D)
+    return masked_hist(emb, hist_ids, cfg.embed_dim)
 
 
-def _target(params, item_ids, cfg):
-    return sharded_embedding_bag_2d(params["tables"]["item_id"],
-                                    item_ids["item_id"])
+def _hist_and_target(params, batch, cfg):
+    """The history (as :func:`_hist`) and the target items, (B, D), from
+    one grouped lookup."""
+    hist_ids = batch["user"]["hist"]
+    emb, tgt = sharded_embedding_bag_group(
+        [hist_lookup(params["tables"], hist_ids),
+         (params["tables"]["item_id"], batch["item"]["item_id"], None,
+          "sum")])
+    return (*masked_hist(emb, hist_ids, cfg.embed_dim), tgt)
 
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     """Forward loss only."""
-    emb, mask = _hist(params, batch, cfg)
+    emb, mask, tgt = _hist_and_target(params, batch, cfg)
     I = interests(params, emb, mask, cfg)                     # (B,K,D)
-    tgt = l2_normalize(_target(params, batch["item"], cfg))   # (B,D)
+    tgt = l2_normalize(tgt)                                   # (B,D)
     # label-aware attention, pow 2
     att = torch.softmax(torch.einsum("bkd,bd->bk", I, tgt) ** 2 * 8.0, dim=-1)
     u = torch.einsum("bk,bkd->bd", att, I)
@@ -99,9 +103,9 @@ def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
 
 @torch.no_grad()
 def serve_scores(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    emb, mask = _hist(params, batch, cfg)
+    emb, mask, tgt = _hist_and_target(params, batch, cfg)
     I = interests(params, emb, mask, cfg)
-    tgt = l2_normalize(_target(params, batch["item"], cfg))
+    tgt = l2_normalize(tgt)
     return torch.amax(torch.einsum("bkd,bd->bk", I, tgt), dim=-1)
 
 

@@ -1,7 +1,7 @@
 """Two-tower retrieval [Covington RecSys'16; Yi et al. RecSys'19].
 
 In the port the user fields (single ids and the multi-hot ``user_hist`` /
-``user_ctx`` bags) run as the ``embedding_bag`` kernel, and ``retrieve``'s
+``user_ctx`` bags) run as one grouped ``embedding_bag`` launch, and ``retrieve``'s
 dot product of every candidate with the user vector plus its top-k run as
 the ``candidate_scorer`` kernel. Tensors on the CPU take the kernels'
 plain versions. Forward only.

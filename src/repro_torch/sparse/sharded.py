@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.embedding_bag import embedding_bag_group
 from repro_torch.sparse.embedding import embedding_bag_padded, lookup
 
 
@@ -54,3 +55,18 @@ def sharded_embedding_bag_2d(table: torch.Tensor, ids: torch.Tensor,
         ids = ids[:, None]
         weights = None if weights is None else weights[:, None]
     return embedding_bag_padded(table, ids, weights, combiner)
+
+
+def sharded_embedding_bag_group(lookups, blocks=None, mesh=None) -> list:
+    """Several padded bags in one call: ``lookups`` is a sequence of
+    (table, ids (B, K) or (B,), weights or None, combiner); ``blocks``
+    splits them into runs that share B, each returned as one (B, n * D)
+    tensor (``embedding_bag_group``)."""
+    _single_device(mesh)
+    groups = []
+    for table, ids, weights, combiner in lookups:
+        if ids.dim() == 1:
+            ids = ids[:, None]
+            weights = None if weights is None else weights[:, None]
+        groups.append((table, ids, weights, combiner))
+    return embedding_bag_group(groups, blocks)

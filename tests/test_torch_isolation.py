@@ -556,6 +556,156 @@ def test_rerank_wrapper_raises_beyond_its_tiles(H1, H2, fake_card, rng):
     assert calls == [] and K.launch_counts() == before
 
 
+def _bag_groups(rng, spec, dtype=torch.float32):
+    """(table, ids, weights, combiner) groups on the fake card from
+    (V, D, B, K, weighted, combiner) tuples."""
+    out = []
+    for V, D, B, K, weighted, comb in spec:
+        table = FakeCuda(torch.as_tensor(rng.normal(size=(V, D))).to(dtype))
+        ids = FakeCuda(torch.as_tensor(rng.integers(0, V, (B, K))))
+        w = (FakeCuda(torch.as_tensor(rng.random((B, K)), dtype=torch.float32))
+             if weighted else None)
+        out.append((table, ids, w, comb))
+    return out
+
+
+def _descriptors(address):
+    """The groups' descriptors as the C entry receives them."""
+    return bag_ops._Groups.from_address(address)
+
+
+def test_grouped_bag_is_one_launch_with_descriptors_by_value(fake_card,
+                                                            monkeypatch, rng):
+    """One grouped call: one launch of the C entry with one pointer (the
+    descriptors, read by the entry and passed on by value: nothing is
+    copied to the device), one count, one output buffer of every block,
+    each group at its block's row stride and column offset, and the prefix
+    offsets of the bags; the plain version is never reached."""
+    calls, _status = fake_card
+    seen = []
+    real = K.kernel
+
+    def entry(name, device):
+        fn = real(name, device)
+
+        def call(*args):
+            d = _descriptors(args[0])
+            seen.append([(g.table, g.ids, g.weights, g.out, g.V, g.K, g.mean,
+                          g.out_stride, g.out_col, g.bag0)
+                         for g in d.g[:d.n]] + [(d.n, d.D, d.total)])
+            return fn(*args)
+        return call
+    monkeypatch.setattr(K, "kernel", entry)
+    shapes = _record_allocations(monkeypatch)
+    groups = _bag_groups(rng, [(50, 18, 1600, 1, False, "sum"),
+                               (50, 18, 16, 1, False, "sum"),
+                               (30, 18, 16, 4, True, "mean"),
+                               (20, 18, 16, 1, False, "sum")])
+    before = K.launch_counts()
+    outs = bag_ops.embedding_bag_group(groups, blocks=(1, 3))
+    after = K.launch_counts()
+    (name, args), = calls
+    assert name == "embedding_bag_group_f32" and len(args) == 2  # + stream
+    assert after["embedding_bag"] == before["embedding_bag"] + 1
+    assert {k: after[k] - before[k] for k in after if k != "embedding_bag"} \
+        == {k: 0 for k in after if k != "embedding_bag"}
+    assert shapes == [((1600 + 16 * 3) * 18,)]          # one buffer
+    assert [tuple(o.shape) for o in outs] == [(1600, 18), (16, 54)]
+    base = outs[0].data_ptr()
+    assert outs[1].data_ptr() == base + 1600 * 18 * 4
+    (*gs, (n, D, total)), = seen
+    assert (n, D, total) == (4, 18, 1600 + 3 * 16)
+    table, ids, w, comb = groups[2]
+    assert gs[2] == (table.data_ptr(), ids.data_ptr(), w.data_ptr(),
+                     outs[1].data_ptr(), 30, 4, 1, 54, 18, 1616)
+    assert [g[3] for g in gs] == [base] + [outs[1].data_ptr()] * 3
+    assert [(g[7], g[8], g[9]) for g in gs] == [(18, 0, 0), (54, 0, 1600),
+                                                (54, 18, 1616), (54, 36, 1632)]
+    assert [g[2] for g in gs].count(None) == 3
+
+
+@pytest.mark.parametrize("bad", ["dtype", "D", "groups", "bags"])
+def test_grouped_bag_refuses_what_one_launch_cannot_take(bad, fake_card, rng):
+    """Tables of two dtypes or two widths, more groups than MAX_GROUPS, or
+    a block whose groups differ in bag count: a ValueError, no launch, no
+    count."""
+    calls, _status = fake_card
+    spec = [(40, 18, 8, 1, False, "sum"), (40, 18, 8, 2, False, "sum")]
+    blocks = None
+    if bad == "D":
+        spec[1] = (40, 20, 8, 2, False, "sum")
+    if bad == "groups":
+        spec = spec * (bag_ops.MAX_GROUPS // 2) + spec[:1]
+    if bad == "bags":
+        spec[1] = (40, 18, 9, 2, False, "sum")
+        blocks = (2,)
+    groups = _bag_groups(rng, spec)
+    if bad == "dtype":
+        groups[1] = _bag_groups(rng, spec[1:], torch.bfloat16)[0]
+    before = K.launch_counts()
+    with pytest.raises(ValueError):
+        bag_ops.embedding_bag_group(groups, blocks)
+    assert calls == [] and K.launch_counts() == before
+
+
+def test_grouped_bag_descriptors_match_the_source():
+    """The ctypes descriptors have the C structs' members, in order and of
+    the same types, so the entry reads what the wrapper wrote."""
+    text = (K.CSRC / "embedding_bag.cu").read_text()
+    ctype = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+    def members(struct):
+        body = re.search(r"struct " + struct + r" \{(.*?)\};", text,
+                         re.S).group(1)
+        body = re.sub(r"//[^\n]*", "", body)
+        out = []
+        for decl in filter(None, (d.strip() for d in body.split(";"))):
+            first, *rest = decl.split(",")
+            words = first.split()
+            ty = " ".join(words[:-1])
+            for name in [words[-1]] + [r.strip() for r in rest]:
+                out.append((name.lstrip("*").split("[")[0],
+                            ctypes.c_void_p if "*" in ty + name
+                            else ctype.get(ty, ty)))
+        return out
+    group = [(n, t) for n, t in bag_ops._Group._fields_]
+    assert members("BagGroup") == group
+    groups = members("BagGroups")
+    assert groups[0] == ("g", "BagGroup")
+    assert groups[1:] == [(n, t) for n, t in bag_ops._Groups._fields_[1:]]
+    assert bag_ops._Groups._fields_[0][1]._length_ == bag_ops.MAX_GROUPS
+
+
+@pytest.mark.parametrize("B,T", [(16, 100), (1, 1), (3, 300), (256, 100)])
+def test_din_attention_is_one_launch_without_scratch(B, T, fake_card,
+                                                     monkeypatch, rng):
+    """B2 runs as one launch of clusters over the chunks of a row, summed
+    through distributed shared memory: the wrapper allocates the (B, D)
+    output and nothing else, and hands the C entry the shapes."""
+    calls, _status = fake_card
+    shapes = _record_allocations(monkeypatch)
+    D, H1, H2 = 18, 80, 40
+    args_in = _rng_tensors(rng, (B, T, D), (B, T), (B, D), (4 * D, H1), (H1,),
+                           (H1, H2), (H2,), (H2, 1), (1,))
+    out = din_ops.din_attention(*args_in)
+    (name, args), = calls
+    assert name == "din_attention_f32" and shapes == [(B, D)]
+    assert args[9] == out.data_ptr()
+    assert args[10:15] == (B, T, D, H1, H2)
+
+
+@pytest.mark.parametrize("H1,H2", [(din_ops.MAX_H1 + 1, 40),
+                                   (80, din_ops.MAX_H2 + 1)])
+def test_din_attention_raises_beyond_its_tiles(H1, H2, fake_card, rng):
+    calls, _status = fake_card
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="tiles"):
+        din_ops.din_attention(*_rng_tensors(
+            rng, (2, 5, 4), (2, 5), (2, 4), (16, H1), (H1,), (H1, H2), (H2,),
+            (H2, 1), (1,)))
+    assert calls == [] and K.launch_counts() == before
+
+
 #: B6's path shapes (B, H, S, dtype, G, D) and the stated resident split
 #: blocks per SM at their (dtype, G, D): the LM service (smollm-135m),
 #: decode_32k, long_500k (qwen3-8b), starcoder2-7b's geometry, the
@@ -643,18 +793,19 @@ def test_candidate_scorer_block_plan(C, k, blocks, monkeypatch, fake_card):
     with (C, D, k, vec) alone: the kernel sizes each block from C and picks
     its selection method by k (``kArgmaxMaxK``, checked against
     ARGMAX_MAX_K below). At C <= BLOCK_C the one block's output is the
-    answer, returned unmerged; above, the merge's ordered top-k sees every
-    block's k candidates."""
+    answer, returned unmerged; above, the merge sees every block's k
+    candidates."""
     calls, _status = fake_card
     merged = []
 
     class Merged(Exception):
         pass
 
-    def topk(vals, kk):
+    def merge(ranks, vals, idx, kk):
+        assert ranks.numel() == idx.numel() == vals.numel()
         merged.append((vals.numel(), kk))
         raise Merged
-    monkeypatch.setattr(scorer_ops, "ordered_topk", topk)
+    monkeypatch.setattr(scorer_ops, "merge_blocks", merge)
     cands = FakeCuda(torch.zeros((min(C, 4096), 8)))
     cands.shape = (C, 8)                 # the rows themselves are never read
     query = FakeCuda(torch.zeros(8))
@@ -711,7 +862,10 @@ def test_library_signatures_match_the_sources():
 
 
 @pytest.mark.parametrize("source,module,names", [
-    ("din_attention.cu", din_ops, {"kChunk": "CHUNK"}),
+    ("din_attention.cu", din_ops, {"kChunk": "CHUNK", "kMaxH1": "MAX_H1",
+                                   "kMaxH2": "MAX_H2",
+                                   "kMaxCluster": "MAX_CLUSTER"}),
+    ("embedding_bag.cu", bag_ops, {"kMaxGroups": "MAX_GROUPS"}),
     ("rerank_score.cu", rerank_ops, {"kCands": "CANDS", "kMaxH1": "MAX_H1",
                                      "kMaxH2": "MAX_H2"}),
     ("augru.cu", augru_ops, {"kMaxH": "MAX_H"}),

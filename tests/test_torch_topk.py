@@ -32,7 +32,7 @@ from repro_torch.kernels.candidate_scorer import candidate_scorer
 from repro_torch.kernels.candidate_scorer.ops import BLOCK_C, merge_blocks
 from repro_torch.models import moe
 from repro_torch.models.recsys import dien, din, mind, towers
-from repro_torch.topk import ordered_topk
+from repro_torch.topk import ordered_topk, total_order_key
 
 
 def _lax(x, k):
@@ -88,6 +88,140 @@ def test_ordered_topk_refuses_k_outside_the_input(k):
         _lax(x, k)
     with pytest.raises(ValueError, match="must lie in"):
         ordered_topk(torch.as_tensor(x), k)
+
+
+# ------------------------------------- signed zeros and NaN (total order)
+
+#: float32 bit patterns: +-0, +-inf, a quiet NaN of either sign, small
+#: integers; each is exact in bfloat16 and float16 as its upper 16 bits
+_SPECIAL_BITS = np.array([0x00000000, 0x80000000, 0x7f800000, 0xff800000,
+                          0x7fc00000, 0xffc00000, 0x3f800000, 0xbf800000,
+                          0x40000000], np.uint32)
+_DTYPES = {"float32": (np.float32, torch.float32, jnp.float32),
+           "float64": (np.float64, torch.float64, jnp.float64),
+           "bfloat16": (None, torch.bfloat16, jnp.bfloat16),
+           "float16": (np.float16, torch.float16, jnp.float16)}
+
+
+def _same_bits(bits32, dtype):
+    """The same floats, bit for bit, as a torch tensor and a JAX array in
+    ``dtype`` (torch's own cast of a NaN to bfloat16 sets its sign bit)."""
+    np_t, torch_t, jax_t = _DTYPES[dtype]
+    f32 = bits32.astype(np.uint32).view(np.float32)
+    if dtype == "float32":
+        return torch.as_tensor(f32), jnp.asarray(f32)
+    if dtype == "float64":
+        # JAX runs without x64 here: the reference ranks the float32
+        # values, whose order the widening keeps (a NaN keeps its sign)
+        return torch.as_tensor(f32.astype(np.float64)), jnp.asarray(f32)
+    if dtype == "float16":
+        f16 = f32.astype(np.float16)
+        return torch.as_tensor(f16), jnp.asarray(f16)
+    hi = (bits32.astype(np.uint32) >> 16).astype(np.uint16)
+    return (torch.as_tensor(hi.view(np.int16)).view(torch.bfloat16),
+            jnp.asarray(hi).view(jnp.bfloat16))
+
+
+def _c1_case(name, rng):
+    """(float32 bits, k): the roadmap's three cases of fault C-1, then
+    random draws from the special values (runs of equal keys, both zeros,
+    both NaNs, both infinities) with k through them."""
+    f = np.float32
+    if name == "zeros k=3":
+        return np.array([0, -0.0, 0, -0.0, 1, -0.0, 0], f).view(np.uint32), 3
+    if name == "zeros k=7":
+        return np.array([0, -0.0, 0, -0.0, 1, -0.0, 0], f).view(np.uint32), 7
+    if name == "nan k=2":
+        return np.array([1, -np.nan, 2, np.nan, 3], f).view(np.uint32), 2
+    n = int(name.split("n=")[1].split()[0])
+    k = int(name.split("k=")[1])
+    return _SPECIAL_BITS[rng.integers(0, _SPECIAL_BITS.size, n)], k
+
+
+C1_CASES = ["zeros k=3", "zeros k=7", "nan k=2", "random n=64 k=8",
+            "random n=64 k=64", "random n=1000 k=100", "random n=5000 k=5000"]
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("case", C1_CASES)
+def test_ordered_topk_orders_signed_zeros_and_nan_as_lax(case, dtype, rng):
+    """lax.top_k orders floats totally: +NaN above +inf, +0 above -0, -NaN
+    below -inf, the lower index first among equal bits. ordered_topk
+    returns its indices, index for index, and the same values bit for bit
+    (the roadmap's fault C-1: a float sort tied the zeros and put every
+    NaN first)."""
+    bits, k = _c1_case(case, rng)
+    x, xj = _same_bits(bits, dtype)
+    v, i = ordered_topk(x, k)
+    wv, wi = jax.lax.top_k(xj, k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    wv = np.asarray(wv)
+    if dtype == "float64":
+        wv = wv.astype(np.float64)
+    as_int = {2: (torch.int16, np.uint16), 4: (torch.int32, np.uint32),
+              8: (torch.int64, np.uint64)}[x.element_size()]
+    np.testing.assert_array_equal(v.view(as_int[0]).numpy().view(as_int[1]),
+                                  wv.view(as_int[1]))
+    if case == "zeros k=3":
+        assert i.tolist() == [4, 0, 2]
+    if case == "nan k=2":
+        assert i.tolist() == [3, 4]
+
+
+def _special_cands(rng, C, pool=None):
+    """C candidates whose score against the query (1,) is their one entry
+    times 1: exactly the special value drawn, -0 and -NaN included."""
+    pool = _SPECIAL_BITS if pool is None else pool
+    bits = pool[rng.integers(0, pool.size, C)]
+    return bits.view(np.float32).reshape(C, 1), np.ones(1, np.float32)
+
+
+@pytest.mark.parametrize("C,k", [(64, 8), (64, 64), (300, 17), (300, 300)])
+def test_candidate_scorer_plain_version_orders_non_finite_scores(C, k, rng):
+    """B5's plain version (its CPU path) on -inf, NaN of either sign and
+    signed-zero scores: lax.top_k's indices over the same scores, every
+    one a real row (fault C-2's card-side counterpart is held in
+    chip_smoke.py)."""
+    cands, q = _special_cands(rng, C)
+    scores = (torch.as_tensor(cands) @ torch.as_tensor(q)).numpy()
+    # a product summed from +0 never ends at -0: a -0 entry scores +0
+    bits = scores.view(np.uint32)
+    assert {0x00000000, 0x7fc00000, 0xffc00000, 0xff800000} <= set(
+        bits.tolist())
+    v, i = candidate_scorer(torch.as_tensor(cands), torch.as_tensor(q), k)
+    wv, wi = _lax(scores, k)
+    np.testing.assert_array_equal(i.numpy(), wi)
+    np.testing.assert_array_equal(v.numpy().view(np.uint32),
+                                  wv.view(np.uint32))
+    assert (i.numpy() >= 0).all()
+
+
+@pytest.mark.parametrize("C,k,pool", [
+    (3000, 8, "all"), (1025, 1025, "all"), (1100, 200, "all"),
+    (2100, 64, "-inf and -nan"), (1030, 40, "-nan")])
+def test_candidate_scorer_merge_orders_non_finite_scores(C, k, pool, rng):
+    """The kernel path's cross-block merge on -inf / NaN / signed-zero
+    scores: each block's winners as the kernel writes them (its ordered
+    top-k, a block of fewer than k rows padded with (-inf, -1)), merged,
+    equal to lax.top_k over every score index for index. A padded slot
+    ranks below every row, -NaN rows included, so no -1 comes back."""
+    pools = {"all": _SPECIAL_BITS,
+             "-inf and -nan": np.array([0xff800000, 0xffc00000], np.uint32),
+             "-nan": np.array([0xffc00000], np.uint32)}
+    cands, q = _special_cands(rng, C, pools[pool])
+    scores = torch.as_tensor(cands) @ torch.as_tensor(q)
+    vals, idx = [], []
+    for b0 in range(0, C, BLOCK_C):
+        v, i = ordered_topk(scores[b0:b0 + BLOCK_C], min(k, scores[b0:b0 + BLOCK_C].numel()))
+        pad = k - v.numel()
+        vals.append(torch.cat((v, torch.full((pad,), -torch.inf))))
+        idx.append(torch.cat((i + b0, torch.full((pad,), -1))))
+    got = _merge(vals, idx, k)
+    wv, wi = _lax(scores.numpy(), k)
+    np.testing.assert_array_equal(got[1].numpy(), wi)
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32),
+                                  wv.view(np.uint32))
+    assert (got[1].numpy() >= 0).all()
 
 
 # ---------------------------------------------------------- the rankings
@@ -215,6 +349,21 @@ def test_candidate_scorer_plain_version_keeps_the_tie_order(C, k, rng):
                                     interpret=True))
 
 
+def _block_rank(vals, idx):
+    """The kernel's rank of each block winner (``rank_of`` in
+    candidate_scorer.cu): the score's total-order key in the high 32 bits,
+    the index's complement in the low 32; an empty slot (index -1) the
+    least int64."""
+    key = total_order_key(vals.float()).long()
+    return ((key << 32) | ((~idx) & 0xFFFFFFFF)).masked_fill(
+        idx < 0, torch.iinfo(torch.int64).min)
+
+
+def _merge(vals, idx, k):
+    vals, idx = torch.cat(vals), torch.cat(idx)
+    return merge_blocks(_block_rank(vals, idx), vals, idx, k)
+
+
 @pytest.mark.parametrize("C,k", [(2048, 64), (4096, 200), (3000, 8)])
 def test_candidate_scorer_merge_keeps_the_tie_order(C, k, rng):
     """The kernel path's cross-block merge: each block's winners as the
@@ -230,7 +379,7 @@ def test_candidate_scorer_merge_keeps_the_tie_order(C, k, rng):
         i = torch.cat((i + b0, torch.zeros(k - i.numel(), dtype=i.dtype)))
         vals.append(v)
         idx.append(i)
-    got = merge_blocks(torch.cat(vals), torch.cat(idx), k)
+    got = _merge(vals, idx, k)
     _same(got, _lax(cands @ q, k))
     _same(got, jax_candidate_scorer(jnp.asarray(cands), jnp.asarray(q), k=k,
                                     interpret=True))
