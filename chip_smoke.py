@@ -39,7 +39,16 @@ Phases, each printing its lines; any failure exits nonzero:
      up to 32 decode steps, flash_decode launched once per layer and step;
      then the same weights on the CPU (plain versions) against the card
      over the prefill and 8 teacher-forced decode steps;
-  8. the kernel table as one JSON line (launches from phase 6, and from
+  8. the update, durability and scale-out planes of the DIN service of
+     phase 5 on ``cuda``: an HBM head table of 65,536 rows on the card fed
+     by live deltas (promotions, in-place updates, hits, its rows equal to
+     the cube's bit for bit, its gather and scatter timed), periodic
+     snapshots and a graceful shutdown's final snapshot; recovery from it
+     (no delta replayed, equal cube rows, equal scores) and with two
+     versions to replay; the recsys launcher (``serve_recsys``) with every
+     telemetry flag, then with ``--recover``; the launch counts of B1-B3
+     checked against the stage stats;
+  9. the kernel table as one JSON line (launches from phase 6, and from
      phase 7 for flash_decode), the card line, and the result.
 
 Needs a CUDA device; exits nonzero without one, and without the
@@ -47,6 +56,7 @@ repository's ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import math
@@ -1101,6 +1111,16 @@ def _stage_line(rep):
                      for name, st in rep.stage_stats.items())
 
 
+def _launch_expectation(reports) -> dict:
+    """B1-B3 launches the DIN path's rerank stage stats imply: one grouped
+    embedding_bag and one din_attention per micro-batch, one grouped
+    embedding_bag and one rerank_score per re-ranked request."""
+    batches = sum(r.stage_stats["rerank"].batches for r in reports)
+    reranked = sum(r.stage_stats["rerank"].events for r in reports)
+    return dict(embedding_bag=batches + reranked, din_attention=batches,
+                rerank_score=reranked)
+
+
 def service_run() -> dict:
     """Phase 5: the DIN re-rank InferenceService at published widths,
     user_id / item_id cut to 2^20 rows (DIN runs at its full 2^26 rows in
@@ -1130,7 +1150,6 @@ def service_run() -> dict:
         waves.append(AsyncExecutor(svc.plan).run(reqs))
     counts = K.launch_counts()
 
-    batches, reranked = 0, 0
     for wave, rep in enumerate(waves):
         check(rep.errors == 0, f"wave {wave}: {rep.errors} stage errors")
         check(rep.completed == N_REQUESTS and len(rep.results) == N_REQUESTS,
@@ -1138,8 +1157,6 @@ def service_run() -> dict:
         for ev in rep.results:
             _check_rerank_answer(ev.meta.get("response"))
         st = rep.stage_stats["rerank"]
-        batches += st.batches
-        reranked += st.events
         print(f"[5] wave {wave} ({'cold' if wave == 0 else 'warm'}): "
               f"p50 {rep.latency_percentile(0.5) * 1e3} ms, p99 "
               f"{rep.latency_percentile(0.99) * 1e3} ms, served span "
@@ -1147,8 +1164,7 @@ def service_run() -> dict:
               f"re-ranked {st.events}; stage busy s: {_stage_line(rep)}",
               flush=True)
     expected = dict.fromkeys(K.LAUNCHES, 0)
-    expected.update(embedding_bag=batches + reranked,
-                    din_attention=batches, rerank_score=reranked)
+    expected.update(_launch_expectation(waves))
     print(f"[5] launches {counts}, expected {expected} (per micro-batch 1 "
           f"grouped embedding_bag + 1 din_attention; per re-ranked request "
           f"1 grouped embedding_bag + 1 rerank_score)", flush=True)
@@ -1299,8 +1315,6 @@ def lm_service_run() -> int:
     then the same weights on the CPU against the card over the prefill and
     8 teacher-forced decode steps. Returns flash_decode's launch count of
     the service run."""
-    import argparse
-
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -1421,6 +1435,312 @@ def _leaves(tree):
     return [tree]
 
 
+# ------------------------------------------------------------------ phase 8
+
+HEAD_SLOTS = 65536                # phase 8's HBM head, in cube rows
+
+
+def _wave(svc, seed, n=N_REQUESTS):
+    """One wave of ``n`` requests on the AsyncExecutor, every answer
+    checked. Returns (report, the requests in order)."""
+    from repro_torch.core.executors import AsyncExecutor
+    reqs = svc.make_requests(n, seed=seed)
+    rep = AsyncExecutor(svc.plan).run(reqs)
+    check(rep.errors == 0, f"{rep.errors} stage errors")
+    check(rep.completed == n and len(rep.results) == n,
+          f"{rep.completed}/{n} answered")
+    for ev in rep.results:
+        _check_rerank_answer(ev.meta.get("response"))
+    return rep, reqs
+
+
+def _wave_line(label, rep):
+    print(f"[8] {label}: p50 {rep.latency_percentile(0.5) * 1e3} ms, p99 "
+          f"{rep.latency_percentile(0.99) * 1e3} ms", flush=True)
+
+
+def _touched(rep) -> dict:
+    """Cube group -> the hashed ids the wave's requests fetched (group 0
+    item_id, group 1 item_cat)."""
+    import numpy as np
+    return {g: np.unique([int(ev.payload["hashed"][f]) for ev in rep.results])
+            for g, f in ((0, "item_id"), (1, "item_cat"))}
+
+
+def _emit(emitter, keys: dict, rng, n=32):
+    """One delta version: new rows for up to ``n`` of each group's keys."""
+    import numpy as np
+    from repro_torch.update import GroupDelta
+    groups = []
+    for g, ids in keys.items():
+        if not ids.size:
+            continue
+        ids = rng.choice(ids, min(n, ids.size), replace=False)
+        groups.append(GroupDelta(group=g, ids=ids, rows=rng.standard_normal(
+            (ids.size, 4)).astype(np.float32)))
+    return emitter.emit(groups).version
+
+
+def _scores(rep, reqs) -> list:
+    by = {ev.req_id: ev.meta["response"].score for ev in rep.results}
+    return [by[ev.req_id] for ev in reqs]
+
+
+def _cube_rows(svc, keys: dict) -> dict:
+    return {g: svc.cube.lookup_ex(g, ids) for g, ids in keys.items()}
+
+
+def durability_run() -> dict:
+    """Phase 8: the update, durability and scale-out planes of the DIN
+    service on the card, at phase 5's widths. (a) an HBM head of
+    ``HEAD_SLOTS`` rows on the card, live deltas applied by the watcher
+    (promotions, in-place updates), periodic snapshots, a graceful
+    shutdown's final snapshot; (b) recovery from it with no delta suffix,
+    then with two versions to replay; (c) the recsys launcher with every
+    telemetry flag, then with --recover. Returns this phase's launches."""
+    import signal
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs.other_archs import DIN
+    from repro_torch.core.service import InferenceService, ServiceConfig
+    from repro_torch.launch.serve import serve_recsys
+    from repro_torch.sparse.hashing import signature_np
+    from repro_torch.update import DeltaEmitter
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _vocab(DIN, 1 << DIN_SERVICE_VOCAB_LOG2)
+    root = tempfile.mkdtemp(prefix="durability_")
+    upd, snaps = os.path.join(root, "log"), os.path.join(root, "snaps")
+    os.makedirs(upd)
+    knobs = dict(arch_id="din", batch_size=16, head_slots=HEAD_SLOTS,
+                 live_updates=True, update_dir=upd, snapshot_dir=snaps,
+                 snapshot_every_deltas=2)
+    print(f"[8] durability: DIN as in [5], HBM head {HEAD_SLOTS} rows, "
+          f"live deltas, snapshots every 2 versions", flush=True)
+    t0 = time.perf_counter()
+    svc = InferenceService(ServiceConfig(**knobs), device="cuda",
+                           model_cfg=cfg)
+    torch.cuda.synchronize()
+    print(f"[8] service build: {time.perf_counter() - t0} s", flush=True)
+    head = svc.updates.head
+    check(head.table.device.type == "cuda", "the head is not on the card")
+    carry = dict(model_cfg=cfg, params=svc.buffer.active.payload,
+                 pruning_dnn=svc.shedder.dnn)
+    reports = []
+    K.reset_launches()                      # counts from here are the path's
+
+    # (a) head, updates, snapshots
+    rep0, _ = _wave(svc, seed=0)
+    reports.append(rep0)
+    _wave_line("wave 0 (cold)", rep0)
+    keys = _touched(rep0)
+    em, rng = DeltaEmitter(upd), np.random.default_rng(0)
+    for _ in range(2):
+        _emit(em, keys, rng)
+    check(svc.update_watcher.check_once(), "the watcher applied nothing")
+    st = head.stats
+    print(f"[8] after v0-v1: head promotions {st.promotions}, scatters "
+          f"{st.scatters}, resident {head.resident_count}", flush=True)
+    check(st.promotions > 0 and st.scatters > 0, "the head promoted nothing")
+    resident = {g: ids[head.resident(g, ids)] for g, ids in keys.items()}
+    check(sum(r.size for r in resident.values()) == head.resident_count,
+          "a resident row is none of the wave's keys")
+    check(resident[0].size > 0, "no item_id row is resident")
+    _emit(em, resident, rng)                # v2: in place, on the card
+    check(svc.update_watcher.check_once(), "the watcher applied nothing")
+    check(head.stats.inplace_updates > 0
+          and svc.updates.stats.head_rows_updated > 0,
+          "no in-place update of a resident row")
+    hits0 = head.stats.hits
+    rep1, _ = _wave(svc, seed=1)
+    reports.append(rep1)
+    _wave_line("wave 1 (warm)", rep1)
+    st = head.stats
+    print(f"[8] head: promotions {st.promotions}, hits {st.hits} "
+          f"({st.hits - hits0} in wave 1), misses {st.misses}, scatters "
+          f"{st.scatters}, in-place updates {st.inplace_updates}, resident "
+          f"{head.resident_count} of {head.n_slots}, table "
+          f"{head.table.numel() * head.table.element_size()} bytes "
+          f"{tuple(head.table.shape)} {head.table.dtype} on "
+          f"{head.table.device}", flush=True)
+    check(st.hits > hits0, "no head hit in the second wave")
+    n_res = 0
+    for g, ids in keys.items():             # the head holds the cube's rows
+        found = head.resident(g, ids)
+        slots, _ = head._resolve(signature_np(g, ids[found]))
+        got = head.table[torch.as_tensor(slots, dtype=torch.long,
+                                         device="cuda")].cpu().numpy()
+        want = svc.cube.lookup(g, ids[found])
+        check(np.array_equal(got, want),
+              f"group {g}: a head row differs from the cube's")
+        n_res += int(found.sum())
+    check(n_res == head.resident_count, "a resident row went unchecked")
+    print(f"[8] head rows equal the cube's bit for bit: {n_res} rows",
+          flush=True)
+
+    # the head's device work, by CUDA events: the gather of a lookup and
+    # the scatter of update_rows, at a wave's resident rows
+    slots, _ = head._resolve(signature_np(0, resident[0]))
+    idx = torch.as_tensor(slots, dtype=torch.long, device="cuda")
+    rows = torch.randn(idx.numel(), head.dim, device="cuda")
+    scratch = head.table.clone()
+    gather_ms = device_ms(lambda: head.table.index_select(0, idx))
+    scatter_ms = device_ms(lambda: scratch.index_copy_(0, idx, rows))
+    del scratch
+    t0 = time.perf_counter()
+    head.lookup(0, resident[0])
+    lookup_host_ms = (time.perf_counter() - t0) * 1e3
+    cube_rows = svc.cube.lookup(0, resident[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    head.update_rows(0, resident[0], cube_rows)   # the same values again
+    torch.cuda.synchronize()
+    update_host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[8] head lookup of {idx.numel()} rows: device "
+          f"{gather_ms} ms (index_select, CUDA graph replay), {lookup_host_ms}"
+          f" ms host wall incl. membership and the copy out; update_rows "
+          f"scatter: device {scatter_ms} ms (index_copy_), {update_host_ms} "
+          f"ms host wall", flush=True)
+
+    probe, probe_reqs = _wave(svc, seed=7, n=16)
+    reports.append(probe)
+    before = _scores(probe, probe_reqs)
+    snap = svc.snapshotter
+    check(snap.snapshots_taken >= 1, "no periodic snapshot was taken")
+    periodic_s = snap.last_snapshot_s
+    t0 = time.perf_counter()
+    final = svc.shutdown()
+    shutdown_s = time.perf_counter() - t0
+    check(final is not None, "shutdown wrote no final snapshot")
+    print(f"[8] snapshots: {snap.snapshots_taken} taken, last_snapshot_s "
+          f"{snap.last_snapshot_s} (periodic {periodic_s}); graceful "
+          f"shutdown {shutdown_s} s -> {os.path.basename(final)}", flush=True)
+    cube_before = _cube_rows(svc, keys)
+    version = svc.updates.stats.last_version
+    del svc, head
+    gc.collect()
+
+    # (b) recovery: no suffix, then two versions to replay
+    t0 = time.perf_counter()
+    rec = InferenceService(ServiceConfig(recover=True, **knobs),
+                           device="cuda", **carry)
+    recover_s = time.perf_counter() - t0
+    sub = rec.substrate
+    check(not sub.recovering and rec.updates.stats.deltas_applied == 0
+          and rec.updates.stats.last_version == version
+          and sub.recovery_target == version,
+          "the recovery from the final snapshot replayed or lags")
+    for g, (rows, tiers) in _cube_rows(rec, keys).items():
+        check(np.array_equal(rows, cube_before[g][0])
+              and np.array_equal(tiers, cube_before[g][1]),
+              f"group {g}: recovered cube rows differ")
+    again = _wave(rec, seed=7, n=16)
+    reports.append(again[0])
+    after = _scores(*again)
+    err = max(abs(a - b) for a, b in zip(before, after))
+    check(all(abs(a - b) <= TOL_F32 + TOL_F32 * abs(b)
+              for a, b in zip(after, before)),
+          f"recovered scores differ by {err}")
+    print(f"[8] recovery from {os.path.basename(final)}: {recover_s} s, 0 "
+          f"deltas replayed, cube rows of {sum(k.size for k in keys.values())}"
+          f" touched ids equal; 16 probe scores equal within {TOL_F32:g} "
+          f"(max diff {err})", flush=True)
+    rec.stop_updates()
+    del rec
+    gc.collect()
+    for _ in range(2):
+        head_version = _emit(em, keys, rng)
+    t0 = time.perf_counter()
+    rec = InferenceService(ServiceConfig(recover=True, **dict(
+        knobs, live_updates=False)), device="cuda", **carry)
+    recover2_s = time.perf_counter() - t0
+    sub, ust = rec.substrate, rec.updates.stats
+    check(sub.recovery_target == head_version and not sub.recovering
+          and ust.deltas_applied == 2 and ust.last_version == head_version,
+          f"replay: target {sub.recovery_target}, recovering "
+          f"{sub.recovering}, applied {ust.deltas_applied}")
+    rep, _ = _wave(rec, seed=8, n=16)
+    reports.append(rep)
+    print(f"[8] recovery with 2 versions to replay: {recover2_s} s, "
+          f"last_replay_s {sub.last_replay_s}, at v{ust.last_version} (the "
+          f"log head)", flush=True)
+    del rec, sub
+    gc.collect()
+
+    # (c) the launcher, with every telemetry flag, then --recover
+    lroot = os.path.join(root, "launch")
+    args = argparse.Namespace(
+        arch="din", requests=N_REQUESTS, snapshot_dir=f"{lroot}/snaps",
+        recover=False, update_dir=f"{lroot}/log", metrics_port=0,
+        metrics_out=f"{lroot}/metrics", history_dir=f"{lroot}/history",
+        history_interval_s=0.05, trace_out=f"{lroot}/trace.json")
+    os.makedirs(args.update_dir)
+    lem = DeltaEmitter(args.update_dir)
+    for _ in range(2):
+        _emit(lem, keys, rng)
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        t0 = time.perf_counter()
+        fig = serve_recsys(args, device="cuda", **carry)
+        launch_s = time.perf_counter() - t0
+        args.recover = True
+        t0 = time.perf_counter()
+        fig2 = serve_recsys(args, device="cuda", **carry)
+        relaunch_s = time.perf_counter() - t0
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    for f in (fig, fig2):
+        check(f["served"] == N_REQUESTS, f"launcher served {f['served']}")
+        for ev in f["report"].results:
+            _check_rerank_answer(ev.meta.get("response"))
+        reports.append(f["report"])
+        check(f["history_windows"] >= 1 and f["traces"] >= 1,
+              "no history window or trace recorded")
+    check(fig["final_snapshot"] is not None,
+          "the launcher wrote no final snapshot")
+    with open(f"{args.metrics_out}/metrics.json") as fh:
+        names = set(json.load(fh))
+    with open(f"{args.metrics_out}/metrics.prom") as fh:
+        prom = fh.read()
+    for want in ("request_latency_s", "snapshot"):
+        check(any(want in n for n in names) and want in prom,
+              f"the metrics files hold no {want}")
+    rsub = fig2["service"].substrate
+    rst = fig2["service"].updates.stats
+    check(rst.deltas_applied == 0 and not rsub.recovering
+          and rst.last_version == int(os.path.basename(
+              fig["final_snapshot"]).split("_")[1]),
+          "the relaunch did not boot from the final snapshot")
+    print(f"[8] launcher: served {fig['served']} in {launch_s} s (p50 "
+          f"{fig['report'].latency_percentile(0.5) * 1e3} ms, p99 "
+          f"{fig['p99_ms']} ms, query-cache hit "
+          f"{fig['query_cache_hit_ratio']}), {fig['history_windows']} "
+          f"history windows, {fig['traces']} traces, {len(names)} metrics, "
+          f"final snapshot {os.path.basename(fig['final_snapshot'])}; "
+          f"--recover: served {fig2['served']} in {relaunch_s} s (p50 "
+          f"{fig2['report'].latency_percentile(0.5) * 1e3} ms, p99 "
+          f"{fig2['p99_ms']} ms) from v{rst.last_version}, 0 replayed",
+          flush=True)
+    counts = K.launch_counts()
+    expected = dict.fromkeys(K.LAUNCHES, 0)
+    expected.update(_launch_expectation(reports))
+    print(f"[8] launches {counts}, expected from the stage stats {expected}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30}"
+          f" GiB", flush=True)
+    check(all(counts[k] > 0 for k in ("embedding_bag", "din_attention",
+                                      "rerank_score")),
+          "a kernel of the DIN path was never launched")
+    check(counts == expected, "launch counts differ from the path's calls")
+    del fig, fig2, carry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1481,6 +1801,8 @@ def main() -> int:
         print(f"[6] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         counts["flash_decode"] = lm_service_run()
         print(f"[7] done at {time.perf_counter() - t_run:.1f} s", flush=True)
+        durability_run()
+        print(f"[8] done at {time.perf_counter() - t_run:.1f} s", flush=True)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)

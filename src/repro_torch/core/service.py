@@ -13,8 +13,8 @@ Two surfaces (DESIGN.md §7):
     query_cache → features → cube → shed → rerank → respond) and
     attribute layout.
 
-Models run on ``cuda`` unless the caller passes ``device="cpu"``.
-Snapshots and recovery are not ported yet (ROADMAP A5).
+Models, and the HBM head table where one is configured, run on ``cuda``
+unless the caller passes ``device="cpu"``.
 
 The stage logic itself lives in ``repro_torch.serve.stages`` (typed
 processors owning version pinning and cache-aside guards) and
@@ -26,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Sequence, Union
 
+from repro_torch import default_device
 from repro_torch.core.executors import AsyncExecutor, SimExecutor
 from repro_torch.core.irm.shedding import QuotaController
 from repro_torch.core.multitenant import make_fanout_op
@@ -84,8 +85,10 @@ class ServiceConfig:
             batch_buckets=self.rerank_buckets,
             cand_buckets=self.cand_buckets, seed=self.seed)
 
-    def make_substrate(self) -> ServingSubstrate:
-        kw = dict(
+    def make_substrate(self, device=None) -> ServingSubstrate:
+        """The substrate this config describes; ``device`` is where its
+        HBM head table lies (``cuda`` unless ``device="cpu"``)."""
+        kw = dict(device=device,
             cube_cache_ratio=self.cube_cache_ratio,
             query_window_s=self.query_window_s,
             head_slots=self.head_slots,
@@ -121,12 +124,18 @@ class MultiServiceConfig:
 
 
 def _recover_or_build(cfg, substrate_kw: dict) -> ServingSubstrate:
-    """Boot a substrate per config. Snapshots and the snapshot-then-replay
-    restart are not ported yet (ROADMAP A5): asking for them raises."""
-    if getattr(cfg, "recover", False) or getattr(cfg, "snapshot_dir", None):
-        raise NotImplementedError(
-            "cube snapshots and recovery (update/snapshot.py) are not "
-            "ported yet (ROADMAP A5)")
+    """Boot a substrate per config: from the newest valid snapshot when
+    ``cfg.recover`` asks for it and one exists, cold otherwise. With live
+    updates configured, replay is left to the watcher (the service serves
+    degraded while the suffix streams in); without one, the pending deltas
+    replay inline so the substrate is caught up on return."""
+    if getattr(cfg, "recover", False) and cfg.snapshot_dir:
+        from repro_torch.update.snapshot import latest_valid_snapshot
+        if latest_valid_snapshot(cfg.snapshot_dir) is not None:
+            return ServingSubstrate.recover(
+                cfg.snapshot_dir, update_dir=cfg.update_dir,
+                replay=not (cfg.live_updates and cfg.update_dir),
+                **substrate_kw)
     return ServingSubstrate(**substrate_kw)
 
 
@@ -156,16 +165,41 @@ class _ServiceBase:
 
     # ------------------------------------------------------ live updates
     def _make_watcher(self):
+        self.snapshotter = None
+        if getattr(self.cfg, "snapshot_dir", None):
+            from repro_torch.update.snapshot import CubeSnapshotter
+            self.snapshotter = CubeSnapshotter(
+                self.substrate, self.cfg.snapshot_dir,
+                every_deltas=self.cfg.snapshot_every_deltas,
+                keep=self.cfg.snapshot_keep,
+                delta_log_dir=getattr(self.cfg, "update_dir", None))
         if getattr(self.cfg, "live_updates", False) and self.cfg.update_dir:
             return SubstrateDeltaWatcher(
                 self.substrate, self.cfg.update_dir,
-                poll_s=self.cfg.update_poll_s)
+                poll_s=self.cfg.update_poll_s,
+                snapshotter=self.snapshotter)
         return None
 
+    # ------------------------------------------------- graceful shutdown
     def shutdown(self):
-        """Quiesce the update watcher (the final snapshot of the
-        reference's planned restart waits for the snapshot port, A5)."""
+        """Planned restart (DESIGN.md §9): quiesce the update watcher and
+        take a final snapshot at the quiescent cursor, so the next boot
+        with ``recover=True`` replays ZERO deltas. Returns the snapshot
+        path (None when nothing advanced since the last snapshot, or no
+        snapshotter is configured)."""
         self.stop_updates()
+        if self.snapshotter is not None:
+            return self.snapshotter.graceful_shutdown()
+        return None
+
+    def install_shutdown_hook(self, chain: bool = True):
+        """SIGTERM → :meth:`shutdown` (preemption notice → final
+        snapshot), chaining to the previous handler like the training
+        side's emergency checkpoint hook."""
+        if self.snapshotter is None:
+            raise RuntimeError("no snapshotter configured "
+                               "(set snapshot_dir)")
+        return self.snapshotter.install_sigterm_hook(chain=chain)
 
     def start_updates(self):
         """Start the live-update stage (requires cfg.live_updates +
@@ -227,26 +261,27 @@ class InferenceService(_ServiceBase):
     its hot path in hand-written CUDA kernels, with hot-loading via
     DoubleBuffer).
 
-    ``device``: where the model and the pruning DNN run — ``cuda`` unless
-    the caller passes ``device="cpu"`` (then the kernels' plain versions
-    run). ``model_cfg`` / ``params`` / ``pruning_dnn`` inject the model
-    config, its weights and a trained pruning DNN (parity runs against
-    the reference, full-width runs); without them the service builds the
-    reduced config, draws weights from ``cfg.seed`` and trains its own
-    pruning DNN, as the reference does."""
+    ``device``: where the model, the pruning DNN and the HBM head table
+    run — ``cuda`` unless the caller passes ``device="cpu"`` (then the
+    kernels' plain versions run). ``model_cfg`` / ``params`` /
+    ``pruning_dnn`` inject the model config, its weights and a trained
+    pruning DNN (parity runs against the reference, full-width runs);
+    without them the service builds the reduced config, draws weights from
+    ``cfg.seed`` and trains its own pruning DNN, as the reference does."""
 
     def __init__(self, cfg: ServiceConfig = ServiceConfig(), device=None,
                  model_cfg=None, params=None, pruning_dnn=None):
         self.cfg = cfg
-        self.substrate = cfg.make_substrate()
+        # one device for the head table and the model
+        self.device = default_device(device)
+        self.substrate = cfg.make_substrate(self.device)
         builder = PipelineBuilder(self.substrate, max_queue=cfg.max_queue,
                                   batch_wait_s=cfg.batch_wait_s,
-                                  device=device)
+                                  device=self.device)
         builder.add_ingress("ingress")
         rt = builder.add_scenario(cfg.to_scenario_spec(), namespaced=False,
                                   model_cfg=model_cfg, params=params,
                                   pruning_dnn=pruning_dnn)
-        self.device = builder.device
         builder.g.add_edge("ingress", builder.entries[rt.spec.name])
         self.graph, self.plan = builder.compile()
         self._rt = rt
@@ -294,8 +329,9 @@ class MultiScenarioService(_ServiceBase):
     overload the quota controller gates secondary scenarios first —
     priority-0 scenarios keep serving while the rest ride out the spike.
 
-    ``device``: where every scenario's model and the shared pruning DNN
-    run — ``cuda`` unless the caller passes ``device="cpu"``.
+    ``device``: where every scenario's model, the shared pruning DNN and
+    the HBM head table run — ``cuda`` unless the caller passes
+    ``device="cpu"``.
     ``model_cfgs`` / ``params`` map scenario names to an injected model
     config and weights (parity runs carry the reference's across; a
     deployment may serve the published widths); ``pruning_dnn`` replaces
@@ -323,15 +359,15 @@ class MultiScenarioService(_ServiceBase):
         if unknown:
             raise ValueError(f"injected configs/params for scenarios not "
                              f"served: {sorted(unknown)}")
+        self.device = default_device(device)
         self.substrate = _recover_or_build(cfg, dict(
-            cube_cache_ratio=cfg.cube_cache_ratio,
+            device=self.device, cube_cache_ratio=cfg.cube_cache_ratio,
             query_window_s=cfg.query_window_s, head_slots=cfg.head_slots,
             compact_after_blocks=cfg.compact_after_blocks,
             reverse_map_items=cfg.reverse_map_items, seed=cfg.seed))
         builder = PipelineBuilder(self.substrate, max_queue=cfg.max_queue,
                                   batch_wait_s=cfg.batch_wait_s,
-                                  device=device)
-        self.device = builder.device
+                                  device=self.device)
         builder.add_ingress("ingress")
         for spec in specs:
             builder.add_scenario(spec, namespaced=True,

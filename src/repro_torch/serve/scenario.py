@@ -23,9 +23,8 @@ behind the quota-aware multi-tenant fanout.
 
 In the port, each runtime's model lives on one torch device (``cuda``
 unless the caller passes ``device="cpu"``) and every model input is built
-there. All four recsys models (DIN, DIEN, MIND, two-tower) are ported;
-the HBM head tier, snapshots/recovery and the mesh cube tier are not
-ported yet and raise ``NotImplementedError`` (ROADMAP A5).
+there. The substrate's only device state is the HBM head table
+(``head_slots > 0``), which takes the same device.
 """
 from __future__ import annotations
 
@@ -58,7 +57,7 @@ from repro_torch.serve.stages import (REQUEST_KEYS, CubeFetchStage,
                                 RerankStage, RespondStage, RetrievalStage,
                                 Request, Response, ShedStage, Stage,
                                 stage_of)
-from repro_torch.update import (DeltaWatcher, PromoteDemotePolicy,
+from repro_torch.update import (DeltaWatcher, HBMHead, PromoteDemotePolicy,
                                 UpdateManager)
 
 log = logging.getLogger(__name__)
@@ -237,20 +236,37 @@ class ServingSubstrate:
                  block_rows: int = 4096, head_slots: int = 0,
                  compact_after_blocks: int = 64,
                  compact_max_rows_per_pass: Optional[int] = None,
-                 reverse_map_items: int = 65536, seed: int = 0):
-        if head_slots:
-            raise NotImplementedError(
-                "the HBM head tier (update/hbm_head.py) is not ported yet "
-                "(ROADMAP A5); use head_slots=0")
+                 reverse_map_items: int = 65536, seed: int = 0,
+                 mesh_shards: int = 0, mesh_hosts: int = 0,
+                 mesh_replication: int = 2,
+                 mesh_hedge_after_s: Optional[float] = None,
+                 device=None, _cube: Optional[ParameterCube] = None):
         self.tail_dim = tail_dim
         self.cube_cache_ratio = cube_cache_ratio
         self.head_slots = head_slots
         self.reverse_map_items = reverse_map_items
         self.query_cache = QueryCache(window_s=query_window_s)
         self.cube_cache = TwoTierLFUCache(0, 0)
-        self.cube = ParameterCube(
-            n_servers=n_servers, replication=replication,
-            block_rows=block_rows)
+        # ``_cube`` is the recovery path's injection point (a cube rebuilt
+        # from a snapshot replaces the fresh one) — :meth:`recover` is the
+        # public surface. ``mesh_shards > 0`` builds the scale-out tier
+        # instead (DESIGN.md §11): a MeshCube duck-types the cube surface,
+        # so every stage/cache/update path below runs unchanged.
+        if _cube is not None:
+            self.cube = _cube
+        elif mesh_shards > 0:
+            from repro_torch.mesh import MeshCube
+            self.cube = MeshCube(
+                n_shards=mesh_shards,
+                n_hosts=mesh_hosts or mesh_shards,
+                replication=mesh_replication, seed=seed,
+                hedge_after_s=mesh_hedge_after_s,
+                n_servers=n_servers, cube_replication=replication,
+                block_rows=block_rows)
+        else:
+            self.cube = ParameterCube(
+                n_servers=n_servers, replication=replication,
+                block_rows=block_rows)
         # warm-up state (DESIGN.md §9): while True, CubeFetchStage floors
         # every fetch at the stale-cache degradation tier and the quota
         # controllers shed against the warm-up quota; cleared once delta
@@ -261,9 +277,13 @@ class ServingSubstrate:
         self._rng = np.random.default_rng(seed)
         self._groups: dict[tuple[str, int], int] = {}
         self.bucket_items: dict[int, BoundedReverseMap] = {}
+        # the head table lies on ``device`` (``cuda`` unless the caller
+        # passes ``device="cpu"``); without a head nothing here does
+        head = (HBMHead(head_slots, dim=tail_dim, device=device)
+                if head_slots else None)
         self.updates = UpdateManager(
             self.cube, cube_cache=self.cube_cache,
-            query_cache=self.query_cache, head=None,
+            query_cache=self.query_cache, head=head,
             qcache_items_fn=self.items_for_buckets,
             compact_after_blocks=compact_after_blocks,
             compact_max_rows_per_pass=compact_max_rows_per_pass)
@@ -297,6 +317,91 @@ class ServingSubstrate:
                 gid: PromoteDemotePolicy(capacity=cap)
                 for gid in self._groups.values()}
         return g
+
+    def _register_recovered_group(self, field_name: str, vocab: int,
+                                  gid: int):
+        """Everything :meth:`group_for` does EXCEPT loading the tail table
+        and drawing from the rng: the recovered cube already holds the
+        rows (base table + every applied delta), and re-drawing would both
+        clobber them and desync the rng stream. Groups must be re-
+        registered in their original (dense) id order."""
+        key = (field_name, int(vocab))
+        if self._groups.get(key) == gid:
+            return
+        if gid != len(self._groups):
+            raise ValueError(
+                f"recovered group {key} id {gid} out of order "
+                f"(expected {len(self._groups)})")
+        self._groups[key] = gid
+        mem, disk = capacity_from_ratio(int(vocab) * self.tail_dim,
+                                        self.cube_cache_ratio)
+        self.cube_cache.mem.capacity += mem
+        self.cube_cache.disk.capacity += disk
+        self.bucket_items[gid] = BoundedReverseMap(
+            max_items=self.reverse_map_items,
+            counts_fn=lambda b, g=gid: self._lfu_count(g, b))
+        if self.updates.head is not None:
+            cap = max(1, self.head_slots // len(self._groups))
+            self.updates.policies = {
+                g: PromoteDemotePolicy(capacity=cap)
+                for g in self._groups.values()}
+
+    @classmethod
+    def recover(cls, snapshot_dir: str, update_dir: Optional[str] = None,
+                replay: bool = True, **kw) -> "ServingSubstrate":
+        """Restart path (DESIGN.md §9): newest valid snapshot → cube
+        rebuild → delta-log replay from ``snapshot_version + 1``. The
+        returned substrate serves immediately — ``recovering`` stays True
+        (degraded tiers + warm-up quota) until the delta cursor reaches
+        the log head observed at recovery time.
+
+        ``replay=True`` replays the pending suffix inline (bounded RTO:
+        the caller knows the cube is caught up on return); ``replay=False``
+        leaves the suffix to a ``SubstrateDeltaWatcher`` resumed at the
+        snapshot cursor — the service serves degraded while replay streams
+        in the background. Caches start cold; persisted reverse maps (aux
+        state) make warm-start invalidation exact when available.
+
+        Raises FileNotFoundError when no valid snapshot exists — cold
+        boot is the caller's fallback, not an implicit default."""
+        from repro_torch.update.delta import list_deltas
+        from repro_torch.update.snapshot import (latest_valid_snapshot,
+                                                 load_aux_state,
+                                                 load_cube_snapshot)
+        path = latest_valid_snapshot(snapshot_dir)
+        if path is None:
+            raise FileNotFoundError(
+                f"no valid snapshot under {snapshot_dir}")
+        cube, meta = load_cube_snapshot(path)
+        kw.setdefault("tail_dim", int(meta.get("extra", {})
+                                      .get("tail_dim", 4)))
+        sub = cls(_cube=cube, **kw)
+        for f, v, g in sorted(meta["groups"], key=lambda t: t[2]):
+            sub._register_recovered_group(f, int(v), int(g))
+        delta_ver = int(meta["delta_version"])
+        aux = load_aux_state(path)
+        if aux is not None:
+            sub.updates.restore_state(delta_ver, aux["touched"],
+                                      aux["touched_floor"])
+            for g, buckets in aux["reverse_maps"].items():
+                rmap = sub.bucket_items.get(g)
+                if rmap is not None:
+                    for b, items in buckets.items():
+                        for item in items:
+                            rmap.add(b, item)
+        else:
+            sub.updates.restore_state(delta_ver)
+        sub.recovering = True
+        sub.recovery_target = delta_ver
+        if update_dir is not None:
+            pending = list_deltas(update_dir, after_version=delta_ver)
+            if pending:
+                sub.recovery_target = pending[-1][0]
+            if replay:
+                sub.replay_update_log(update_dir)
+        if sub.updates.stats.last_version >= sub.recovery_target:
+            sub.finish_recovery()
+        return sub
 
     def replay_update_log(self, update_dir: str) -> int:
         """Apply every published delta past the current cursor, strictly

@@ -42,14 +42,17 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 VERBATIM = (
     ["configs/base.py", "configs/registry.py", "configs/other_archs.py",
      "configs/lm_archs.py", "configs/jizhi_service.py", "data/synthetic.py",
-     "serve/batcher.py", "serve/hotload.py",
-     "update/delta.py", "update/manager.py", "update/policy.py"]
+     "serve/batcher.py", "serve/hotload.py", "update/__init__.py",
+     "update/delta.py", "update/manager.py", "update/policy.py",
+     "update/snapshot.py"]
     + [f"core/{m}.py" for m in ("sedp", "executors", "cube", "cube_cache",
                                  "query_cache", "multitenant",
                                  "service_model")]
     + [f"obs/{p.name}" for p in sorted((SRC / "repro" / "obs").glob("*.py"))]
     + [f"faults/{p.name}"
-       for p in sorted((SRC / "repro" / "faults").glob("*.py"))])
+       for p in sorted((SRC / "repro" / "faults").glob("*.py"))]
+    + [f"mesh/{p.name}" for p in sorted((SRC / "repro" / "mesh").glob("*.py"))]
+    + [f"core/irm/{m}.py" for m in ("cmaes", "models", "offline")])
 
 #: copies with a known edit beyond the import rewrite: (old, new)
 EDITED = {"serve/stages.py": [("np.asarray(rt.serve(params, b))[:B]",
@@ -102,8 +105,9 @@ def test_copied_module_equals_its_source(rel):
 def test_service_serves_with_jax_and_reference_blocked():
     """A fresh interpreter in which ``import jax`` and ``import repro``
     fail builds the port's services on the CPU: the DIN re-rank service
-    answers 8 requests, and the four-scenario service (DIN, DIEN, MIND,
-    two-tower) answers 8 in every scenario."""
+    answers 8 requests, the four-scenario service (DIN, DIEN, MIND,
+    two-tower) answers 8 in every scenario, and a DIN service with an HBM
+    head applies a delta, snapshots at shutdown and recovers from it."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -125,6 +129,33 @@ def test_service_serves_with_jax_and_reference_blocked():
         assert rep.errors == 0 and sorted(len(v) for v in by.values()) == \
             [8] * 4, {k: len(v) for k, v in by.items()}
         assert all(ev.meta["response"].topk for ev in rep.results)
+        # a head, live updates, a snapshot, and a recovery from it
+        import os, shutil, tempfile
+        import numpy as np
+        from repro_torch.update import DeltaEmitter, GroupDelta
+        d = tempfile.mkdtemp()
+        cfg = dict(arch_id="din", batch_size=8, shed=False, head_slots=32,
+                   live_updates=True, update_dir=os.path.join(d, "log"),
+                   snapshot_dir=os.path.join(d, "snaps"))
+        os.makedirs(cfg["update_dir"])
+        svc = InferenceService(ServiceConfig(**cfg), device="cpu")
+        wave = svc.run(n_requests=32, executor="sim")
+        keys = np.unique([int(ev.payload["hashed"]["item_id"])
+                          for ev in wave.results])
+        DeltaEmitter(cfg["update_dir"]).emit([GroupDelta(
+            group=0, ids=keys,
+            rows=np.ones((len(keys), 4), np.float32))])
+        assert svc.update_watcher.check_once()
+        assert svc.updates.head.table.device.type == "cpu"
+        assert svc.updates.head.stats.promotions > 0
+        assert svc.shutdown() is not None
+        rec = InferenceService(ServiceConfig(recover=True, **cfg),
+                               device="cpu")
+        assert rec.updates.stats.last_version == 0
+        assert not rec.substrate.recovering
+        again = rec.run(n_requests=8, executor="sim")
+        assert again.errors == 0 and again.completed == 8, again
+        shutil.rmtree(d)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro")
                         and sys.modules[m] is not None)
@@ -184,8 +215,10 @@ def _entry_points():
                                              bucketed_candidate_rerank)
     from repro_torch.sparse.embedding import TableSpec, init_table
     from repro_torch.convert import kv_cache_from_numpy
-    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.serve import serve_lm, serve_recsys
     from repro_torch.models import moe, transformer
+    from repro_torch.serve.scenario import ServingSubstrate
+    from repro_torch.update import HBMHead
 
     def reduced(arch_id):
         arch = registry.get(arch_id)
@@ -225,6 +258,13 @@ def _entry_points():
             "float32"),
         "serve_lm": lambda: serve_lm(types.SimpleNamespace(
             arch="smollm-135m", requests=1, reduced=True)),
+        "HBMHead": lambda: HBMHead(8, 4),
+        "ServingSubstrate(head_slots=8)": lambda: ServingSubstrate(
+            head_slots=8),
+        "serve_recsys": lambda: serve_recsys(types.SimpleNamespace(
+            arch="din", requests=1, snapshot_dir=None, recover=False,
+            update_dir=None, metrics_port=0, metrics_out=None,
+            history_dir=None, history_interval_s=1.0, trace_out=None)),
     }
 
 

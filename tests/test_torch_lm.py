@@ -286,11 +286,6 @@ def test_serve_lm_matches_reference_figures():
     assert fig["tokens"] > 0
 
 
-def test_serve_recsys_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A5"):
-        serve.main(["--mode", "recsys"])
-
-
 # ----------------------------------------------------------------- convert
 
 def test_convert_carries_bf16_params_bit_for_bit():
