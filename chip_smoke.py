@@ -48,8 +48,24 @@ Phases, each printing its lines; any failure exits nonzero:
      versions to replay; the recsys launcher (``serve_recsys``) with every
      telemetry flag, then with ``--recover``; the launch counts of B1-B3
      checked against the stage stats;
-  9. the kernel table as one JSON line (launches from phase 6, and from
-     phase 7 for flash_decode), the card line, and the result.
+  9. training on the card: (a) ``launch/train.py::train`` for smollm-135m
+     at its published widths, S=4096, a global batch of 8 in 2
+     micro-batches (cut from 256 in 8), 6 steps with a checkpoint every 3,
+     then a resume from the newest (restored parameters bit for bit), one
+     step's device time and idle share by torch.profiler; (b) one LM train
+     step card vs CPU at B=2, S=256 (loss, every gradient, the update);
+     (c) DIN at published widths (user_id / item_id cut to 2**20) at the
+     published rec_train batch of 65,536 through ``build_train_step``, one
+     grouped embedding_bag and one din_attention launch a step (checked),
+     gradients card vs CPU at B=4,096, a checkpoint diff whose delta holds
+     exactly the rows with a non-zero gradient and turns a cube of the old
+     table into the new one bit for bit; (d) DIEN, MIND and two-tower
+     gradients card vs CPU at phase 4's widths, B=1,024, B4's forward at
+     B=65,536 against its plain version, and the backward times of B2, B3
+     and B4 at the path's shapes (their plain versions' gradients);
+ 10. the kernel table as one JSON line (launches from phase 6, and from
+     phase 7 for flash_decode; ``backward_ms`` from phase 9), the card
+     line, and the result.
 
 Needs a CUDA device; exits nonzero without one, and without the
 repository's ``src/repro_torch`` beside this script.
@@ -1741,6 +1757,440 @@ def durability_run() -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ phase 9
+
+LM_TRAIN_BATCH, LM_TRAIN_MICRO = 8, 2     # cut from train_4k's 256 in 8
+LM_TRAIN_SEQ = 4096                       # train_4k's sequence length
+LM_TRAIN_STEPS, LM_CKPT_EVERY, LM_RESUME_STEPS = 6, 3, 1
+REC_TRAIN_BATCH = 65536                   # configs/base.py: rec_train
+REC_GRAD_BATCH = 4096                     # DIN card vs CPU gradients
+REC_MODEL_BATCH = 1024                    # DIEN / MIND / two-tower gradients
+
+
+_T9 = []
+
+
+def say9(msg: str):
+    """A line of phase 9, with the seconds since the phase began."""
+    if not _T9:
+        _T9.append(time.perf_counter())
+    print(f"{msg} [{time.perf_counter() - _T9[0]:.1f} s into [9]]",
+          flush=True)
+
+
+def compare_tree(label, got, want, tol):
+    """Leaf by leaf (JAX's order, paths as names), each held to
+    rtol=atol=tol with the absolute part scaled by max(1, max|want|) of
+    the leaf (gradients whose size a small norm sets; ``compare`` after a
+    division by that scale). Returns the largest max-abs-diff."""
+    from repro_torch import tree as tree_lib
+    worst = 0.0
+    for (path, g), (_, w) in zip(tree_lib.flatten_with_paths(got),
+                                 tree_lib.flatten_with_paths(want)):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        s = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+        err = compare(f"{label} {tree_lib.path_name(path)}", g / s, w / s, tol)
+        worst = max(worst, err * s)
+    return worst
+
+
+def _event_time(fn, n=3):
+    """Mean wall of ``n`` eager calls between CUDA events, after one
+    warm-up call (for calls too large or host-driven to replay from a
+    graph: the backward passes and the plain AUGRU at the training batch)."""
+    fn()
+    return _event_ms(lambda: [fn() for _ in range(n)], n)
+
+
+def _profile_train_step(step, label, warm=True):
+    """One more call of ``step`` (a train step; after a warm-up call
+    unless the path is warm already) under torch.profiler: its wall, the
+    device's busy time (the device events' durations summed, read from
+    the raw trace: building ``key_averages`` over an LM step's ~84,000
+    kernels took 15.5 s) and idle share, and the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if warm:
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (n + 1, ns + e.duration_ns())
+    busy = sum(ns for _, ns in by_name.values()) / 1e9
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    say9(f"{label} one step under torch.profiler: wall {wall} s, device busy "
+         f"{busy} s ({sum(n for n, _ in by_name.values())} device events), "
+         f"idle share {1 - busy / wall}; largest: " + "; ".join(
+             f"{name[:70]} x{n} {ns / 1e9} s" for name, (n, ns) in top))
+    check(busy > 0, f"{label}: the profiler saw no device time")
+
+
+def lm_train_run():
+    """Phase 9 (a) and (b): ``launch/train.py::train`` for smollm-135m at
+    its published widths on the card, a checkpoint every 3 steps, then a
+    second ``train`` resuming from the newest; then one train step of the
+    same carried weights card against CPU at B=2, S=256."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.lm_archs import SMOLLM_135M as cfg
+    from repro_torch.launch.train import parser, train
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import build_train_step, value_and_grad
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_train_")
+    argv = ["--arch", cfg.name, "--ckpt-dir", ckpt_dir, "--ckpt-every",
+            str(LM_CKPT_EVERY), "--batch", str(LM_TRAIN_BATCH), "--n-micro",
+            str(LM_TRAIN_MICRO)]
+    say9(f"[9a] train {cfg.name} at published widths ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads, vocab "
+          f"{cfg.vocab}, {cfg.param_dtype}, remat {cfg.remat}): train_4k's "
+          f"S={LM_TRAIN_SEQ}, global batch {LM_TRAIN_BATCH} in {LM_TRAIN_MICRO} "
+          f"micro-batches (cut from 256 in 8), {LM_TRAIN_STEPS} steps, a "
+          f"checkpoint every {LM_CKPT_EVERY}")
+    K.reset_launches()                      # counts from here are the path's
+    fig = train(parser().parse_args(argv + ["--steps", str(LM_TRAIN_STEPS)]),
+                device="cuda")
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say9(f"[9a] steps {fig['start_step']}..{fig['end_step'] - 1}: losses "
+          f"{fig['losses']}; step wall s {fig['step_s']}; "
+          f"{fig['ms_per_step']} ms/step and {fig['tokens_per_s']} tokens/s "
+          f"over steps 2..{LM_TRAIN_STEPS}; checkpoint snapshot s "
+          f"{fig['save_s']}, final save (blocking) {fig['final_save_s']} s; "
+          f"max_memory_allocated {peak} GiB; launches {counts}")
+    check(all(math.isfinite(x) for x in fig["losses"]), "non-finite LM loss")
+    check(fig["end_step"] == LM_TRAIN_STEPS and
+          fig["latest"].endswith(f"gen_{LM_TRAIN_STEPS}"),
+          f"unexpected newest checkpoint {fig['latest']}")
+    check(all(v == 0 for v in counts.values()),
+          "the LM training path launched a kernel (lm_loss goes through "
+          "chunked_attention, as the reference)")
+    again = train(parser().parse_args(argv + ["--steps",
+                                              str(LM_RESUME_STEPS)]),
+                  device="cuda")
+    check(again["start_step"] == LM_TRAIN_STEPS and
+          again["end_step"] == LM_TRAIN_STEPS + LM_RESUME_STEPS,
+          f"resume ran steps {again['start_step']}..{again['end_step']}")
+    same = all(torch.equal(a, b) and a.dtype == b.dtype for a, b in
+               zip(tree_lib.leaves(again["restored"]),
+                   tree_lib.leaves(fig["params"])))
+    check(same, "restored parameters differ from the saved ones")
+    say9(f"[9a] resumed from {os.path.basename(fig['latest'])}: restore "
+          f"{again['restore_s']} s, parameters equal bit for bit; steps "
+          f"{again['start_step']}..{again['end_step'] - 1} losses "
+          f"{again['losses']}")
+
+    # one step's device time and the device's idle share within it
+    step_fn, opt_init = build_train_step(
+        lambda p, t: transformer.lm_loss(p, t, cfg),
+        optimizer.for_family("lm", cfg.param_count()), n_micro=LM_TRAIN_MICRO)
+    params = again["params"]
+    state = opt_init(params)
+    tokens = torch.randint(0, cfg.vocab, (LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                           device="cuda")
+    _profile_train_step(lambda: step_fn(params, state, tokens), "[9a]",
+                        warm=False)        # train() warmed every kernel
+    del params, state, fig, again, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) one train step, card against CPU, the same carried weights
+    say9(f"[9b] one train step card vs CPU at B=2, S=256, same weights, "
+          f"tol {TOL_LM:g}")
+    p_gpu = transformer.init(torch.Generator("cuda").manual_seed(1), cfg,
+                             "cuda")
+    p_cpu = _to(p_gpu, "cpu")
+    tok = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab,
+                                                            (2, 256)))
+    init, update = optimizer.for_family("lm", cfg.param_count())
+    out = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(
+            lambda q, t: transformer.lm_loss(q, t, cfg), p, tok.to(dev))
+        new, _ = update(grads, init(p), p)
+        out[dev] = (loss, grads, new, time.perf_counter() - t0)
+    lg, gg, ng, tg = out["cuda"]
+    lc, g_cpu, nc, tc = out["cpu"]
+    compare("[9b] loss", lg.cpu().reshape(1), lc.reshape(1), TOL_LM)
+    g_err = compare_tree("[9b] grad", gg, g_cpu, TOL_LM)
+    p_err = compare_tree("[9b] updated", ng, nc, TOL_LM)
+    say9(f"[9b] loss card {float(lg)} CPU {float(lc)}; largest grad diff "
+          f"{g_err}, updated-param diff {p_err}; step wall card {tg} s, CPU "
+          f"{tc} s")
+    del p_gpu, p_cpu, out, gg, g_cpu, ng, nc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rec_batch(cfg, n, seed, dev):
+    import numpy as np
+    from repro_torch.data import synthetic
+    return _to(synthetic.recsys_batch(np.random.default_rng(seed), cfg, n),
+               dev)
+
+
+def rec_train_run() -> dict:
+    """Phase 9 (c) and (d): DIN training at published widths (user_id /
+    item_id cut to 2^20) at the published rec_train batch through
+    ``build_train_step``, its launches counted, its gradients against the
+    CPU, a checkpoint diff into a delta and a cube; then DIEN, MIND and
+    two-tower gradients card vs CPU at phase 4's widths, B4 forward at the
+    training batch, and the backward times of B2, B3 and B4 at the path's
+    shapes. Returns {kernel: backward ms}."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs.other_archs import DIEN, DIN, MIND, TWO_TOWER
+    from repro_torch.core.cube import ParameterCube
+    from repro_torch.kernels.augru import augru, augru_ref
+    from repro_torch.kernels.din_attention import din_attention
+    from repro_torch.kernels.din_attention.ref import din_attention_ref
+    from repro_torch.models.recsys import dien, din, mind, towers
+    from repro_torch.train import checkpoint, optimizer
+    from repro_torch.train.train_step import build_train_step, value_and_grad
+    from repro_torch.update.delta import CheckpointDiffEmitter
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _vocab(DIN, 1 << DIN_SERVICE_VOCAB_LOG2)
+    vocab = {f.name: f.vocab for f in cfg.user_fields + cfg.item_fields}
+    say9(f"[9c] DIN training at published widths (D=18, T=100, attn 80-40, "
+          f"mlp 200-80), tables {vocab} (user_id/item_id cut from 2^26 to "
+          f"2^{DIN_SERVICE_VOCAB_LOG2}), rec_train batch {REC_TRAIN_BATCH}, "
+          f"for_family('recsys'): rowwise Adagrad tables + AdamW dense")
+    params = din.init(torch.Generator("cuda").manual_seed(0), cfg, "cuda")
+    loss_fn = (lambda p, b: din.loss_fn(p, b, cfg))
+    opt_init, opt_update = optimizer.for_family("recsys")
+    step_fn, _ = build_train_step(loss_fn, (opt_init, opt_update))
+    state = opt_init(params)
+    start = params
+    step_s, losses = [], []
+    for step in range(3):
+        batch = _rec_batch(cfg, REC_TRAIN_BATCH, 10 + step, "cuda")
+        torch.cuda.synchronize()
+        K.reset_launches()                  # counts from here are the path's
+        t0 = time.perf_counter()
+        params, state, loss = step_fn(params, state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        counts = K.launch_counts()
+        check(counts == dict(dict.fromkeys(K.LAUNCHES, 0), embedding_bag=1,
+                             din_attention=1),
+              f"DIN train step {step} launched {counts}, expected one "
+              f"grouped embedding_bag and one din_attention")
+    _profile_train_step(lambda: step_fn(params, state, batch), "[9c]")
+    say9(f"[9c] 3 steps at B={REC_TRAIN_BATCH}: losses {losses}, wall s "
+          f"{step_s} ({REC_TRAIN_BATCH / (sum(step_s[1:]) / 2)} examples/s "
+          f"over steps 2-3); per step 1 grouped embedding_bag + 1 "
+          f"din_attention launched (checked); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30} GiB")
+    check(all(math.isfinite(x) for x in losses), "non-finite DIN loss")
+    back = {"embedding_bag": _bag_backward_ms(cfg, params, batch)}
+
+    say9(f"[9c] DIN gradients card vs CPU at B={REC_GRAD_BATCH}, same "
+          f"weights, tol {TOL_MODEL:g} (absolute part x max(1, max|leaf|))")
+    small = _rec_batch(cfg, REC_GRAD_BATCH, 20, "cpu")
+    p_cpu = _to(start, "cpu")
+    lg, gg = value_and_grad(loss_fn, start, _to(small, "cuda"))
+    lc, gcpu = value_and_grad(loss_fn, p_cpu, small)
+    compare("[9c] DIN loss", lg.cpu().reshape(1), lc.reshape(1), TOL_MODEL)
+    compare_tree("[9c] DIN grad", gg, gcpu, TOL_MODEL)
+    del p_cpu, gg, gcpu
+
+    # a checkpoint before and after one step, their diff as a delta
+    root = tempfile.mkdtemp(prefix="rec_train_")
+    before, after = os.path.join(root, "before"), os.path.join(root, "after")
+    t0 = time.perf_counter()
+    checkpoint.save(before, params, step=3)
+    save_s = time.perf_counter() - t0
+    _, grads = value_and_grad(loss_fn, params, batch)
+    new, state = opt_update(grads, state, params)
+    checkpoint.save(after, new, step=4)
+    groups = {"tables/item_id": 0, "tables/user_id": 1,
+              "tables/user_profile": 2, "tables/item_cat": 3}
+    t0 = time.perf_counter()
+    deltas = CheckpointDiffEmitter(os.path.join(root, "log"), groups).diff(
+        before, after)
+    diff_s = time.perf_counter() - t0
+    by_group = {d.group: d for d in deltas}
+    for name, gid in groups.items():
+        field = name.split("/")[1]
+        want = torch.nonzero(grads["tables"][field].abs().sum(1)).flatten()
+        d = by_group.get(gid)
+        got = np.empty(0, np.int64) if d is None else d.ids
+        check(np.array_equal(got, want.cpu().numpy()),
+              f"{name}: delta ids ({len(got)}) differ from the rows with a "
+              f"non-zero gradient ({len(want)})")
+        say9(f"[9c] {name}: {len(got)} rows in the delta = rows with a "
+              f"non-zero gradient")
+    cube = ParameterCube(tmpdir=tempfile.mkdtemp(prefix="cube_", dir=root))
+    old = params["tables"]["item_id"].cpu().numpy()
+    cube.load_table(0, old)
+    d = by_group[0]
+    cube.apply_batch([(0, d.ids, d.rows, d.delete_ids)])
+    rows = cube.lookup(0, np.arange(old.shape[0]))
+    check(np.array_equal(rows.view(np.uint32),
+                         new["tables"]["item_id"].cpu().numpy().view(np.uint32)),
+          "the cube given the delta differs from the new table")
+    say9(f"[9c] checkpoint save {save_s} s (before), diff {diff_s} s; a "
+          f"ParameterCube loaded with the old item_id table "
+          f"({old.shape[0]} rows) and given the delta equals the new "
+          f"table bit for bit")
+    shutil.rmtree(root, ignore_errors=True)
+    del params, state, new, grads, start, batch, cube
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) DIEN, MIND, two-tower: one gradient each, card vs CPU
+    launches_per_call = {"dien": dict(embedding_bag=1, augru=1),
+                         "mind": dict(embedding_bag=1),
+                         "two_tower": dict(embedding_bag=2)}
+    for mod, published in ((dien, DIEN), (mind, MIND), (towers, TWO_TOWER)):
+        mcfg = _vocab(published, 1 << 16)
+        p_cpu = mod.init(torch.Generator().manual_seed(0), mcfg, device="cpu")
+        p_gpu = _to(p_cpu, "cuda")
+        b_cpu = _rec_batch(mcfg, REC_MODEL_BATCH, 30, "cpu")
+        fn = (lambda p, b, mod=mod, mcfg=mcfg: mod.loss_fn(p, b, mcfg))
+        K.reset_launches()
+        lg, gg = value_and_grad(fn, p_gpu, _to(b_cpu, "cuda"))
+        counts = K.launch_counts()
+        lc, gcpu = value_and_grad(fn, p_cpu, b_cpu)
+        check(counts == dict(dict.fromkeys(K.LAUNCHES, 0),
+                             **launches_per_call[mcfg.model]),
+              f"{mcfg.name} gradient launched {counts}")
+        say9(f"[9d] {mcfg.name} at phase 4's widths (vocab 2^16), B="
+              f"{REC_MODEL_BATCH}: gradient card vs CPU, launches {counts}")
+        compare(f"[9d] {mcfg.name} loss", lg.cpu().reshape(1), lc.reshape(1),
+                TOL_MODEL)
+        compare_tree(f"[9d] {mcfg.name} grad", gg, gcpu, TOL_MODEL)
+        del p_cpu, p_gpu, gg, gcpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B4 forward at the training batch; the backward passes at the path's
+    # shapes (the plain versions' gradients, recomputed)
+    # inputs drawn on the card (7e8 host draws at B=65,536 took ~20 s)
+    gen = torch.Generator("cuda").manual_seed(5)
+
+    def t(*shape, scale=1.0, grad=False):
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        return x.requires_grad_(grad)
+
+    def u01(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+    B, T, H = REC_TRAIN_BATCH, 100, 108
+    x, att = t(B, T, H, scale=0.5), u01(B, T)
+    w, u, b = t(H, 3 * H, scale=0.1), t(H, 3 * H, scale=0.1), t(3 * H,
+                                                                scale=0.1)
+    with torch.no_grad():
+        got = augru(x, att, w, u, b)
+        want = augru_ref(x, att, w, u, b)
+    compare(f"[9d] augru forward B={B} T={T} H={H} vs plain", got, want,
+            TOL_EDGE)
+    with torch.no_grad():
+        fwd = device_ms(lambda: augru(x, att, w, u, b), iters=2, replays=2)
+        plain = _event_time(lambda: augru_ref(x, att, w, u, b), n=2)
+    say9(f"[9d] augru forward B={B}: kernel {fwd} ms (graph replay), plain "
+          f"{plain} ms (eager)")
+    del x, att, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    Bd = REC_MODEL_BATCH
+    args = (t(Bd, T, H, scale=0.5, grad=True), u01(Bd, T),
+            t(H, 3 * H, scale=0.1, grad=True), t(H, 3 * H, scale=0.1,
+                                                   grad=True),
+            t(3 * H, scale=0.1, grad=True))
+    back["augru"] = _backward_ms("augru", augru, args, (0, 2, 3, 4),
+                                 f"B={Bd} T={T} Din=H={H} (DIEN's gradient "
+                                 f"in [9d])")
+    D, H1, H2 = 18, 80, 40
+    dargs = (t(B, T, D, scale=0.1, grad=True),
+             (u01(B, T) > 0.2).float(),
+             t(B, D, scale=0.1, grad=True), t(4 * D, H1, scale=0.1, grad=True),
+             t(H1, scale=0.1, grad=True), t(H1, H2, scale=0.1, grad=True),
+             t(H2, scale=0.1, grad=True), t(H2, 1, scale=0.1, grad=True),
+             t(1, scale=0.1, grad=True))
+    with torch.no_grad():
+        fwd = device_ms(lambda: din_attention(*dargs), iters=2, replays=2)
+        compare(f"[9c] din_attention forward B={B} vs plain",
+                din_attention(*dargs), din_attention_ref(*dargs), TOL_F32)
+    say9(f"[9c] din_attention forward B={B} T={T}: kernel {fwd} ms (graph "
+          f"replay)")
+    back["din_attention"] = _backward_ms(
+        "din_attention", din_attention, dargs, (0, 2, 3, 4, 5, 6, 7, 8),
+        f"B={B} T={T} D={D} MLP 72-80-40-1 (DIN's rec_train step)")
+    del dargs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return back
+
+
+def _bag_backward_ms(cfg, params, batch):
+    """B3's backward at the DIN training step's lookups: its 5 groups over
+    the trained tables at the step's batch, timed as ``_backward_ms``."""
+    import torch
+    from repro_torch.kernels.embedding_bag import embedding_bag_group
+    from repro_torch.models.recsys import common
+    tables = {k: v.detach().requires_grad_() for k, v in
+              params["tables"].items()}
+    item_side = tuple(f for f in cfg.item_fields if f.name != "item_id")
+    lookups = [common.hist_lookup(tables, batch["user"]["hist"]),
+               (tables["item_id"], batch["item"]["item_id"][:, None], None,
+                "sum"),
+               *[(tables[f.name], ids if ids.dim() == 2 else ids[:, None],
+                  None, f.combiner) for f, ids in
+                 ((f, batch["user"]["fields"][f.name])
+                  for f in cfg.user_fields)],
+               *[(tables[f.name], batch["item"][f.name][:, None], None,
+                  f.combiner) for f in item_side]]
+    B, T = batch["user"]["hist"].shape
+    return _backward_ms(
+        "embedding_bag",
+        lambda *flat: torch.cat([o.reshape(-1) for o in embedding_bag_group(
+            [flat[4 * i:4 * i + 4] for i in range(len(lookups))],
+            blocks=(1, len(lookups) - 1))]),
+        [x for g in lookups for x in g], None,
+        f"DIN's 5 groups at B={B} ({B * T:,} history bags), V up to "
+        f"2^{DIN_SERVICE_VOCAB_LOG2}, D=18")
+
+
+def _backward_ms(name, fn, args, wrt, shape):
+    """Device time (CUDA events, eager) of the backward of ``fn(*args)``
+    w.r.t. ``args[i]`` for i in ``wrt`` (None: every float tensor that
+    requires grad), and the forward's: the backward recomputes the plain
+    version and takes its gradient."""
+    import torch
+    args = list(args)
+    if wrt is None:
+        wrt = [i for i, a in enumerate(args)
+               if isinstance(a, torch.Tensor) and a.requires_grad]
+    inputs = [args[i] for i in wrt]
+    out = fn(*args)
+    check(out.grad_fn is not None, f"{name}: no autograd node on the card")
+    g = torch.randn_like(out)
+    ms = _event_time(lambda: torch.autograd.grad(out, inputs, g,
+                                                 retain_graph=True), n=3)
+    say9(f"[9] {name} backward at {shape}: {ms} ms (CUDA events, eager)")
+    return ms
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1803,6 +2253,9 @@ def main() -> int:
         print(f"[7] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         durability_run()
         print(f"[8] done at {time.perf_counter() - t_run:.1f} s", flush=True)
+        lm_train_run()
+        backward = rec_train_run()
+        print(f"[9] done at {time.perf_counter() - t_run:.1f} s", flush=True)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1815,7 +2268,8 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
-                      "library_ms": r["library_ms"]})
+                      "library_ms": r["library_ms"],
+                      "backward_ms": backward.get(name)})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 The reference draws its weights from ``jax.random``, whose stream torch
 cannot reproduce, so parity runs build parameters with the reference's
 ``init``, turn them into numpy (``jax.tree.map(np.asarray, params)``) and
-hand the same values to the port through :func:`params_from_numpy`.
+hand the same values to the port through :func:`params_from_numpy`;
+:func:`params_to_numpy` carries the port's trees back, so gradients and
+updated parameters compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.models.transformer import KVCache
+from repro_torch.tree import tree_map
 
 
 def params_from_numpy(tree, device=None):
@@ -37,6 +40,24 @@ def tensor_from_numpy(x, device=None) -> torch.Tensor:
         bits = torch.from_numpy(arr.view(np.uint16).copy())
         return bits.view(torch.bfloat16).to(default_device(device))
     return torch.tensor(arr, device=default_device(device))
+
+
+def params_to_numpy(tree):
+    """The port's tree of tensors (dicts, lists, tuples, an optimizer's
+    ``OptState``) → the same structure of numpy arrays on the host, for
+    comparing leaf by leaf with the reference's. numpy has no bfloat16 of
+    its own: a bfloat16 tensor comes back as its uint16 bits."""
+    return tree_map(tensor_to_numpy, tree)
+
+
+def tensor_to_numpy(t) -> np.ndarray:
+    """One tensor → a numpy copy on the host (bfloat16 as uint16 bits)."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).copy()
+    return t.numpy().copy()
 
 
 def kv_cache_from_numpy(cache, device=None):

@@ -19,6 +19,14 @@ Dispatch is by tensor device only (:func:`on_cpu`):
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per launch,
 nowhere else), so a run can show that its path went through the kernels.
+
+Gradients: no kernel has a backward kernel (the reference differentiates
+its plain math). The kernels on the training path (embedding_bag,
+din_attention, augru) run their forward on the card and take the
+gradient of their plain version (:func:`with_plain_gradient`); the
+serving-only kernels refuse to run where autograd would record them
+(:func:`refuse_grad`). No wrapper hands back a CUDA output that silently
+drops the gradient.
 """
 from __future__ import annotations
 
@@ -104,6 +112,74 @@ def on_cpu(*tensors) -> bool:
 def require(cond: bool, msg: str):
     if not cond:
         raise ValueError(msg)
+
+
+# ---------------------------------------------------------------- gradients
+
+def grad_wanted(*tensors) -> bool:
+    """True when autograd would record a call on ``tensors``: grad mode is
+    on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(kernel_name: str, *tensors):
+    """A serving-only kernel has no backward: raise where autograd would
+    record the call, instead of returning an output without a gradient."""
+    if grad_wanted(*tensors):
+        raise RuntimeError(
+            f"{kernel_name}: the kernel has no backward (it lies on serving "
+            f"paths only); call it under torch.no_grad() or with inputs that "
+            f"do not require grad")
+
+
+class _PlainGradient(torch.autograd.Function):
+    """Forward: ``forward(*tensors)``, the kernel's launch. Backward: the
+    gradient of ``plain(*tensors)``, the kernel's plain version, recomputed
+    from the saved inputs. A tensor passed at several positions (one table
+    read by two lookups) gets its whole gradient at the first."""
+
+    @staticmethod
+    def forward(ctx, forward, plain, *tensors):
+        ctx.plain = plain
+        first = {}
+        ctx.first = [first.setdefault(id(t), i) if t is not None else i
+                     for i, t in enumerate(tensors)]
+        ctx.save_for_backward(*tensors)
+        return forward(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = []
+            for i, t in enumerate(saved):
+                if ctx.first[i] != i:
+                    leaves.append(leaves[ctx.first[i]])
+                elif t is None:
+                    leaves.append(None)
+                else:
+                    leaves.append(t.detach().requires_grad_(need[i]))
+            wrt = [i for i, t in enumerate(leaves) if ctx.first[i] == i
+                   and t is not None and t.requires_grad]
+            out = ctx.plain(*leaves)
+            grads = torch.autograd.grad(out, [leaves[i] for i in wrt], grad,
+                                        allow_unused=True)
+        res = [None] * len(saved)
+        for i, g in zip(wrt, grads):
+            res[i] = g
+        return (None, None, *res)
+
+
+def with_plain_gradient(forward, plain, *tensors):
+    """``forward(*tensors)`` (the kernel's launch), differentiable as
+    ``plain(*tensors)`` (its plain version) is where autograd records the
+    call; a bare launch elsewhere. The forward is the kernel's either way:
+    the plain version only supplies the backward."""
+    if not grad_wanted(*tensors):
+        return forward(*tensors)
+    return _PlainGradient.apply(forward, plain, *tensors)
 
 
 # -------------------------------------------------------------------- build

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, require
+from repro_torch.kernels import launch, on_cpu, require, with_plain_gradient
 from repro_torch.kernels.augru.ref import augru_ref
 
 #: the largest H a block holds U for in registers: 4 threads per hidden
@@ -20,9 +20,14 @@ def gx_cols(H: int) -> int:
 def augru(x, att, w, u, b):
     """x (B,T,Din), att (B,T), GRU weights w (Din,3H) u (H,3H) b (3H,) →
     final hidden (B,H), float32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel, whose gradient (w.r.t. x, att, w, u, b) is
+    the plain version's, recomputed from the inputs in the backward."""
     if on_cpu(x, att, w, u, b):
         return augru_ref(x, att, w, u, b)
+    return with_plain_gradient(_launch, augru_ref, x, att, w, u, b)
+
+
+def _launch(x, att, w, u, b):
     require(x.dim() == 3, f"x (B, T, Din) expected, got {tuple(x.shape)}")
     (B, T, Din), H = x.shape, u.shape[0]
     shapes = [(B, T, Din), (B, T), (Din, 3 * H), (H, 3 * H), (3 * H,)]

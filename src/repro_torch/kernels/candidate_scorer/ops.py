@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, require
+from repro_torch.kernels import launch, on_cpu, refuse_grad, require
 from repro_torch.kernels.candidate_scorer.ref import candidate_scorer_ref
 
 #: candidates per block at most (``kBlockC`` in the source)
@@ -27,9 +27,12 @@ def candidate_scorer(cands, query, k: int = 8):
     like any other), and on equal scores the lower index first; the
     kernel orders each block so, and the merge orders the blocks' winners
     by the same rank. Every index is a real row (k <= C).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which has no backward: it raises where autograd would record the
+    call."""
     if on_cpu(cands, query):
         return candidate_scorer_ref(cands, query, k)
+    refuse_grad("candidate_scorer", cands, query)
     require(cands.dim() == 2, f"cands (C, D) expected, got {tuple(cands.shape)}")
     C, D = cands.shape
     require(tuple(query.shape) == (D,),

@@ -115,7 +115,11 @@ augru_input_proj(const float* __restrict__ x, const float* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;          // mma fragment coordinates
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
+  // one flat grid, columns fastest (a row tile's blocks run together):
+  // B * T rows past 65,535 tiles launch too
+  const int ncol = (N + kTile - 1) / kTile;
+  const int row0 = static_cast<int>(blockIdx.x / ncol) * kTile;
+  const int col0 = static_cast<int>(blockIdx.x % ncol) * kTile;
   auto copy_slice = [&](int k0, int stage) {      // zero-filled past M, K, N
     for (int i = tid; i < kTile * kDepth; i += kProjThreads) {
       const int r = i / kDepth, kk = i - r * kDepth;     // x: row-major
@@ -316,7 +320,8 @@ extern "C" int augru_f32(const void* x, const void* att, const void* w,
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   float* g = static_cast<float*>(gx);
   if (M > 0) {
-    const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+    const unsigned grid = static_cast<unsigned>((N + kTile - 1) / kTile) *
+                          static_cast<unsigned>((M + kTile - 1) / kTile);
     augru_input_proj<<<grid, kProjThreads, 0, st>>>(f(x), f(w), f(bias), g,
                                                     M, Din, N, NP);
     const cudaError_t err = cudaGetLastError();

@@ -168,7 +168,7 @@ din_attention_fused(const float* __restrict__ hist,
   float *hs = smem + L.hs, *ms = smem + L.ms, *xt = smem + L.xt;
   float *h1t = smem + L.h1t, *wt = smem + L.wt, *part = smem + L.part;
   float* slots = smem + L.slots;
-  const int tid = threadIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, b = blockIdx.x / CL;
   const int nchunks = (T + kChunk - 1) / kChunk;
   const int DH = D * kMaxH1;
   const float* hrow = hist + static_cast<size_t>(b) * T * D;
@@ -371,7 +371,9 @@ extern "C" int din_attention_f32(const void* hist, const void* mask,
   const int CL = std::max(
       1, std::min({kMaxCluster, nchunks, resident_blocks(bytes) / B}));
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL, B);
+  // one x extent of B clusters (row b = blockIdx.x / CL): a training batch
+  // of 65,536 rows and more launches, where the y extent stops at 65,535
+  cfg.gridDim = dim3(CL * B);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -3,24 +3,30 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, require
+from repro_torch.kernels import launch, on_cpu, require, with_plain_gradient
 from repro_torch.kernels.din_attention.ref import din_attention_ref
 
 #: history steps per chunk (``kChunk`` in the source), the widths of the
 #: register tiles (``kMaxH1``, ``kMaxH2``) and the most blocks a row's
 #: cluster has (``kMaxCluster``)
 CHUNK, MAX_H1, MAX_H2, MAX_CLUSTER = 16, 80, 40, 8
-_MAX_GRID_Y = 65535
 
 
 def din_attention(hist, mask, target, w1, b1, w2, b2, w3, b3):
     """Fused DIN local activation unit: hist (B,T,D), mask (B,T), target
     (B,D), attention MLP 4D→H1→H2→1 as (w, b) pairs. Returns (B, D).
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 only)."""
+    (float32 only), whose gradient is the plain version's (recomputed from
+    the inputs in the backward). The batch rides the grid's x extent with
+    the clusters, so B past 65,535 launches."""
     args = (hist, mask, target, w1, b1, w2, b2, w3, b3)
     if on_cpu(*args):
         return din_attention_ref(*args)
+    return with_plain_gradient(_launch, din_attention_ref, *args)
+
+
+def _launch(hist, mask, target, w1, b1, w2, b2, w3, b3):
+    args = (hist, mask, target, w1, b1, w2, b2, w3, b3)
     B, T, D = hist.shape
     H1, H2 = w1.shape[1], w2.shape[1]
     shapes = {"mask": (B, T), "target": (B, D), "w1": (4 * D, H1),
@@ -34,7 +40,6 @@ def din_attention(hist, mask, target, w1, b1, w2, b2, w3, b3):
     require(H1 <= MAX_H1 and H2 <= MAX_H2,
             f"attention MLP {H1}-{H2} exceeds the kernel's tiles "
             f"({MAX_H1}-{MAX_H2})")
-    require(B <= _MAX_GRID_Y, f"B={B} exceeds the grid's y extent")
     out = torch.empty((B, D), dtype=hist.dtype, device=hist.device)
     if B == 0 or D == 0:
         return out

@@ -7,7 +7,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, require
+from repro_torch.kernels import launch, on_cpu, require, with_plain_gradient
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_group_ref,
                                                    embedding_bag_ref)
 
@@ -24,10 +24,19 @@ def embedding_bag(table, ids, weights=None, combiner: str = "sum"):
     bfloat16, ids (B, K) integer (clipped to [0, V-1]), weights (B, K) or
     None (= ones). ``combiner="mean"`` divides by max(sum w, 1e-9).
     Returns (B, D) in the table's dtype. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel, whose gradient is the plain
+    version's: a scatter-add of each bag's output gradient x its weight
+    (/ sum w for ``mean``) into a dense table gradient at the clipped ids."""
     require(combiner in ("sum", "mean"), f"unknown combiner {combiner!r}")
     if on_cpu(table, ids, weights):
         return embedding_bag_ref(table, ids, weights, combiner)
+    return with_plain_gradient(
+        lambda t, i, w: _launch(t, i, w, combiner),
+        lambda t, i, w: embedding_bag_ref(t, i, w, combiner),
+        table, ids, weights)
+
+
+def _launch(table, ids, weights, combiner):
     table, ids, weights = _checked(table, ids, weights)
     (V, D), (B, K) = table.shape, ids.shape
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
@@ -89,7 +98,10 @@ def embedding_bag_group(lookups, blocks=None):
     per group: one (B_g, D) tensor each. The returned tensors are views of
     one buffer. CPU tensors take the plain version; CUDA tensors launch
     one kernel, counted once, with every descriptor passed by value (no
-    copy to the device, no host sync: a CUDA graph can hold the launch)."""
+    copy to the device, no host sync: a CUDA graph can hold the launch).
+    On the card the buffer is the one output autograd sees (views of two
+    outputs of one storage would break its version checks), and its
+    gradient is the plain version's, group by group."""
     lookups = [tuple(g) for g in lookups]
     blocks = (1,) * len(lookups) if blocks is None else tuple(blocks)
     require(0 < len(lookups) <= MAX_GROUPS,
@@ -113,13 +125,32 @@ def embedding_bag_group(lookups, blocks=None):
         places.append((size, B, n))
         size += B * n * D
         at += n
-    if on_cpu(*(t for g in lookups for t in g[:3])):
+    flat = [t for g in lookups for t in g[:3]]
+    if on_cpu(*flat):
         return embedding_bag_group_ref(lookups, blocks)
+    combiners = [g[3] for g in lookups]
+
+    def regroup(tensors):
+        return [(*tensors[3 * i:3 * i + 3], c) for i, c in enumerate(combiners)]
+
+    def plain(*tensors):
+        return torch.cat([o.reshape(-1) for o in
+                          embedding_bag_group_ref(regroup(tensors), blocks)])
+
+    buf = with_plain_gradient(
+        lambda *tensors: _launch_group(regroup(tensors), places, size),
+        plain, *flat)
+    return [buf[off:off + B * n * D].view(B, n * D) for off, B, n in places]
+
+
+def _launch_group(lookups, places, size):
+    """One launch of every group into one buffer of ``size`` elements,
+    each block of groups at its place (offset, bags, groups)."""
+    dtype, D = lookups[0][0].dtype, lookups[0][0].shape[-1]
     groups = [(*_checked(*g[:3]), g[3]) for g in lookups]
     require(all(g[0].shape[0] > 0 for g in groups), "empty table")
     device = groups[0][0].device
     buf = torch.empty((size,), dtype=dtype, device=device)
-    outs = [buf[off:off + B * n * D].view(B, n * D) for off, B, n in places]
     desc, bag0, at = _Groups(), 0, 0
     for off, B, n in places:
         for j in range(n):
@@ -135,4 +166,4 @@ def embedding_bag_group(lookups, blocks=None):
     if bag0 and D:
         launch(_GROUP_ENTRY[dtype], "embedding_bag", device,
                ctypes.addressof(desc))
-    return outs
+    return buf

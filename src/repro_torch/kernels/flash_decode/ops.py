@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels as K
-from repro_torch.kernels import launch, on_cpu, require
+from repro_torch.kernels import launch, on_cpu, refuse_grad, require
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 #: cache rows of a split granule (``kTile`` in the source): each of a
@@ -91,7 +91,8 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
     (B,H,G,D) in q's dtype. Scores are scaled by ``scale`` (1/√D by
     default), accumulated in float32, positions at or past cache_len
     masked. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which reads cache_len on the device (no host sync). In bf16
+    kernel, which reads cache_len on the device (no host sync) and has no
+    backward (it raises where autograd would record the call). In bf16
     the kernel rounds p to bf16 for the PV product, as the TPU kernel does.
 
     cache_len = 0 lies outside the references' agreement (the Pallas
@@ -99,6 +100,7 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
     model never asks for it: decode passes the cache length plus one."""
     if on_cpu(q, k_cache, v_cache):
         return flash_decode_ref(q, k_cache, v_cache, cache_len, scale)
+    refuse_grad("flash_decode", q, k_cache, v_cache)
     require(q.dim() == 4 and k_cache.dim() == 4,
             f"q (B,H,G,D) and caches (B,S,H,D) expected, got "
             f"{tuple(q.shape)} / {tuple(k_cache.shape)}")

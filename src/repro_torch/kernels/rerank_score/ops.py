@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, require
+from repro_torch.kernels import launch, on_cpu, refuse_grad, require
 from repro_torch.kernels.rerank_score.ref import rerank_score_ref
 
 #: candidates per block (``kCands`` in the source), and the widths of the
@@ -29,7 +29,8 @@ def rerank_score(hist, mask, target, user_other, item_other,
     item_other (C, d_i) per-candidate side features; attn_mlp / score_mlp:
     3-layer towers as produced by ``mlp_tower_init`` (two silu hiddens +
     linear out). Returns per-candidate scores (C,) float32. CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    take the plain version; CUDA tensors launch the kernel, which has no
+    backward: it raises where autograd would record the call."""
     require(len(attn_mlp) == 3 and len(score_mlp) == 3,
             "fused path expects 2-hidden-layer towers (got "
             f"{len(attn_mlp)}/{len(score_mlp)} layers)")
@@ -37,6 +38,7 @@ def rerank_score(hist, mask, target, user_other, item_other,
     args = (hist, mask, target, user_other, item_other, *weights)
     if on_cpu(*args):
         return rerank_score_ref(*args)
+    refuse_grad("rerank_score", *args)
     T, D = hist.shape
     C, d_u, d_i = target.shape[0], user_other.shape[0], item_other.shape[1]
     H1, H2 = weights[0].shape[1], weights[2].shape[1]

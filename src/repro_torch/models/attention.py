@@ -6,8 +6,9 @@ Layouts (the reference's):
   k: (B, Sk, Hkv, D)
   v: (B, Sk, Hkv, Dv)
 
-Prefill never materializes (Sq, Sk): a loop over KV chunks carries a
-running (m, l, acc), the reference's ``lax.scan`` written out. Single-token
+Training and prefill never materialize (Sq, Sk): a loop over KV chunks
+carries a running (m, l, acc), the reference's ``lax.scan`` written out
+(each chunk checkpointed where autograd records, as there). Single-token
 GQA decode on a CUDA tensor runs the hand-written ``flash_decode`` kernel;
 on a CPU tensor it is the reference's math. MLA's expanded prefill and
 absorbed decode are plain PyTorch, as in the reference (no kernel covers
@@ -19,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import default_device
 from repro_torch.kernels.flash_decode import flash_decode
@@ -68,17 +70,11 @@ def _chunked_attention(q, k, v, *, causal, chunk, q_offset=0, scale=None):
     n_chunks = -(-Sk // chunk)
     dev = q.device
     q_pos = q_offset + torch.arange(Sq, device=dev)
-    m = torch.full((B, H, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, H, G, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, H, G, Sq, Dv), dtype=torch.float32, device=dev)
-    for idx in range(n_chunks):
-        # the reference pads the last chunk; its padded rows are masked,
-        # so the slice computes the same sums
-        k_i = k[:, idx * chunk: (idx + 1) * chunk]
-        v_i = v[:, idx * chunk: (idx + 1) * chunk]
+
+    def body(m, l, acc, q, k_i, v_i, k0: int):
         s = _chunk_scores(q, k_i, scale)                         # (B,H,G,Sq,C)
         if causal:
-            k_pos = idx * chunk + torch.arange(k_i.shape[1], device=dev)
+            k_pos = k0 + torch.arange(k_i.shape[1], device=dev)
             valid = q_pos[:, None] >= k_pos[None, :]
             s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
@@ -87,8 +83,26 @@ def _chunked_attention(q, k, v, *, causal, chunk, q_offset=0, scale=None):
         l = l * alpha + p.sum(-1)
         pv = torch.einsum("bhgqc,bchd->bhgqd", p.to(v_i.dtype).float(),
                           v_i.float())
-        acc = acc * alpha[..., None] + pv
-        m = m_new
+        return m_new, l, acc * alpha[..., None] + pv
+
+    # where autograd records, each chunk is checkpointed as in the
+    # reference: the backward recomputes its (Sq, C) score block instead
+    # of keeping one per chunk
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
+    m = torch.full((B, H, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, G, Sq, Dv), dtype=torch.float32, device=dev)
+    for idx in range(n_chunks):
+        # the reference pads the last chunk; its padded rows are masked,
+        # so the slice computes the same sums
+        k_i = k[:, idx * chunk: (idx + 1) * chunk]
+        v_i = v[:, idx * chunk: (idx + 1) * chunk]
+        if remat:
+            m, l, acc = checkpoint(body, m, l, acc, q, k_i, v_i, idx * chunk,
+                                   use_reentrant=False)
+        else:
+            m, l, acc = body(m, l, acc, q, k_i, v_i, idx * chunk)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)                # (B,Sq,H,G,Dv)
 

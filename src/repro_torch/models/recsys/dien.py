@@ -6,8 +6,9 @@ candidate); in the port it runs as the hand-written ``augru`` kernel and
 the table lookups of each model call as one grouped ``embedding_bag``
 launch, while the GRU stays
 plain PyTorch, as the reference keeps it in jnp. Tensors on the CPU take
-the kernels' plain versions. Forward only: the kernels on this path have
-no backward yet.
+the kernels' plain versions. ``loss_fn`` is differentiable on both
+devices: on the card the kernels run the forward and take their plain
+versions' gradients.
 """
 from __future__ import annotations
 
@@ -135,7 +136,7 @@ def logits_fn(params, batch: dict, cfg: RecsysConfig, return_aux=False):
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig,
             aux_weight=0.5) -> torch.Tensor:
-    """Forward loss only: the kernels on this path have no backward yet."""
+    """BCE + aux_weight x the next-behavior aux loss; differentiable."""
     logits, aux = logits_fn(params, batch, cfg, return_aux=True)
     return bce_loss(logits, batch["label"]) + aux_weight * aux
 

@@ -74,7 +74,9 @@ def logits_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
 
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    """Forward loss only: the kernels on this path have no backward yet."""
+    """BCE of the logits, differentiable on both devices: on the card the
+    grouped embedding_bag and din_attention kernels run the forward and
+    take their plain versions' gradients."""
     return bce_loss(logits_fn(params, batch, cfg), batch["label"])
 
 

@@ -7,7 +7,9 @@ serving scores are max over interests. The table lookups of each model
 call run as one grouped ``embedding_bag`` launch; ``retrieve`` takes a max over K interests, which
 is not the ``candidate_scorer`` kernel's single-query function, so it is a
 plain product and a top-k in ``lax.top_k``'s order, as the reference
-keeps it outside any kernel. Forward only.
+keeps it outside any kernel. ``loss_fn`` is differentiable on both
+devices (the grouped lookup takes its plain version's gradient on the
+card).
 """
 from __future__ import annotations
 
@@ -91,7 +93,8 @@ def _hist_and_target(params, batch, cfg):
 
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    """Forward loss only."""
+    """In-batch sampled softmax of the label-aware user vector;
+    differentiable."""
     emb, mask, tgt = _hist_and_target(params, batch, cfg)
     I = interests(params, emb, mask, cfg)                     # (B,K,D)
     tgt = l2_normalize(tgt)                                   # (B,D)

@@ -4,7 +4,8 @@ In the port the user fields (single ids and the multi-hot ``user_hist`` /
 ``user_ctx`` bags) run as one grouped ``embedding_bag`` launch, and ``retrieve``'s
 dot product of every candidate with the user vector plus its top-k run as
 the ``candidate_scorer`` kernel. Tensors on the CPU take the kernels'
-plain versions. Forward only.
+plain versions. ``loss_fn`` is differentiable on both devices (the
+grouped lookups take their plain version's gradient on the card).
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ def item_vec(params, item_ids: dict, cfg: RecsysConfig) -> torch.Tensor:
 
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    """Forward loss only."""
+    """In-batch sampled softmax with logQ correction; differentiable."""
     u = user_vec(params, batch["user"]["fields"], cfg)
     v = item_vec(params, batch["item"], cfg)
     return sampled_softmax_loss(u, v, batch.get("log_q"))

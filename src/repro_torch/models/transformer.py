@@ -1,6 +1,8 @@
-"""LM transformer, serving half: dense (qwen3 / smollm / starcoder2) and
-MoE + MLA (deepseek v2-lite / v3) parameters, prefill and KV-cache decode,
-in PyTorch on one device.
+"""LM transformer: dense (qwen3 / smollm / starcoder2) and MoE + MLA
+(deepseek v2-lite / v3) parameters; the training half (blocks with remat,
+the chunked vocab loss, the next-token loss with deepseek-v3's MTP head
+and the MoE aux term) and the serving half (prefill, KV-cache decode), in
+PyTorch on one device.
 
 Params layout (the reference's, stacked over layers, so weights carry
 across unchanged):
@@ -11,7 +13,10 @@ across unchanged):
   mtp.{proj, norm_h, norm_e, block} -- deepseek-v3 multi-token prediction
 
 The reference scans over the stacked layers; here a Python loop indexes
-them. Decode writes each layer's new K/V into the cache in place.
+them, and where ``cfg.remat`` a layer of the stack runs under
+``torch.utils.checkpoint`` (its activations recomputed in the backward,
+the reference's ``jax.checkpoint`` with ``nothing_saveable``). Decode
+writes each layer's new K/V into the cache in place.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import default_device
 from repro_torch.configs.base import LMConfig
@@ -103,13 +110,30 @@ def init(generator: torch.Generator, cfg: LMConfig, device=None) -> dict:
 
 # ----------------------------------------------------------------- blocks
 
-def _ffn(p, x, cfg: LMConfig, moe_layer: bool):
+def _ffn_aux(p, x, cfg: LMConfig, moe_layer: bool):
+    """The block's feed-forward and its MoE load-balance aux (0 if dense)."""
     if moe_layer:
-        ff, _ = moe_lib.moe_apply(p["moe"], x, cfg.moe, cfg.act)
+        ff, aux = moe_lib.moe_apply(p["moe"], x, cfg.moe, cfg.act)
         if "shared" in p:
             ff = ff + mlp_apply(p["shared"], x, cfg.act, cfg.glu)
-        return ff
-    return mlp_apply(p["mlp"], x, cfg.act, cfg.glu)
+        return ff, aux
+    return (mlp_apply(p["mlp"], x, cfg.act, cfg.glu),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _ffn(p, x, cfg: LMConfig, moe_layer: bool):
+    return _ffn_aux(p, x, cfg, moe_layer)[0]
+
+
+def _block(p, x, positions, cfg: LMConfig, moe_layer: bool):
+    """Pre-norm transformer block. Returns (x, aux_loss)."""
+    h, _ = attn.attn_forward(
+        p["attn"], norm_apply(x, p["ln1"], cfg.norm, cfg.norm_eps),
+        positions, cfg)
+    x = x + h
+    ff, aux = _ffn_aux(p, norm_apply(x, p["ln2"], cfg.norm, cfg.norm_eps),
+                       cfg, moe_layer)
+    return x + ff, aux
 
 
 def _block_decode(p, x, positions, cfg: LMConfig, moe_layer: bool, cache,
@@ -126,6 +150,88 @@ def _head_w(params, cfg: LMConfig):
     if cfg.tie_embeddings:
         return params["embed"]["table"].T
     return params["lm_head"]["w"]
+
+
+def hidden_states(params, tokens, cfg: LMConfig):
+    """Embed + all blocks + final norm. tokens (B,S) → (B,S,d), aux."""
+    B, S = tokens.shape
+    x = sharded_lookup(params["embed"]["table"], tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "dense_layers" in params:
+        for i in range(params["dense_layers"]["ln1"]["scale"].shape[0]):
+            x, _ = _block(_layer(params["dense_layers"], i), x, positions, cfg,
+                          moe_layer=False)
+    moe_layer = cfg.moe is not None
+
+    def body(p, x):
+        return _block(p, x, positions, cfg, moe_layer)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(params["layers"]["ln1"]["scale"].shape[0]):
+        p = _layer(params["layers"], i)
+        if remat:
+            x, aux = checkpoint(body, p, x, use_reentrant=False)
+        else:
+            x, aux = body(p, x)
+        aux_total = aux_total + aux
+    x = norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    return x, aux_total
+
+
+def chunked_xent(x, head_w, labels, mask, chunk: int = 512):
+    """Cross-entropy without materializing (B,S,V): a loop over S chunks,
+    each chunk's logits in float32. Mean over the positions ``mask``
+    keeps."""
+    B, S, d = x.shape
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        at = slice(i * chunk, (i + 1) * chunk)
+        xi, li, mi = x[:, at], labels[:, at], mask[:, at]
+        logits = (xi @ head_w).float()                       # (B,c,V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        nll = (lse - gold) * mi
+        tot = tot + nll.sum()
+        cnt = cnt + mi.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, tokens, cfg: LMConfig, aux_weight: float = 1e-3):
+    """Next-token loss (+MTP loss for deepseek-v3, + aux_weight x the MoE
+    load-balance aux). tokens (B,S)."""
+    x, aux = hidden_states(params, tokens, cfg)
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1] * 0], dim=1)
+    ones = torch.ones(tokens[:, 1:].shape, dtype=torch.float32,
+                      device=tokens.device)
+    mask = F.pad(ones, (0, 1))
+    head_w = _head_w(params, cfg)
+    loss = chunked_xent(x, head_w, labels, mask)
+    if cfg.mtp and "mtp" in params:
+        # MTP depth 1: combine h_t with the embedding of token t+1, one
+        # extra block, predict token t+2 (deepseek-v3 §2.2)
+        mp = params["mtp"]
+        emb_next = sharded_lookup(params["embed"]["table"],
+                                  torch.roll(tokens, -1, dims=1))
+        h = torch.cat([
+            norm_apply(x, mp["norm_h"], cfg.norm, cfg.norm_eps),
+            norm_apply(emb_next, mp["norm_e"], cfg.norm, cfg.norm_eps)], -1)
+        h = h @ mp["proj"]
+        B, S = tokens.shape
+        positions = torch.arange(S, device=h.device).expand(B, S)
+        h, _ = _block(mp["block"], h, positions, cfg,
+                      moe_layer=cfg.moe is not None)
+        labels2 = torch.roll(tokens, -2, dims=1)
+        mask2 = F.pad(ones[:, 1:], (0, 2))
+        loss = loss + 0.3 * chunked_xent(h, head_w, labels2, mask2)
+    return loss + aux_weight * aux
 
 
 # ----------------------------------------------------------------- serving

@@ -44,7 +44,7 @@ VERBATIM = (
      "configs/lm_archs.py", "configs/jizhi_service.py", "data/synthetic.py",
      "serve/batcher.py", "serve/hotload.py", "update/__init__.py",
      "update/delta.py", "update/manager.py", "update/policy.py",
-     "update/snapshot.py"]
+     "update/snapshot.py", "train/elastic.py", "data/pipeline.py"]
     + [f"core/{m}.py" for m in ("sedp", "executors", "cube", "cube_cache",
                                  "query_cache", "multitenant",
                                  "service_model")]
@@ -172,21 +172,35 @@ def test_service_serves_with_jax_and_reference_blocked():
 def test_lm_service_serves_with_jax_and_reference_blocked():
     """A fresh interpreter in which ``import jax`` and ``import repro``
     fail imports the LM path (transformer, attention, MoE, the
-    flash_decode kernel's wrapper, the launcher) and serves 6 requests of
-    reduced smollm-135m on the CPU."""
+    flash_decode kernel's wrapper, the launchers, the training modules)
+    and serves 6 requests of reduced smollm-135m on the CPU, then trains
+    it 2 steps with a checkpoint and resumes from it."""
     script = textwrap.dedent("""
         import argparse
         import sys
+        import tempfile
         sys.modules["jax"] = None
         sys.modules["repro"] = None
         import repro_torch.kernels.flash_decode
         import repro_torch.models.attention
         import repro_torch.models.moe
         import repro_torch.models.transformer
+        import repro_torch.data.pipeline
+        import repro_torch.train.checkpoint
+        import repro_torch.train.elastic
+        import repro_torch.train.optimizer
+        import repro_torch.train.train_step
         from repro_torch.launch.serve import serve_lm
+        from repro_torch.launch.train import parser, train
         fig = serve_lm(argparse.Namespace(arch="smollm-135m", requests=6,
                                           reduced=True), device="cpu")
         assert fig["completed"] == 6 and fig["steps"] > 0, fig
+        d = tempfile.mkdtemp()
+        args = parser().parse_args(["--reduced", "--steps", "2",
+                                    "--ckpt-dir", d, "--ckpt-every", "1"])
+        first = train(args, device="cpu")
+        again = train(args, device="cpu")
+        assert again["start_step"] == first["end_step"] == 2, again
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro")
                         and sys.modules[m] is not None)
@@ -216,6 +230,8 @@ def _entry_points():
     from repro_torch.sparse.embedding import TableSpec, init_table
     from repro_torch.convert import kv_cache_from_numpy
     from repro_torch.launch.serve import serve_lm, serve_recsys
+    from repro_torch.launch.train import parser as train_parser
+    from repro_torch.launch.train import train
     from repro_torch.models import moe, transformer
     from repro_torch.serve.scenario import ServingSubstrate
     from repro_torch.update import HBMHead
@@ -265,6 +281,9 @@ def _entry_points():
             arch="din", requests=1, snapshot_dir=None, recover=False,
             update_dir=None, metrics_port=0, metrics_out=None,
             history_dir=None, history_interval_s=1.0, trace_out=None)),
+        "train": lambda: train(train_parser().parse_args(
+            ["--reduced", "--steps", "1", "--ckpt-dir",
+             str(ROOT / "build" / "never_written")])),
     }
 
 
@@ -927,3 +946,287 @@ def test_ctypes_pointer_types_are_wide():
     for name, argtypes in K.SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p, name
         assert ctypes.c_void_p in argtypes[:4], name
+
+
+# -------------------------------------------------------------- gradients
+
+_CTYPE = {torch.float32: ctypes.c_float, torch.int64: ctypes.c_int64}
+
+
+def _at(ptr, shape, dtype=torch.float32):
+    """A CPU tensor over host memory at ``ptr``: what a device pointer of
+    the fake card below is."""
+    n = int(np.prod(shape))
+    if n == 0:
+        return torch.empty(shape, dtype=dtype)
+    return torch.frombuffer((_CTYPE[dtype] * n).from_address(ptr),
+                            dtype=dtype).view(shape)
+
+
+def _plain_entries():
+    """C entries of the training path's kernels that compute the kernel's
+    plain version at the addresses they are handed, as the card would
+    compute the kernel there."""
+    from repro_torch.kernels.augru.ref import augru_ref
+    from repro_torch.kernels.din_attention.ref import din_attention_ref
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    def din(hist, mask, tgt, w1, b1, w2, b2, w3, b3, out, B, T, D, H1, H2,
+            _stream):
+        args = [_at(hist, (B, T, D)), _at(mask, (B, T)), _at(tgt, (B, D)),
+                _at(w1, (4 * D, H1)), _at(b1, (H1,)), _at(w2, (H1, H2)),
+                _at(b2, (H2,)), _at(w3, (H2, 1)), _at(b3, (1,))]
+        _at(out, (B, D)).copy_(din_attention_ref(*args))
+        return 0
+
+    def bag(table, ids, weights, out, V, D, B, K, mean, _stream):
+        _at(out, (B, D)).copy_(embedding_bag_ref(
+            _at(table, (V, D)), _at(ids, (B, K), torch.int64),
+            None if weights is None else _at(weights, (B, K)),
+            "mean" if mean else "sum"))
+        return 0
+
+    def group(desc, _stream):
+        d = bag_ops._Groups.from_address(desc)
+        for i in range(d.n):
+            g = d.g[i]
+            B = (d.g[i + 1].bag0 if i + 1 < d.n else d.total) - g.bag0
+            res = embedding_bag_ref(
+                _at(g.table, (g.V, d.D)), _at(g.ids, (B, g.K), torch.int64),
+                None if not g.weights else _at(g.weights, (B, g.K)),
+                "mean" if g.mean else "sum")
+            _at(g.out, (B, g.out_stride))[:, g.out_col:g.out_col + d.D] = res
+        return 0
+
+    def augru(x, att, w, u, b, _gx, out, B, T, Din, H, _stream):
+        _at(out, (B, H)).copy_(augru_ref(
+            _at(x, (B, T, Din)), _at(att, (B, T)), _at(w, (Din, 3 * H)),
+            _at(u, (H, 3 * H)), _at(b, (3 * H,))))
+        return 0
+    return {"din_attention_f32": din, "embedding_bag_f32": bag,
+            "embedding_bag_group_f32": group, "augru_f32": augru}
+
+
+def _plain_card(monkeypatch):
+    """CPU tensors take the kernels' path (``on_cpu`` says no), and the C
+    entries of B2, B3 and B4 compute the plain version in place of the
+    launch: what runs on the card, up to the kernels' own arithmetic."""
+    entries = _plain_entries()
+    monkeypatch.setattr(K, "kernel", lambda name, device: entries[name])
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    for mod in (bag_ops, din_ops, augru_ops):
+        monkeypatch.setattr(mod, "on_cpu", lambda *t: False)
+
+
+def _din_setup():
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.models.recsys import din
+    arch = registry.get("din")
+    cfg = arch.reduced(arch.config)
+    params = din.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    raw = synthetic.recsys_batch(np.random.default_rng(0), cfg, 8)
+
+    def to_torch(tree):
+        if isinstance(tree, dict):
+            return {k: to_torch(v) for k, v in tree.items()}
+        a = np.asarray(tree)
+        return torch.as_tensor(a, dtype=torch.int64 if a.dtype.kind in "iu"
+                               else torch.float32)
+    return cfg, params, to_torch(raw), din
+
+
+def _grads(loss_fn, params):
+    """{path: gradient or None} of every leaf of a tree of dicts and lists
+    (None: autograd never reached the leaf)."""
+    live = {}
+
+    def leaves(node, path):
+        if isinstance(node, dict):
+            return {k: leaves(v, f"{path}/{k}") for k, v in node.items()}
+        if isinstance(node, list):
+            return [leaves(v, f"{path}/{i}") for i, v in enumerate(node)]
+        live[path] = node.detach().requires_grad_(True)
+        return live[path]
+    loss = loss_fn(leaves(params, ""))
+    grads = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
+    return dict(zip(live, grads))
+
+
+def test_din_loss_on_the_card_differentiates_every_parameter(monkeypatch):
+    """Fault C-3: on the card the kernels' outputs had no ``grad_fn``, so
+    ``din.loss_fn`` gave the tables and ``attn_mlp`` no gradient and no
+    error. With the plain version in place of each launch, every
+    parameter's gradient on the card's path equals the CPU's, and the
+    forward launched the grouped embedding_bag and din_attention once
+    each (the backward launches nothing)."""
+    cfg, params, batch, din = _din_setup()
+    want = _grads(lambda p: din.loss_fn(p, batch, cfg), params)
+    _plain_card(monkeypatch)
+    before = K.launch_counts()
+    got = _grads(lambda p: din.loss_fn(p, batch, cfg), params)
+    after = K.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        {k: 0 for k in after}, embedding_bag=1, din_attention=1)
+    missing = sorted(k for k, g in got.items() if g is None)
+    assert missing == [], f"no gradient on the card's path for {missing}"
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-7,
+                                   msg=k)
+
+
+def _kernel_grad_cases(rng):
+    def t(*shape, grad=True):
+        x = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+        return x.requires_grad_(grad)
+
+    def ids(V, *shape):
+        return torch.as_tensor(rng.integers(-2, V + 2, shape))
+
+    B, T, D, H1, H2 = 3, 5, 4, 8, 6
+    din_args = (t(B, T, D), t(B, T, grad=False), t(B, D), t(4 * D, H1), t(H1),
+                t(H1, H2), t(H2), t(H2, 1), t(1))
+    table, other = t(20, D), t(9, D)
+    bag_ids = ids(20, 4, 3)
+    bag_w = torch.as_tensor(rng.random((4, 3)) + 0.5,
+                            dtype=torch.float32).requires_grad_()
+    group = [(table, ids(20, 6, 1), None, "sum"),
+             (table, ids(20, 2, 3), None, "sum"),      # one table, two groups
+             (other, ids(9, 2, 4),
+              torch.as_tensor(rng.random((2, 4)) + 0.5, dtype=torch.float32),
+              "mean"),
+             (other, ids(9, 2, 2), None, "mean")]
+    Din, H = 5, 7
+    augru_args = (t(B, T, Din), t(B, T), t(Din, 3 * H), t(H, 3 * H), t(3 * H))
+    return {
+        "din_attention": (lambda f: f(*din_args), din_args[:1] + din_args[2:],
+                          din_ops.din_attention, din_ops.din_attention_ref),
+        "embedding_bag": (lambda f: f(table, bag_ids, bag_w, "mean"),
+                          (table, bag_w),
+                          bag_ops.embedding_bag, bag_ops.embedding_bag_ref),
+        "embedding_bag_group": (
+            lambda f: torch.cat([o.reshape(-1) for o in f(group, (1, 1, 2))]),
+            (table, other, group[2][2]), bag_ops.embedding_bag_group,
+            bag_ops.embedding_bag_group_ref),
+        "augru": (lambda f: f(*augru_args), augru_args, augru_ops.augru,
+                  augru_ops.augru_ref),
+    }
+
+
+@pytest.mark.parametrize("case", ["din_attention", "embedding_bag",
+                                  "embedding_bag_group", "augru"])
+def test_training_kernels_reach_their_backward(case, monkeypatch, rng):
+    """B2, B3 (per table and grouped, a table read by two groups) and B4
+    on the card's path: the forward is one counted launch, the output has
+    a ``grad_fn``, and the backward gives every input the plain version's
+    gradient (weights too where they require it), launching nothing."""
+    call, inputs, wrapper, plain = _kernel_grad_cases(rng)[case]
+    with_weights = tuple(x for x in inputs if x.requires_grad)
+    want_out = call(plain)
+    g = torch.as_tensor(rng.normal(size=tuple(want_out.shape)),
+                        dtype=torch.float32)
+    want = torch.autograd.grad(want_out, with_weights, g, allow_unused=True)
+    _plain_card(monkeypatch)
+    counter = "embedding_bag" if case.startswith("embedding") else case
+    before = K.launch_counts()
+    out = call(wrapper)
+    assert out.grad_fn is not None
+    assert K.launch_counts()[counter] == before[counter] + 1
+    torch.testing.assert_close(out, want_out.detach(), rtol=0, atol=0)
+    got = torch.autograd.grad(out, with_weights, g, allow_unused=True)
+    assert K.launch_counts() == dict(before, **{counter: before[counter] + 1})
+    for a, b in zip(got, want):
+        assert a is not None
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_training_kernels_launch_bare_without_autograd(monkeypatch, rng):
+    """Under ``torch.no_grad()`` (serving) the same inputs launch the
+    kernel with no autograd node: the forward path is unchanged."""
+    call, _inputs, wrapper, _plain = _kernel_grad_cases(rng)["din_attention"]
+    _plain_card(monkeypatch)
+    with torch.no_grad():
+        out = call(wrapper)
+    assert out.grad_fn is None and not out.requires_grad
+
+
+@pytest.mark.parametrize("kernel", ["rerank_score", "candidate_scorer",
+                                    "flash_decode"])
+def test_serving_kernels_refuse_to_run_under_autograd(kernel, fake_card,
+                                                      monkeypatch, rng):
+    """B1, B5 and B6 have no backward: on the card's path, with grad mode
+    on and an input that requires grad, they raise a RuntimeError naming
+    the kernel before any launch; under ``torch.no_grad()`` they launch."""
+    calls, _status = fake_card
+    for mod in (rerank_ops, scorer_ops, decode_ops):
+        monkeypatch.setattr(mod, "on_cpu", lambda *t: False)
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32)
+
+    def tower(*dims):
+        return [{"w": t(a, b), "b": t(b)} for a, b in zip(dims[:-1], dims[1:])]
+    D, T, C = 4, 6, 5
+    w1 = t(4 * D, 8).requires_grad_()
+    run = {
+        "rerank_score": lambda: rerank_ops.rerank_score(
+            t(T, D), t(T), t(C, D), t(3), t(C, 2),
+            [{"w": w1, "b": t(8)}] + tower(8, 6, 1), tower(2 * D + 5, 7, 6, 1)),
+        "candidate_scorer": lambda: scorer_ops.candidate_scorer(
+            t(C, 8).requires_grad_(), t(8), k=3),
+        "flash_decode": lambda: decode_ops.flash_decode(
+            t(2, 2, 3, 16).requires_grad_(), t(2, 40, 2, 16), t(2, 40, 2, 16),
+            torch.tensor(30, dtype=torch.int32)),
+    }[kernel]
+    before = K.launch_counts()
+    with pytest.raises(RuntimeError, match=kernel + ".*no backward"):
+        run()
+    assert calls == [] and K.launch_counts() == before
+    with torch.no_grad():
+        run()
+    assert len(calls) == 1 and K.launch_counts()[kernel] == before[kernel] + 1
+
+
+def _meta(*shape, dtype=torch.float32):
+    if len(shape) == 1 and isinstance(shape[0], (tuple, list, torch.Size)):
+        shape = tuple(shape[0])
+    return FakeCuda(torch.empty(shape, dtype=dtype, device="meta"))
+
+
+def test_din_attention_and_augru_take_the_training_batch(fake_card,
+                                                         monkeypatch):
+    """The published recsys training batch, B = 65,536 (T = 100): B2 and
+    B4 hand it to their C entries (their grids no longer put B or B·T
+    tiles on the 65,535-block y extent; the sources below)."""
+    calls, _status = fake_card
+    real_empty = torch.empty
+
+    def empty(*shape, dtype=None, device=None, **kw):
+        if device is not None and torch.device(device).type == "cuda":
+            return _meta(*shape, dtype=dtype)
+        return real_empty(*shape, dtype=dtype, device=device, **kw)
+    monkeypatch.setattr(torch, "empty", empty)
+    B, T, D, H1, H2 = 65536, 100, 18, 80, 40
+    out = din_ops.din_attention(_meta(B, T, D), _meta(B, T), _meta(B, D),
+                                _meta(4 * D, H1), _meta(H1), _meta(H1, H2),
+                                _meta(H2), _meta(H2, 1), _meta(1))
+    assert tuple(out.shape) == (B, D)
+    assert calls[-1][0] == "din_attention_f32"
+    assert calls[-1][1][10:15] == (B, T, D, H1, H2)
+    Din = H = 108
+    out = augru_ops.augru(_meta(B, T, Din), _meta(B, T), _meta(Din, 3 * H),
+                          _meta(H, 3 * H), _meta(3 * H))
+    assert tuple(out.shape) == (B, H)
+    assert calls[-1][0] == "augru_f32" and calls[-1][1][7:11] == (B, T, Din, H)
+
+
+def test_training_path_grids_keep_the_batch_off_the_y_extent():
+    """B2's clusters and B4's projection tiles ride one x extent (up to
+    2^31 - 1 blocks): no ``blockIdx.y`` and no 2-D grid in either source."""
+    for source in ("din_attention.cu", "augru.cu"):
+        text = re.sub(r"//[^\n]*", "", (K.CSRC / source).read_text())
+        assert "blockIdx.y" not in text, source
+        assert not re.search(r"dim3\s*\w*\s*\([^)]*,", text), source
