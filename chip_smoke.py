@@ -63,7 +63,20 @@ Phases, each printing its lines; any failure exits nonzero:
      gradients card vs CPU at phase 4's widths, B=1,024, B4's forward at
      B=65,536 against its plain version, and the backward times of B2, B3
      and B4 at the path's shapes (their plain versions' gradients);
- 10. the kernel table as one JSON line (launches from phase 6, and from
+ 10. SchNet and the single-card cell tooling: (a) SchNet at its published
+     widths (3 interactions, d_hidden 64, n_rbf 300, cutoff 10) on the
+     molecule, full_graph_sm and minibatch_lg shapes (the last drawn by
+     the neighbour sampler over a 232,965-node graph), the loss and every
+     gradient leaf card vs CPU on one seeded weight set, then 5 AdamW
+     steps with ms/step, max_memory_allocated and the idle share; (b)
+     ``launch/dryrun.py::run_cell`` over SchNet's four shapes (ogb_products
+     recorded as not fitting one card, not run), DIN x serve_p99 (B2 and
+     B3 at published widths and vocabularies, first held against their
+     plain versions on the cell's own inputs) and smollm-135m x long_500k
+     (B6 over 24 GB of float32 K/V, its shape held in phase 3), each
+     cell's kernels checked launched, then the roofline table of the
+     records with H100 data-sheet peaks;
+ 11. the kernel table as one JSON line (launches from phase 6, and from
      phase 7 for flash_decode; ``backward_ms`` from phase 9), the card
      line, and the result.
 
@@ -82,11 +95,6 @@ import subprocess
 import sys
 import tempfile
 import time
-
-# Published H100 SXM peaks (NVIDIA data sheet) for the roofline bound:
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12         # bf16 tensor cores, dense
 
 TOL_F32 = 2e-5                    # tests/test_kernels.py, test_rerank_fused.py
 TOL_EDGE = 3e-5                   # tests/test_kernel_edge_parity.py; augru
@@ -231,12 +239,15 @@ def timings(kernel_fn, plain_fn, library_fn=None) -> dict:
                 library_ms=None if library_fn is None else device_ms(library_fn))
 
 
-def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
-    """The least time for the work: bytes over the memory rate, or
-    operations over the peak rate of their type, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(cost, dtype="float32"):
+    """The least time for the work ``cost`` = (flops, bytes), a kernel's
+    ``cost(...)``: bytes over the memory rate, or operations over the peak
+    rate of their type, whichever is larger (the H100 data-sheet peaks of
+    ``repro_torch.launch.roofline``)."""
+    from repro_torch.launch import roofline
+    flops, nbytes = cost
+    t, by = roofline.bound_s(flops, nbytes, roofline.peak_flops(dtype))
+    return t * 1e3, by
 
 
 def verdict(got, want, tol, scale_tol=None):
@@ -283,8 +294,11 @@ def kernel_checks(results: dict):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.din_attention import din_attention, din_attention_ref
+    from repro_torch.kernels.din_attention import ops as din_ops
     from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_ref
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.rerank_score import rerank_score, rerank_score_ref
+    from repro_torch.kernels.rerank_score import ops as rerank_ops
 
     rng = np.random.default_rng(0)
     dev = "cuda"
@@ -329,9 +343,7 @@ def kernel_checks(results: dict):
     err = compare(f"per-bag launch V=2^{MAIN_VOCAB_LOG2} D=18 B={n} K=1",
                   embedding_bag(table, ids), embedding_bag_ref(table, ids),
                   TOL_F32)
-    uniq = int(torch.unique(ids).numel())
-    nbytes = n * 8 + uniq * D * 4 + n * D * 4
-    bms, by = bound_ms(nbytes, 2 * n * D)
+    bms, by = bound_ms(bag_ops.cost([(table, ids, None)]))
     results["embedding_bag@per-bag"] = dict(
         max_abs_err=err, bound_ms=bms, bound_by=by,
         shape=f"V=2^{MAIN_VOCAB_LOG2} D=18 B={n} K=1, one table a launch",
@@ -384,13 +396,7 @@ def kernel_checks(results: dict):
     zero_row[5] = False
     din_case(16, 100, 18, 80, 40, zero_row, TOL_F32,
              "design edge B=16 T=100, row 5's mask all zero")
-    B, T, D, H1, H2 = 16, 100, 18, 80, 40
-    active = int((full_args[1] != 0).sum())
-    nbytes = 4 * (B * T * D + B * T + B * D + 4 * D * H1 + H1 + H1 * H2
-                  + 2 * H2 + 1 + B * D)
-    flops = (B * 2 * D * H1 + active * (4 * D * H1 + D + 2 * H1 * H2
-                                        + 2 * H2 + 2 * D))
-    bms, by = bound_ms(nbytes, flops)
+    bms, by = bound_ms(din_ops.cost(*full_args))
     results["din_attention"] = dict(
         max_abs_err=full_err, bound_ms=bms, bound_by=by,
         shape="B=16 T=100 D=18 H1=80 H2=40",
@@ -451,15 +457,7 @@ def kernel_checks(results: dict):
           f"{float(want64.abs().max()):.3e}; launches (profiler, ms per "
           f"call): {launch_split(lambda: rerank_score(hist, m, tgt, uo, io, attn, mlp))}",
           flush=True)
-    C, T, D, d_u, d_i, (H1, H2, M1, M2) = 64, 100, 18, 36, 18, full
-    K1 = 2 * D + d_u + d_i
-    active = int((m != 0).sum())
-    nbytes = 4 * (T * D + T + C * D + d_u + C * d_i + sum(x.numel() for x in flat)
-                  + C)
-    flops = (2 * T * D * H1 + C * 2 * D * H1
-             + C * active * (2 * D * H1 + D + 2 * H1 * H2 + 2 * H2 + 2 * D)
-             + C * 2 * (K1 * M1 + M1 * M2 + M2))
-    bms, by = bound_ms(nbytes, flops)
+    bms, by = bound_ms(rerank_ops.cost(hist, m, tgt, uo, io, *flat))
     results["rerank_score"] = dict(
         max_abs_err=err, bound_ms=bms, bound_by=by,
         shape="C=64 T=100 D=18 d_u=36 d_i=18 attn 80-40 mlp 200-80",
@@ -515,6 +513,7 @@ def embedding_bag_group_checks(results: dict, rng, t):
     import torch.nn.functional as F
     from repro_torch import kernels as K
     from repro_torch.data.synthetic import zipf_ids
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_group,
                                                    embedding_bag_group_ref)
@@ -629,14 +628,7 @@ def embedding_bag_group_checks(results: dict, rng, t):
                        ("re-rank C=64 T=100", "embedding_bag@rerank"),
                        ("two-tower user call D=256", "embedding_bag@towers")):
         look, blocks, err = path[label]
-        nbytes, flops = 0, 0
-        for table_, i, w, _comb in look:
-            B, Kb = i.shape
-            D = table_.shape[1]
-            nbytes += (i.numel() * 8 + (0 if w is None else w.numel() * 4)
-                       + int(torch.unique(i).numel()) * D * 4 + B * D * 4)
-            flops += 2 * i.numel() * D
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(bag_ops.cost(look))
 
         def per_field():
             outs = [embedding_bag(*g) for g in look]
@@ -676,6 +668,7 @@ def augru_checks(results: dict, rng, t):
     import numpy as np
     import torch
     from repro_torch.kernels.augru import augru, augru_ref
+    from repro_torch.kernels.augru import ops as augru_ops
 
     print("[3] augru vs plain", flush=True)
 
@@ -722,9 +715,7 @@ def augru_checks(results: dict, rng, t):
               f"vs f64 plain {float((plain - want64).abs().max()):.3e}, max "
               f"|h| {float(want64.abs().max()):.3e}; launches (profiler, ms "
               f"per call): {launch_split(lambda: augru(*args))}", flush=True)
-        nbytes = 4 * (B * T * H + B * T + 2 * H * 3 * H + 3 * H + B * H)
-        flops = 2 * B * T * H * 3 * H + B * T * (2 * H * 3 * H + 12 * H)
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(augru_ops.cost(*args))
         r = dict(max_abs_err=err, bound_ms=bms, bound_by=by,
                  shape=f"B={B} T=100 Din=H=108",
                  **timings(lambda: augru(*args), lambda: augru_ref(*args)))
@@ -745,6 +736,7 @@ def candidate_scorer_checks(results: dict, rng, t):
     import torch
     from repro_torch.kernels.candidate_scorer import (candidate_scorer,
                                                       candidate_scorer_ref)
+    from repro_torch.kernels.candidate_scorer import ops as scorer_ops
 
     print("[3] candidate_scorer vs plain", flush=True)
 
@@ -861,8 +853,7 @@ def candidate_scorer_checks(results: dict, rng, t):
         c, qq, err = case(unit(rng.normal(size=(C, D))),
                           unit(rng.normal(size=(D,))), k,
                           f"{where} C={C} D={D} k={k}")
-        nbytes = 4 * (C * D + D) + 12 * k
-        bms, by = bound_ms(nbytes, 2 * C * D)
+        bms, by = bound_ms(scorer_ops.cost(c, qq, k))
         results[key] = dict(
             max_abs_err=err, bound_ms=bms, bound_by=by,
             shape=f"C={C} D={D} k={k}",
@@ -879,7 +870,8 @@ def flash_decode_checks(results: dict, rng, t):
     service's (smollm-135m: B=4, S=64, H=3, G=3, D=64, f32, L=9 and 40),
     decode_32k at smollm's geometry (B=128, S=32768, L=32763, f32),
     long_500k at qwen3-8b's (B=1, S=524288, H=8, G=4, D=128, bf16,
-    L=524283) and starcoder2-7b's (B=8, S=4096, H=4, G=9, D=128, bf16,
+    L=524283) and at smollm's (B=1, S=524288, L=524288, f32: phase
+    10b's cell), starcoder2-7b's (B=8, S=4096, H=4, G=9, D=128, bf16,
     L=4001); beside them G=9 in f32, a bf16 serve-like shape at qwen3-8b's
     geometry, every bf16 head dim, and lengths at the plan's split
     boundaries. The library call is ``scaled_dot_product_attention`` on
@@ -887,6 +879,7 @@ def flash_decode_checks(results: dict, rng, t):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    from repro_torch.kernels.flash_decode import ops as decode_ops
     from repro_torch.kernels.flash_decode.ops import device_slots, split_plan
 
     print("[3] flash_decode vs plain", flush=True)
@@ -948,6 +941,11 @@ def flash_decode_checks(results: dict, rng, t):
               128, 32768, 3, 3, 64, 32763, f32),
              ("flash_decode@long_500k", "long_500k, qwen3-8b geometry", 1,
               524288, 8, 4, 128, 524283, bf16),
+             # [10b]'s smollm-135m x long_500k cell: the step writes row
+             # S - 1, then reads all S rows
+             ("flash_decode@long_500k_smollm",
+              "long_500k, smollm-135m geometry ([10b]'s cell)", 1, 524288, 3,
+              3, 64, 524288, f32),
              ("flash_decode@starcoder2", "starcoder2-7b geometry", 8, 4096, 4,
               9, 128, 4001, bf16)]
     for key, where, B, S, H, G, D, L, dtype in paths:
@@ -975,11 +973,7 @@ def flash_decode_checks(results: dict, rng, t):
                         .abs().max())
         print(f"  {shape}: library call vs plain max_abs_err={lib_err:.3e}",
               flush=True)
-        item = k.element_size()
-        nbytes = 2 * B * L * H * D * item + 2 * B * H * G * D * item
-        bms, by = bound_ms(nbytes, 4 * B * H * G * L * D,
-                           BF16_FLOPS_PER_S if dtype == bf16
-                           else FP32_FLOPS_PER_S)
+        bms, by = bound_ms(decode_ops.cost(q, k, v, L), str(dtype)[6:])
         results[key] = dict(
             max_abs_err=err, bound_ms=bms, bound_by=by, shape=shape,
             **timings(lambda: flash_decode(q, k, v, length),
@@ -2191,6 +2185,217 @@ def _backward_ms(name, fn, args, wrt, shape):
     return ms
 
 
+# ----------------------------------------------------------------- phase 10
+
+SCHNET_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg")
+SCHNET_STEPS = 5                           # AdamW steps per shape in (a)
+#: the cell sweep of (b): (arch, shape, expected to fit one card), with
+#: the kernels each cell's path must launch
+SWEEP = (("schnet", "molecule", True, ()),
+         ("schnet", "full_graph_sm", True, ()),
+         ("schnet", "minibatch_lg", True, ()),
+         ("schnet", "ogb_products", False, ()),
+         ("din", "serve_p99", True, ("embedding_bag", "din_attention")),
+         ("smollm-135m", "long_500k", True, ("flash_decode",)))
+_T10 = []
+
+
+def say10(msg: str):
+    """A line of phase 10, with the seconds since the phase began."""
+    if not _T10:
+        _T10.append(time.perf_counter())
+    print(f"{msg} [{time.perf_counter() - _T10[0]:.1f} s into [10]]",
+          flush=True)
+
+
+def gnn_run():
+    """Phase 10 (a): SchNet at its published widths on molecule,
+    full_graph_sm and minibatch_lg (the sampler over a 232,965-node CSR
+    graph): one seeded reference-layout weight set and input on the card
+    and on the CPU, the loss and every gradient leaf card vs CPU, then
+    SCHNET_STEPS AdamW steps of the cell's train step on the card."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import schnet
+    from repro_torch.tree import tree_map
+    from repro_torch.train.train_step import value_and_grad
+
+    cfg = registry.get("schnet").config
+    for shape in SCHNET_SHAPES:
+        cell = specs.build_cell("schnet", shape, device="cuda")
+        t0 = time.perf_counter()
+        params, opt_state, batch = cell.materialize(
+            "cuda", torch.Generator(device="cuda").manual_seed(10))
+        torch.cuda.synchronize()
+        inputs = batch["inputs"]
+        N = next(v for k, v in inputs.items()
+                 if k in ("atom_z", "node_feat")).shape[0]
+        E = inputs["edges"].shape[0]
+        n_graphs = batch["targets"].shape[0]
+        say10(f"[10a] schnet x {shape}: N={N} E={E} (sentinel edges "
+              f"{int((inputs['edges'][:, 0] == N).sum())}), {n_graphs} "
+              f"graph(s), inputs drawn in {time.perf_counter() - t0:.2f} s")
+
+        def loss_fn(p, b):
+            return schnet.loss_fn(p, b["inputs"], b["targets"], cfg,
+                                  n_graphs=n_graphs)
+        K.reset_launches()
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        check(all(v == 0 for v in K.launch_counts().values()),
+              "SchNet launched a hand-written kernel (its path has none)")
+        t1 = time.perf_counter()
+        cpu = tree_map(lambda t: t.cpu(), (params, batch))
+        loss_h, grads_h = value_and_grad(loss_fn, *cpu)
+        cpu_s = time.perf_counter() - t1
+        worst = compare_tree(f"[10a] {shape} card vs CPU",
+                             {"loss": loss, "grads": grads},
+                             {"loss": loss_h, "grads": grads_h}, TOL_MODEL)
+        say10(f"[10a] {shape}: loss {float(loss)} (CPU {float(loss_h)}), "
+              f"largest diff over the loss and every gradient leaf "
+              f"{worst:.3e}; the CPU's value_and_grad {cpu_s:.2f} s")
+        del cpu, grads_h, grads
+
+        state, losses = [params, opt_state], []
+
+        def step():
+            state[0], state[1], l = cell.fn(state[0], state[1], batch)
+            losses.append(l)
+        torch.cuda.reset_peak_memory_stats()
+        # one warm-up step, then SCHNET_STEPS - 1 between CUDA events
+        ms = _event_time(step, SCHNET_STEPS - 1)
+        prof = dryrun.profile_step(step, torch.device("cuda"))
+        losses = [float(x) for x in losses]
+        check(all(math.isfinite(x) for x in losses), f"{shape}: non-finite loss")
+        say10(f"[10a] {shape}: {SCHNET_STEPS} AdamW steps, {ms} ms/step "
+              f"(CUDA events, steps 2..{SCHNET_STEPS}), losses {losses} "
+              f"(the last the profiled step's); "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30} GiB; one step "
+              f"under torch.profiler: wall {prof['wall_s']} s, device busy "
+              f"{prof['device_busy_s']} s in {prof['device_events']} device "
+              f"events, idle share {prof['idle_share']}; largest: "
+              + "; ".join(f"{n} x{c} {t} s" for n, c, t in prof["top"][:4]))
+        check(prof["device_busy_s"] > 0, f"{shape}: the profiler saw no "
+              f"device time")
+        del state, params, opt_state, batch, inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def din_cell_kernel_checks():
+    """Phase 10 (b), before ``din x serve_p99`` runs: the cell's two
+    kernels against their plain versions (TOL_F32) on the cell's own
+    inputs, drawn as ``run_cell`` draws them (seed 0): the grouped
+    embedding_bag over ``din.logits_fn``'s lookups (B=512, T=100, the
+    published 2^26-row item_id and user_id tables), then din_attention
+    (B=512, T=100, D=18, attention MLP 80-40) on the history and target
+    those lookups give."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import registry
+    from repro_torch.kernels.din_attention import (din_attention,
+                                                   din_attention_ref)
+    from repro_torch.kernels.embedding_bag import (embedding_bag_group,
+                                                   embedding_bag_group_ref)
+    from repro_torch.launch import specs
+    from repro_torch.models.recsys.common import (field_lookups, hist_lookup,
+                                                  masked_hist)
+
+    cfg = registry.get("din").config
+    D = cfg.embed_dim
+    cell = specs.build_cell("din", "serve_p99", device="cuda")
+    params, batch = cell.materialize(
+        "cuda", torch.Generator(device="cuda").manual_seed(0))
+    tables = params["tables"]
+    item_side = tuple(f for f in cfg.item_fields if f.name != "item_id")
+    hist_ids = batch["user"]["hist"]
+    look = [hist_lookup(tables, hist_ids),
+            (tables["item_id"], batch["item"]["item_id"], None, "sum"),
+            *field_lookups(tables, cfg.user_fields, batch["user"]["fields"]),
+            *field_lookups(tables, item_side, batch["item"])]
+    groups = [(table, ids if ids.dim() == 2 else ids[:, None], w, comb)
+              for table, ids, w, comb in look]
+    blocks = (1, 1 + len(cfg.user_fields) + len(item_side))
+    B, T = hist_ids.shape
+    say10(f"[10b] din x serve_p99: its kernels vs plain on the cell's "
+          f"inputs (B={B}, T={T}, tables "
+          + ", ".join(f"{f.name} {f.vocab}" for f in cfg.user_fields
+                      + cfg.item_fields) + ")")
+    before = K.launch_counts()["embedding_bag"]
+    got = embedding_bag_group(groups, blocks)
+    check(K.launch_counts()["embedding_bag"] == before + 1,
+          "din x serve_p99: the grouped lookup is not one launch")
+    want = embedding_bag_group_ref(groups, blocks)
+    for j, (g, w) in enumerate(zip(got, want)):
+        compare(f"[10b] din x serve_p99 embedding_bag_group block {j} "
+                f"{tuple(g.shape)}", g, w, TOL_F32)
+    hist, mask = masked_hist(want[0], hist_ids, D)
+    target = want[1][:, :D].contiguous()
+    flat = [p[k] for p in params["attn_mlp"] for k in ("w", "b")]
+    args = (hist.contiguous(), mask.contiguous(), target, *flat)
+    compare(f"[10b] din x serve_p99 din_attention B={B} T={T} D={D}",
+            din_attention(*args), din_attention_ref(*args), TOL_F32)
+    del params, batch, tables, look, groups, got, want, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def cell_sweep() -> dict:
+    """Phase 10 (b): ``launch/dryrun.py::run_cell`` over SWEEP on the card,
+    the launch counts set to 0 before each cell and read after it, then
+    the roofline table of the records (H100 data-sheet peaks). The
+    kernels of ``din x serve_p99`` are first held against their plain
+    versions on that cell's inputs (``din_cell_kernel_checks``);
+    flash_decode at ``smollm-135m x long_500k``'s shape is held in phase
+    3. Returns the launches of the hand-written kernels over the sweep."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.launch import dryrun, roofline
+
+    rows, launches = [], {}
+    for arch, shape, fits, kernels in SWEEP:
+        if (arch, shape) == ("din", "serve_p99"):
+            din_cell_kernel_checks()
+        K.reset_launches()
+        rec = dryrun.run_cell(arch, shape, device="cuda")
+        counts = K.launch_counts()
+        mem = rec.get("memory", {})
+        say10(f"[10b] {arch} x {shape}: ok {rec['ok']}, fits_h100 "
+              f"{mem.get('fits_h100')} (estimate {mem.get('estimate_bytes')} "
+              f"bytes against {mem.get('device_bytes')}), step_ms "
+              f"{rec.get('step_ms')}, launches per step "
+              f"{rec.get('launches_per_step')}, max_memory_allocated "
+              f"{mem.get('max_allocated_bytes')} bytes, counted flops "
+              f"{rec.get('ops', {}).get('flops_per_device')} bytes "
+              f"{rec.get('ops', {}).get('bytes_per_device')}, kernels "
+              f"{rec.get('ops', {}).get('kernels')}, idle share "
+              f"{rec.get('profile', {}).get('idle_share')}; "
+              f"{rec.get('error', '')}")
+        check(mem.get("fits_h100") is fits,
+              f"{arch} x {shape}: fits_h100 {mem.get('fits_h100')}, "
+              f"expected {fits}")
+        check(rec["ok"] is fits, f"{arch} x {shape}: ok {rec['ok']}: "
+              f"{rec.get('error')}\n{rec.get('traceback', '')}")
+        for name in kernels:
+            check(counts[name] > 0, f"{arch} x {shape}: {name} never launched")
+        if rec["ok"]:
+            check(rec["profile"]["device_busy_s"] > 0,
+                  f"{arch} x {shape}: the profiler saw no device time")
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        rows.append(roofline.analyze_row(rec))
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[10b] roofline on one card (H100 data-sheet peaks: HBM "
+          f"{roofline.HBM_BYTES_PER_S:g} B/s, fp32 "
+          f"{roofline.FP32_FLOPS_PER_S:g} FLOP/s, bf16 "
+          f"{roofline.BF16_FLOPS_PER_S:g} FLOP/s):", flush=True)
+    print(roofline.markdown_table(rows), flush=True)
+    return launches
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2256,6 +2461,10 @@ def main() -> int:
         lm_train_run()
         backward = rec_train_run()
         print(f"[9] done at {time.perf_counter() - t_run:.1f} s", flush=True)
+        gnn_run()
+        sweep = cell_sweep()
+        print(f"[10] done at {time.perf_counter() - t_run:.1f} s; kernel "
+              f"launches over the cell sweep {sweep}", flush=True)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)

@@ -19,6 +19,10 @@ Dispatch is by tensor device only (:func:`on_cpu`):
 
 Every wrapper counts its launches in :data:`LAUNCHES` (one per launch,
 nowhere else), so a run can show that its path went through the kernels.
+A ctypes launch is invisible to PyTorch's dispatcher, so each wrapper
+also hands :func:`launch` its kernel's ``cost(...)`` (flops and bytes from
+the shapes, the formulas of the roofline bound): while an op counter
+(``launch/op_analysis.py``) is active, that cost is added to it.
 
 Gradients: no kernel has a backward kernel (the reference differentiates
 its plain math). The kernels on the training path (embedding_bag,
@@ -72,6 +76,11 @@ SIGNATURES = {
 LAUNCHES = {"embedding_bag": 0, "din_attention": 0, "rerank_score": 0,
             "augru": 0, "candidate_scorer": 0, "flash_decode": 0}
 _launch_lock = threading.Lock()
+#: the op counters (``launch/op_analysis.py``) active on each thread, each
+#: with an ``add_kernel(name, cost)`` method: a counter is a dispatch mode,
+#: which sees only its own thread's ops, so it takes only that thread's
+#: launches
+_cost_sinks = threading.local()
 _lib = None
 _lib_lock = threading.Lock()
 _checked_devices: set = set()
@@ -93,6 +102,20 @@ def reset_launches():
 def launch_counts() -> dict:
     with _launch_lock:
         return dict(LAUNCHES)
+
+
+def _thread_sinks() -> list:
+    if not hasattr(_cost_sinks, "sinks"):
+        _cost_sinks.sinks = []
+    return _cost_sinks.sinks
+
+
+def add_cost_sink(sink):
+    _thread_sinks().append(sink)
+
+
+def remove_cost_sink(sink):
+    _thread_sinks().remove(sink)
 
 
 # ----------------------------------------------------------------- dispatch
@@ -256,9 +279,11 @@ def kernel(name: str, device: torch.device):
     return getattr(library(), name)
 
 
-def launch(name: str, counter: str, device: torch.device, *args):
+def launch(name: str, counter: str, device: torch.device, *args, cost):
     """Launch C entry point ``name`` on ``device``'s current stream, raise
-    on a launch error, and count the launch under ``counter``."""
+    on a launch error, and count the launch under ``counter``. ``cost``
+    (a callable returning the launch's (flops, bytes)) is called only
+    while an op counter is active, and its result added to each."""
     fn = kernel(name, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -266,3 +291,5 @@ def launch(name: str, counter: str, device: torch.device, *args):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     count_launch(counter)
+    for sink in list(_thread_sinks()):
+        sink.add_kernel(counter, cost)

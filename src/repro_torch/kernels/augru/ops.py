@@ -46,5 +46,17 @@ def _launch(x, att, w, u, b):
                      device=x.device)
     launch("augru_f32", "augru", x.device,
            x.data_ptr(), att.data_ptr(), w.data_ptr(), u.data_ptr(),
-           b.data_ptr(), gx.data_ptr(), out.data_ptr(), B, T, Din, H)
+           b.data_ptr(), gx.data_ptr(), out.data_ptr(), B, T, Din, H,
+           cost=lambda: cost(x, att, w, u, b))
     return out
+
+
+def cost(x, att, w, u, b) -> tuple[int, int]:
+    """(flops, bytes) of one call, the work its roofline bound counts: the
+    input projection x @ W of every step, then each step's h @ U and its
+    gates (12 H); bytes: each input read once, the (B, H) final state
+    written once (the projection's scratch is the kernel's choice)."""
+    (B, T, Din), H = x.shape, u.shape[0]
+    flops = 2 * B * T * Din * 3 * H + B * T * (2 * H * 3 * H + 12 * H)
+    nbytes = sum(t.numel() * t.element_size() for t in (x, att, w, u, b))
+    return flops, nbytes + B * H * 4

@@ -53,10 +53,21 @@ def candidate_scorer(cands, query, k: int = 8):
               and query.data_ptr() % 16 == 0)
     launch(_ENTRY[cands.dtype], "candidate_scorer", cands.device,
            cands.data_ptr(), query.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-           C, D, k, vec, None if ranks is None else ranks.data_ptr())
+           C, D, k, vec, None if ranks is None else ranks.data_ptr(),
+           cost=lambda: cost(cands, query, k))
     if blocks == 1:                   # one block: already the sorted top-k
         return vals, idx
     return merge_blocks(ranks, vals, idx, k)
+
+
+def cost(cands, query, k: int) -> tuple[int, int]:
+    """(flops, bytes) of one call, the work its roofline bound counts: the
+    C dot products; bytes: the candidates and the query read once, the k
+    float32 values and int64 indices written once."""
+    C, D = cands.shape
+    nbytes = (cands.numel() * cands.element_size()
+              + query.numel() * query.element_size())
+    return 2 * C * D, nbytes + 12 * k
 
 
 def merge_blocks(ranks, vals, idx, k: int):

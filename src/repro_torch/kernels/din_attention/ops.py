@@ -44,5 +44,22 @@ def _launch(hist, mask, target, w1, b1, w2, b2, w3, b3):
     if B == 0 or D == 0:
         return out
     launch("din_attention_f32", "din_attention", hist.device,
-           *(t.data_ptr() for t in args), out.data_ptr(), B, T, D, H1, H2)
+           *(t.data_ptr() for t in args), out.data_ptr(), B, T, D, H1, H2,
+           cost=lambda: cost(*args))
     return out
+
+
+def cost(hist, mask, target, w1, b1, w2, b2, w3, b3) -> tuple[int, int]:
+    """(flops, bytes) of one call, the work its roofline bound counts:
+    the first layer's target half once per row (the decomposed layer),
+    the rest of the unit and the pooling for each unmasked step (the
+    mask's non-zeros, read on the host); bytes: each input read once, the
+    (B, D) output written once."""
+    B, T, D = hist.shape
+    H1, H2 = w1.shape[1], w2.shape[1]
+    active = int((mask != 0).sum())
+    flops = (B * 2 * D * H1 + active * (4 * D * H1 + D + 2 * H1 * H2
+                                        + 2 * H2 + 2 * D))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (hist, mask, target, w1, b1, w2, b2, w3, b3))
+    return flops, nbytes + B * D * hist.element_size()

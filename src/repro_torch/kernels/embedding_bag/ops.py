@@ -46,8 +46,27 @@ def _launch(table, ids, weights, combiner):
     launch(_ENTRY[table.dtype], "embedding_bag", table.device,
            table.data_ptr(), ids.data_ptr(),
            None if weights is None else weights.data_ptr(), out.data_ptr(),
-           V, D, B, K, int(combiner == "mean"))
+           V, D, B, K, int(combiner == "mean"),
+           cost=lambda: cost([(table, ids, weights)]))
     return out
+
+
+def cost(lookups) -> tuple[int, int]:
+    """(flops, bytes) of one launch over ``lookups``, (table, ids,
+    weights, ...) per group, the work its roofline bound counts: a
+    multiply-add per looked-up element; bytes: the ids and weights read
+    once, each distinct row once (the ids' unique count, read on the
+    host), each bag's output row written once."""
+    flops = nbytes = 0
+    for table, ids, weights, *_ in lookups:
+        B, D = ids.shape[0], table.shape[1]
+        row = D * table.element_size()
+        nbytes += (ids.numel() * ids.element_size()
+                   + (0 if weights is None
+                      else weights.numel() * weights.element_size())
+                   + int(torch.unique(ids).numel()) * row + B * row)
+        flops += 2 * ids.numel() * D
+    return flops, nbytes
 
 
 def _checked(table, ids, weights):
@@ -165,5 +184,5 @@ def _launch_group(lookups, places, size):
     desc.n, desc.D, desc.total = len(groups), D, bag0
     if bag0 and D:
         launch(_GROUP_ENTRY[dtype], "embedding_bag", device,
-               ctypes.addressof(desc))
+               ctypes.addressof(desc), cost=lambda: cost(groups))
     return buf

@@ -136,5 +136,17 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
            cache_len.data_ptr(), None if work is None else work.data_ptr(),
            out.data_ptr(), B, H, G, D, S, chunk, n_split,
-           float(scale if scale is not None else 1.0 / np.sqrt(D)))
+           float(scale if scale is not None else 1.0 / np.sqrt(D)),
+           cost=lambda: cost(q, k_cache, v_cache, int(cache_len)))
     return out
+
+
+def cost(q, k_cache, v_cache, L: int) -> tuple[int, int]:
+    """(flops, bytes) of one call over a valid prefix of L rows, the work
+    its roofline bound counts: q·K and p·V over the prefix (4·B·H·G·L·D);
+    bytes: the prefix of K and V and q read once, the output written
+    once (the split partials are the kernel's choice)."""
+    B, H, G, D = q.shape
+    item = k_cache.element_size()
+    return (4 * B * H * G * L * D,
+            2 * B * L * H * D * item + 2 * B * H * G * D * q.element_size())

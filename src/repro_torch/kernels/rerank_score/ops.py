@@ -60,5 +60,28 @@ def rerank_score(hist, mask, target, user_other, item_other,
         return out
     launch("rerank_score_f32", "rerank_score", hist.device,
            *(t.data_ptr() for t in args), out.data_ptr(),
-           T, D, C, d_u, d_i, H1, H2, M1, M2)
+           T, D, C, d_u, d_i, H1, H2, M1, M2, cost=lambda: cost(*args))
     return out
+
+
+def cost(hist, mask, target, user_other, item_other, *weights
+         ) -> tuple[int, int]:
+    """(flops, bytes) of one call with the towers' weights flat
+    (w1, b1, ..., w6, b6), the work its roofline bound counts: the
+    history's half of the first attention layer once, the target's half
+    per candidate, the rest of the unit and the pooling for each
+    candidate × unmasked step (the mask's non-zeros, read on the host),
+    the score MLP per candidate; bytes: each input read once, the (C,)
+    scores written once."""
+    T, D = hist.shape
+    C, d_u, d_i = target.shape[0], user_other.shape[0], item_other.shape[1]
+    H1, H2 = weights[0].shape[1], weights[2].shape[1]
+    M1, M2 = weights[6].shape[1], weights[8].shape[1]
+    K1 = 2 * D + d_u + d_i
+    active = int((mask != 0).sum())
+    flops = (2 * T * D * H1 + C * 2 * D * H1
+             + C * active * (2 * D * H1 + D + 2 * H1 * H2 + 2 * H2 + 2 * D)
+             + C * 2 * (K1 * M1 + M1 * M2 + M2))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (hist, mask, target, user_other, item_other, *weights))
+    return flops, nbytes + C * 4

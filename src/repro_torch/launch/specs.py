@@ -1,0 +1,397 @@
+"""Cell builder: (arch × shape) → step fn + abstract inputs + analytic
+MODEL_FLOPS, on one device. The cell run (``launch/dryrun.py``), the op
+counter and the roofline consume Cells.
+
+The single-device counterpart of the reference's ``launch/specs.py``:
+there is no mesh, so there are no PartitionSpecs and every ``n_dev`` is 1
+(sharded cells wait for ROADMAP A8). Abstract arguments are tensors on
+torch's ``meta`` device (nothing is allocated); :meth:`Cell.materialize`
+draws real ones on a device: parameters from the port's ``init``s with an
+explicit generator, token ids, recsys ids by the port's copy of
+``data/synthetic.py``, graphs by ``synthetic.molecule_batch`` /
+``random_graph`` or ``sampler.sample_fanout``. The ``meta`` dict carries
+the reference's keys and formulas.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import default_device
+from repro_torch import tree as tree_lib
+from repro_torch.configs import registry
+from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig, ShapeSpec
+from repro_torch.data import sampler, synthetic
+from repro_torch.models import schnet, transformer
+from repro_torch.models.recsys import dien, din, mind, towers
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.train_step import build_train_step
+
+REC_MODULES = {"two_tower": towers, "mind": mind, "din": din, "dien": dien}
+META = torch.device("meta")
+#: the reference pads graph edge lists to a multiple of this (its
+#: multi-pod mesh size); sentinel edges (src = dst = N) fill the tail
+EDGE_PAD = 512
+
+
+@dataclass
+class Cell:
+    arch_id: str
+    shape_name: str
+    fn: Callable                    # positional args match .args
+    args: tuple                     # trees of tensors on the meta device
+    draw: Callable                  # (device, generator, rng) → real args
+    carry: int = 0                  # leading outputs fed back as leading args
+    meta: dict = field(default_factory=dict)
+    device: Any = None              # where materialize() draws by default
+
+    def materialize(self, device=None, generator: Optional[torch.Generator]
+                    = None) -> tuple:
+        """Real arguments on ``device`` (the cell's, else ``cuda``):
+        parameters drawn from ``generator`` (a generator on that device;
+        seed 0 if None), ids and graphs from a numpy generator seeded by
+        its initial seed."""
+        dev = default_device(device if device is not None else self.device)
+        g = generator if generator is not None else \
+            torch.Generator(device=dev).manual_seed(0)
+        return self.draw(dev, g, np.random.default_rng(g.initial_seed()))
+
+    def next_args(self, args: tuple, out) -> tuple:
+        """The arguments of the next call after ``fn(*args)`` gave ``out``:
+        a train step's new params and optimizer state replace the old."""
+        return tuple(out[:self.carry]) + tuple(args[self.carry:])
+
+    def arg_bytes(self) -> int:
+        return int(sum(t.numel() * t.element_size()
+                       for t in tree_lib.leaves(self.args)
+                       if isinstance(t, torch.Tensor)))
+
+
+def n_params(params) -> int:
+    return int(sum(t.numel() for t in tree_lib.leaves(params)))
+
+
+def _tensors(tree, dev):
+    """numpy leaves → tensors on ``dev``: floats as they are, ids as int64
+    (the port's index type)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, dev) for k, v in tree.items()}
+    t = torch.as_tensor(np.asarray(tree))
+    return (t if t.is_floating_point() else t.long()).to(dev)
+
+
+def _ids(*shape):
+    return torch.empty(shape, dtype=torch.int64, device=META)
+
+
+def _f32(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=META)
+
+
+# ------------------------------------------------------------------ LM
+
+def _lm_micro(cfg: LMConfig, batch: int) -> int:
+    """Grad-accum microbatches: hold ~1-4 sequences per data shard (one
+    shard here)."""
+    per_shard = {"deepseek-v3-671b": 1, "qwen3-8b": 2, "starcoder2-7b": 2,
+                 "deepseek-v2-lite-16b": 4, "smollm-135m": 2}.get(cfg.name, 2)
+    n = max(1, batch // per_shard)
+    while batch % n:
+        n -= 1
+    return max(1, n)
+
+
+def lm_model_flops(cfg: LMConfig, shape: ShapeSpec) -> float:
+    n_active = cfg.active_param_count()
+    d = shape.dims
+    if shape.kind == "train":
+        return 6.0 * n_active * d["seq_len"] * d["global_batch"]
+    if shape.kind == "prefill":
+        return 2.0 * n_active * d["seq_len"] * d["global_batch"]
+    return 2.0 * n_active * d["global_batch"]       # decode: 1 token/seq
+
+
+def lm_model_bytes(cfg: LMConfig, shape: ShapeSpec, n_dev: int = 1) -> float:
+    """Analytic minimum HBM traffic per device per step (roofline floor):
+    weights read once + KV cache read (decode) / activations (train)."""
+    d = shape.dims
+    B, S = d["global_batch"], d["seq_len"]
+    bpp = 2 if cfg.param_dtype == "bfloat16" else 4
+    w = cfg.active_param_count() * bpp
+    if cfg.mla:
+        per_tok = (cfg.mla.kv_lora + cfg.mla.d_rope) * bpp * cfg.n_layers
+    else:
+        per_tok = 2 * cfg.n_kv * cfg.d_head * bpp * cfg.n_layers
+    if shape.kind in ("decode", "decode_long"):
+        return (w + B * S * per_tok) / n_dev
+    if shape.kind == "prefill":
+        return (w + 3 * B * S * cfg.d_model * bpp * cfg.n_layers) / n_dev
+    # train: params+grads+opt traffic (~3 weight passes) + layer activations
+    return (3 * w * 3 + 4 * B * S * cfg.d_model * bpp * cfg.n_layers) / n_dev
+
+
+def build_lm_cell(arch, shape: ShapeSpec, device=None) -> Cell:
+    cfg: LMConfig = arch.config
+    dims = shape.dims
+    B, S = dims["global_batch"], dims["seq_len"]
+    params = transformer.init(torch.Generator(), cfg, device=META)
+    meta = {"model_flops": lm_model_flops(cfg, shape),
+            "model_bytes_per_device": lm_model_bytes(cfg, shape),
+            "param_dtype": cfg.param_dtype,
+            "params": cfg.param_count(), "active_params": cfg.active_param_count()}
+
+    def draw_params(dev, g):
+        return transformer.init(g, cfg, device=dev)
+
+    def draw_tokens(rng, dev, seq):
+        return _tensors(synthetic.lm_batch(rng, cfg, B, seq)["tokens"], dev)
+
+    if shape.kind == "train":
+        n_micro = _lm_micro(cfg, B)
+        step, opt_init = build_train_step(
+            lambda p, toks: transformer.lm_loss(p, toks, cfg),
+            opt_lib.for_family("lm", cfg.param_count()), n_micro=n_micro)
+        meta["n_micro"] = n_micro
+
+        def draw(dev, g, rng):
+            p = draw_params(dev, g)
+            return p, opt_init(p), draw_tokens(rng, dev, S)
+        return Cell(arch.arch_id, shape.name, step,
+                    (params, opt_init(params), _ids(B, S)), draw, carry=2,
+                    meta=meta, device=device)
+
+    if shape.kind == "prefill":
+        def draw(dev, g, rng):
+            return draw_params(dev, g), draw_tokens(rng, dev, S)
+        return Cell(arch.arch_id, shape.name,
+                    lambda p, toks: transformer.prefill(p, toks, cfg, smax=S),
+                    (params, _ids(B, S)), draw, meta=meta, device=device)
+
+    # decode / decode_long: one new token against a seq_len KV cache whose
+    # valid prefix is S - 1, so the step reads (and writes) all S rows;
+    # the step's cache is not fed back (the next call repeats the step)
+    def decode_fn(p, c, toks):
+        return transformer.decode_step(p, c, toks, cfg)
+
+    def draw(dev, g, rng):
+        cache = transformer.KVCache.zeros(cfg, B, S, device=dev)
+        for t in (cache.a, cache.b):
+            t.normal_(generator=g)
+        cache.length.fill_(S - 1)
+        return draw_params(dev, g), cache, draw_tokens(rng, dev, 1)
+    return Cell(arch.arch_id, shape.name, decode_fn,
+                (params, transformer.KVCache.zeros(cfg, B, S, device=META),
+                 _ids(B, 1)), draw, meta=meta, device=device)
+
+
+# ------------------------------------------------------------------ GNN
+
+def gnn_model_flops(cfg: GNNConfig, n_nodes: int, n_edges: int, d_in: int,
+                    train: bool = True) -> float:
+    h, r = cfg.d_hidden, cfg.n_rbf
+    per_edge = 2 * (r * h + h * h) + 2 * h
+    per_node = 2 * (2 * h * h)
+    fwd = cfg.n_interactions * (n_edges * per_edge + n_nodes * per_node) \
+        + 2 * n_nodes * d_in * h
+    return (3.0 if train else 1.0) * fwd
+
+
+def _pad_edges(edges: np.ndarray, dist: np.ndarray, n_nodes: int, E: int):
+    """Edge list and distances padded to E rows with sentinel edges."""
+    pad = E - len(edges)
+    edges = np.concatenate([edges, np.full((pad, 2), n_nodes)]).astype(np.int32)
+    dist = np.concatenate([dist, np.zeros(pad)]).astype(np.float32)
+    return edges, dist
+
+
+def build_gnn_cell(arch, shape: ShapeSpec, device=None) -> Cell:
+    cfg: GNNConfig = arch.config
+    d = shape.dims
+    if shape.kind == "graph_batched":
+        N = d["batch"] * d["n_nodes"]
+        E = d["batch"] * d["n_edges"]
+        n_graphs = d["batch"]
+        inputs = {"atom_z": _ids(N), "positions": _f32(N, 3),
+                  "edges": _ids(E, 2), "edge_dist": _f32(E),
+                  "graph_ids": _ids(N)}
+        targets = _f32(d["batch"])
+        d_feat_in, d_in = None, cfg.d_hidden
+
+        def draw_batch(rng):
+            mol = synthetic.molecule_batch(rng, cfg, d["batch"], d["n_nodes"],
+                                           d["n_edges"])
+            return ({"atom_z": mol["atom_z"], "positions": mol["positions"],
+                     "edges": mol["edges"],
+                     "edge_dist": rng.uniform(0.5, 9.5, E).astype(np.float32),
+                     "graph_ids": mol["graph_ids"]}, mol["targets"])
+    else:
+        if shape.kind == "graph_mini":
+            f1, f2 = d["fanout"]
+            bn = d["batch_nodes"]
+            N = bn + bn * f1 + bn * f1 * f2
+            E = bn * f1 + bn * f1 * f2
+        else:
+            N, E = d["n_nodes"], d["n_edges"]
+        E = -(-E // EDGE_PAD) * EDGE_PAD
+        inputs = {"node_feat": _f32(N, d["d_feat"]), "edges": _ids(E, 2),
+                  "edge_dist": _f32(E), "graph_ids": _ids(N)}
+        n_graphs = 1
+        targets = _f32(1)
+        d_feat_in = d_in = d["d_feat"]
+
+        def draw_batch(rng):
+            if shape.kind == "graph_mini":
+                graph = sampler.CSRGraph.random(
+                    rng, d["n_nodes"], round(d["n_edges"] / d["n_nodes"]))
+                seeds = rng.integers(0, d["n_nodes"], d["batch_nodes"])
+                _, edges, _ = sampler.sample_fanout(graph, seeds, d["fanout"],
+                                                    rng)
+                dist = rng.uniform(0.5, 9.5, len(edges))
+                feat = rng.normal(0, 1, (N, d["d_feat"])).astype(np.float32)
+            else:
+                g = synthetic.random_graph(rng, N, d["n_edges"], d["d_feat"])
+                edges, dist, feat = g["edges"], g["edge_dist"], g["node_feat"]
+            edges, dist = _pad_edges(edges, dist, N, E)
+            return ({"node_feat": feat, "edges": edges, "edge_dist": dist,
+                     "graph_ids": np.zeros(N, np.int32)},
+                    rng.normal(0, 1, 1).astype(np.float32))
+
+    step, opt_init = build_train_step(
+        lambda p, b: schnet.loss_fn(p, b["inputs"], b["targets"], cfg,
+                                    n_graphs=n_graphs), opt_lib.adamw())
+    params = schnet.init(torch.Generator(), cfg, d_feat_in, device=META)
+    meta = {"model_flops": gnn_model_flops(cfg, N, E, d_in),
+            "model_bytes_per_device":
+                (E * (cfg.n_rbf + 3 * cfg.d_hidden) * 4 * cfg.n_interactions
+                 + N * (d_in + 4 * cfg.d_hidden) * 4),
+            "param_dtype": "float32",
+            "params": n_params(params)}
+
+    def draw(dev, g, rng):
+        p = schnet.init(g, cfg, d_feat_in, device=dev)
+        inputs_np, targets_np = draw_batch(rng)
+        batch = {"inputs": _tensors(inputs_np, dev),
+                 "targets": _tensors(targets_np, dev)}
+        return p, opt_init(p), batch
+    return Cell(arch.arch_id, shape.name, step,
+                (params, opt_init(params),
+                 {"inputs": inputs, "targets": targets}),
+                draw, carry=2, meta=meta, device=device)
+
+
+# --------------------------------------------------------------- recsys
+
+def _rec_batch_abstract(cfg: RecsysConfig, batch: int, with_label=True):
+    def fields(fs):
+        return {f.name: _ids(batch) if f.bag == 1 else _ids(batch, f.bag)
+                for f in fs}
+    user = {"fields": fields(cfg.user_fields)}
+    if cfg.seq_len:
+        user["hist"] = _ids(batch, cfg.seq_len)
+    b = {"user": user, "item": fields(cfg.item_fields)}
+    if with_label:
+        b["label"] = _f32(batch)
+    return b
+
+
+def rec_dense_params(params) -> int:
+    return int(sum(t.numel() for path, t in tree_lib.flatten_with_paths(params)
+                   if "tables" not in path))
+
+
+def build_rec_cell(arch, shape: ShapeSpec, device=None) -> Cell:
+    cfg: RecsysConfig = arch.config
+    mod = REC_MODULES[cfg.model]
+    params = mod.init(torch.Generator(), cfg, device=META)
+    n_dense = rec_dense_params(params)
+    n_table = n_params(params) - n_dense
+    d = shape.dims
+
+    n_lookup_rows = sum(f.bag for f in cfg.user_fields + cfg.item_fields) \
+        + (cfg.seq_len or 0)
+
+    def rec_bytes(B):
+        # embedding rows touched + dense params + activations (fp32)
+        return (B * n_lookup_rows * cfg.embed_dim * 4 + n_dense * 4
+                + B * n_lookup_rows * cfg.embed_dim * 4)
+
+    def draw_params(dev, g):
+        return mod.init(g, cfg, device=dev)
+
+    if shape.kind in ("rec_train", "rec_serve"):
+        B = d["batch"]
+        train = shape.kind == "rec_train"
+
+        def draw_batch(rng, dev):
+            b = synthetic.recsys_batch(rng, cfg, B)
+            if not train:
+                b.pop("label")
+            return _tensors(b, dev)
+        batch = _rec_batch_abstract(cfg, B, with_label=train)
+        if train:
+            step, opt_init = build_train_step(
+                lambda p, b: mod.loss_fn(p, b, cfg), opt_lib.for_family("recsys"))
+            meta = {"model_flops": 6.0 * n_dense * B, "params": n_dense + n_table,
+                    "model_bytes_per_device": 3 * rec_bytes(B),
+                    "param_dtype": "float32", "dense_params": n_dense}
+
+            def draw(dev, g, rng):
+                p = draw_params(dev, g)
+                return p, opt_init(p), draw_batch(rng, dev)
+            return Cell(arch.arch_id, shape.name, step,
+                        (params, opt_init(params), batch), draw, carry=2,
+                        meta=meta, device=device)
+        meta = {"model_flops": 2.0 * n_dense * B, "params": n_dense + n_table,
+                "model_bytes_per_device": rec_bytes(B),
+                "param_dtype": "float32"}
+        return Cell(arch.arch_id, shape.name,
+                    lambda p, b: mod.serve_scores(p, b, cfg), (params, batch),
+                    lambda dev, g, rng: (draw_params(dev, g),
+                                         draw_batch(rng, dev)),
+                    meta=meta, device=device)
+
+    # rec_retrieval: 1 query vs n_candidates
+    C = d["n_candidates"]
+    user = _rec_batch_abstract(cfg, 1, with_label=False)["user"]
+    cand = _rec_batch_abstract(cfg, C, with_label=False)["item"]
+    meta = {"model_flops": 2.0 * n_dense * C, "params": n_dense + n_table,
+            "model_bytes_per_device": rec_bytes(C), "param_dtype": "float32"}
+    if cfg.model == "two_tower":
+        fn = lambda p, u, c: towers.retrieve(p, u["fields"], c, cfg)
+    elif cfg.model == "mind":
+        fn = lambda p, u, c: mind.retrieve(p, u, c, cfg)
+    elif cfg.model == "din":
+        # the reference pins its broadcast path here (the mesh-sharded
+        # computation); in the port path="jnp" is that same math: the
+        # history broadcast to every candidate, the din_attention kernel
+        # over a batch of C, then the score MLP (not the fused
+        # rerank_score kernel)
+        fn = lambda p, u, c: din.score_candidates(p, u, c, cfg, path="jnp")
+    else:
+        fn = lambda p, u, c: mod.score_candidates(p, u, c, cfg)
+
+    def draw(dev, g, rng):
+        u = synthetic.recsys_batch(rng, cfg, 1)["user"]
+        c = synthetic.recsys_ids(rng, cfg.item_fields, C)
+        return draw_params(dev, g), _tensors(u, dev), _tensors(c, dev)
+    return Cell(arch.arch_id, shape.name, fn, (params, user, cand), draw,
+                meta=meta, device=device)
+
+
+def build_cell(arch_id: str, shape_name: str, device=None,
+               reduced: bool = False) -> Cell:
+    """The cell of ``arch_id`` × ``shape_name``; ``reduced`` takes the
+    arch's reduced config (the shapes stay as published). ``device`` is
+    where :meth:`Cell.materialize` draws by default (``cuda`` if None)."""
+    arch = registry.get(arch_id)
+    shape = registry.get_shape(arch, shape_name)
+    if reduced:
+        arch = registry.ArchDef(arch.arch_id, arch.family,
+                                arch.reduced(arch.config), arch.shapes,
+                                arch.reduced)
+    builder = {"lm": build_lm_cell, "gnn": build_gnn_cell,
+               "recsys": build_rec_cell}[arch.family]
+    return builder(arch, shape, device)

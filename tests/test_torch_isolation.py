@@ -44,7 +44,8 @@ VERBATIM = (
      "configs/lm_archs.py", "configs/jizhi_service.py", "data/synthetic.py",
      "serve/batcher.py", "serve/hotload.py", "update/__init__.py",
      "update/delta.py", "update/manager.py", "update/policy.py",
-     "update/snapshot.py", "train/elastic.py", "data/pipeline.py"]
+     "update/snapshot.py", "train/elastic.py", "data/pipeline.py",
+     "data/sampler.py"]
     + [f"core/{m}.py" for m in ("sedp", "executors", "cube", "cube_cache",
                                  "query_cache", "multitenant",
                                  "service_model")]
@@ -232,7 +233,9 @@ def _entry_points():
     from repro_torch.launch.serve import serve_lm, serve_recsys
     from repro_torch.launch.train import parser as train_parser
     from repro_torch.launch.train import train
-    from repro_torch.models import moe, transformer
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import moe, schnet, transformer
     from repro_torch.serve.scenario import ServingSubstrate
     from repro_torch.update import HBMHead
 
@@ -284,6 +287,12 @@ def _entry_points():
         "train": lambda: train(train_parser().parse_args(
             ["--reduced", "--steps", "1", "--ckpt-dir",
              str(ROOT / "build" / "never_written")])),
+        "schnet.init": lambda: schnet.init(0, reduced("schnet")),
+        "run_cell": lambda: run_cell("schnet", "molecule",
+                                     str(ROOT / "build" / "never_written"),
+                                     reduced=True),
+        "build_cell(...).materialize": lambda: build_cell(
+            "schnet", "molecule", reduced=True).materialize(),
     }
 
 
