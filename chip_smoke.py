@@ -76,9 +76,28 @@ Phases, each printing its lines; any failure exits nonzero:
      (B6 over 24 GB of float32 K/V, its shape held in phase 3), each
      cell's kernels checked launched, then the roofline table of the
      records with H100 data-sheet peaks;
- 11. the kernel table as one JSON line (launches from phase 6, and from
-     phase 7 for flash_decode; ``backward_ms`` from phase 9), the card
-     line, and the result.
+ 11. the recsys models on a 2x2 (data, model) device mesh of 4 ranks
+     sharing the one card over gloo (``launch/mesh.py``; NCCL refuses two
+     ranks on one device, so the times are 4 processes on one card, not a
+     multi-GPU figure): (a) DIN at its published widths and vocabularies
+     (2^26-row user_id / item_id, 2.45 GB of tables a rank) serve_scores
+     at B=512 (one grouped embedding_bag and one din_attention launch a
+     rank) and the fused score_candidates at C=64 (rerank_score on every
+     rank); (b) DIEN, MIND and two-tower at published widths (tables cut
+     to 2^20 rows, two-tower's to 2^21), serve_scores and the ranking
+     call; each held within TOL_MODEL against the same seeded weights run
+     whole on the card, rankings index for index, launches checked per
+     rank; then (c) ``run_cell`` over din x serve_p99, din x
+     retrieval_cand and dien x serve_p99 on ``2x2@1xH100`` with each
+     rank's ms/step, peak memory, launches and collectives by kind with
+     their bytes, against the cell run whole. Every kernel call of a
+     rank's counted call in (a), (b) and (c) is replayed on that rank's
+     own inputs (its table shard, ownership weights, block of the batch)
+     through the wrapper and the plain version, and held to TOL_F32;
+ 12. the kernel table as one JSON line (launches from phase 6, and from
+     phase 7 for flash_decode; ``backward_ms`` from phase 9;
+     ``mesh_launches`` from phase 11 (a) and (b), over all ranks), the
+     card line, and the result.
 
 Needs a CUDA device; exits nonzero without one, and without the
 repository's ``src/repro_torch`` beside this script.
@@ -87,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import importlib
 import json
 import math
 import os
@@ -2396,6 +2416,269 @@ def cell_sweep() -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 11
+
+#: the mesh of phase 11: 4 ranks, all on the one card, over gloo
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_BATCH = 512                           # serve_p99's batch
+MESH_C = 64                                # candidates of a ranking call
+MESH_VOCAB_LOG2 = 20                       # (b)'s cut of DIEN / MIND tables
+#: (c): the cells run on the mesh, with the kernels each rank must launch
+MESH_SWEEP = (("din", "serve_p99", ("embedding_bag", "din_attention")),
+              ("din", "retrieval_cand", ("embedding_bag", "din_attention")),
+              ("dien", "serve_p99", ("embedding_bag", "augru")))
+#: launches per rank of each model call of (a) and (b)
+MESH_LAUNCHES = {
+    ("din", "serve_scores"): {"embedding_bag": 1, "din_attention": 1},
+    ("din", "score_candidates"): {"embedding_bag": 1, "rerank_score": 1},
+    ("dien", "serve_scores"): {"embedding_bag": 1, "augru": 1},
+    ("dien", "score_candidates"): {"embedding_bag": 1, "augru": 1},
+    ("mind", "serve_scores"): {"embedding_bag": 1},
+    ("mind", "retrieve"): {"embedding_bag": 1},
+    ("two-tower-retrieval", "serve_scores"): {"embedding_bag": 2},
+    ("two-tower-retrieval", "retrieve"): {"embedding_bag": 1,
+                                          "candidate_scorer": 1},
+}
+_T11 = []
+
+
+def say11(msg: str):
+    """A line of phase 11, with the seconds since the phase began."""
+    if not _T11:
+        _T11.append(time.perf_counter())
+    print(f"{msg} [{time.perf_counter() - _T11[0]:.1f} s into [11]]",
+          flush=True)
+
+
+def _ranking_inputs(rng, cfg, C):
+    """One user (a compacted history) and C candidates with distinct
+    item ids (a strict ranking), as phase 4 draws them."""
+    import numpy as np
+    from repro_torch.serve.bucketing import (ShapeBucketer, compact_history,
+                                             step_buckets)
+    user = {"fields": {f.name: rng.integers(0, f.vocab, (1,) if f.bag == 1
+                                            else (1, f.bag))
+                       for f in cfg.user_fields}}
+    if cfg.seq_len:
+        hist = np.full(cfg.seq_len, -1, np.int64)
+        n = cfg.seq_len * 4 // 5
+        hist[:n] = rng.integers(0, cfg.item_fields[0].vocab, n)
+        user["hist"] = compact_history(
+            hist, ShapeBucketer(step_buckets(cfg.seq_len)))[None]
+    cand = {f.name: rng.integers(0, f.vocab, (C,) if f.bag == 1
+                                 else (C, f.bag))
+            for f in cfg.item_fields}
+    cand["item_id"] = rng.permutation(cfg.item_fields[0].vocab)[:C]
+    return user, cand
+
+
+def _rank_line(r) -> str:
+    coll = "; ".join(f"{k} x{n} {b} B" for (k, _g), (n, b)
+                     in sorted(r["collectives"].items()))
+    return (f"launches {r['launches']}, {r.get('ms', float('nan')):.4f} ms a "
+            f"call (CUDA events), collectives: {coll}")
+
+
+def mesh_kernel_checks(label: str, ranks_checks: list) -> set:
+    """Hold each rank's replayed kernel calls (``Job.check_kernels``: the
+    wrapper's outputs and the plain version's on the rank's own inputs)
+    to TOL_F32, integer outputs (top-k indices) equal; returns the
+    kernels checked."""
+    import torch
+    names = set()
+    for r, checks in enumerate(ranks_checks):
+        for c in checks:
+            names.add(c["kernel"])
+            shapes = ", ".join("x".join(map(str, sh)) or "()"
+                               for sh in c["shapes"][:4])
+            for j, (got, want) in enumerate(zip(c["got"], c["want"])):
+                name = (f"[11] {label} rank {r} {c['kernel']} out {j} "
+                        f"({shapes}{', ...' if len(c['shapes']) > 4 else ''})")
+                got, want = torch.as_tensor(got), torch.as_tensor(want)
+                if got.is_floating_point():
+                    compare(name, got, want, TOL_F32)
+                else:
+                    check(torch.equal(got, want), f"{name}: differs from the "
+                          f"plain version")
+    return names
+
+
+def mesh_models_run(card: str) -> dict:
+    """Phase 11 (a) and (b): DIN at its published widths and vocabularies
+    (2^26-row user_id / item_id: 9.8 GB of tables, 2.45 GB a rank) and
+    DIEN, MIND and two-tower at published widths (tables cut to 2^20
+    rows, two-tower's to 2^21) on a 2x2 mesh of 4 ranks sharing the one
+    card over gloo, one launch: each rank draws its rows of the tables
+    from the seeded chunks (``tables_init``), then serve_scores at B=512
+    (the rank's half of the batch) and the ranking call (C=64, whole on
+    every rank; DIN's fused score_candidates, B1 on every rank over all
+    C). Each result is held within TOL_MODEL against the same seeded
+    weights and inputs run whole on the card by this process, rankings
+    index for index, every rank's launches are checked, and every kernel
+    call of each rank is held to its plain version on the rank's own
+    inputs (``mesh_kernel_checks``). Returns the launches summed over
+    ranks."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.other_archs import DIEN, DIN, MIND, TWO_TOWER
+    from repro_torch.data import synthetic
+    from repro_torch.launch.mesh import (Job, ModelDraw, abstract_mesh,
+                                         run_jobs)
+    from repro_torch.launch.sharding import P, batched_spec
+
+    rng = np.random.default_rng(11)
+    am = abstract_mesh(MESH_SHAPE, MESH_AXES)
+    models = (("din", DIN, "score_candidates", {"path": "fused"}),
+              ("dien", _vocab(DIEN, 1 << MESH_VOCAB_LOG2), "score_candidates",
+               {}),
+              ("mind", _vocab(MIND, 1 << MESH_VOCAB_LOG2), "retrieve", {}),
+              ("two-tower-retrieval", _vocab(TWO_TOWER, 1 << TOWERS_VOCAB_LOG2),
+               "retrieve", {}))
+    mods = {"din": "din", "dien": "dien", "mind": "mind",
+            "two-tower-retrieval": "towers"}
+    jobs = [Job("repro_torch.launch.mesh:collective_support")]
+    cases = []
+    for name, cfg, rank_fn, kw in models:
+        module = f"repro_torch.models.recsys.{mods[name]}"
+        draw = ModelDraw(module, cfg, seed=11)
+        batch = synthetic.recsys_batch(rng, cfg, MESH_BATCH)
+        batch.pop("label")
+        bspec = tree_lib.tree_map(lambda a: batched_spec(am, a.shape), batch)
+        user, cand = _ranking_inputs(rng, cfg, MESH_C)
+        u = user["fields"] if cfg.model == "two_tower" else user
+        jobs.append(Job(f"{module}:serve_scores", draw, None, (batch, cfg),
+                        (bspec, None), out_specs=P("data"), repeat=5,
+                        check_kernels=True))
+        jobs.append(Job(f"{module}:{rank_fn}", draw, None, (u, cand, cfg),
+                        (None, None, None), {"top_k": MESH_C, **kw},
+                        repeat=5, check_kernels=True))
+        cases.append((name, cfg, draw, rank_fn, kw, batch, u, cand))
+    tables = {name: sum(f.vocab for f in cfg.user_fields + cfg.item_fields)
+              * cfg.embed_dim * 4 for name, cfg, *_ in cases}
+    say11(f"[11a/b] 4 ranks sharing one card over gloo, a {MESH_SHAPE} "
+          f"(data, model) mesh ({card}); tables "
+          + ", ".join(f"{k} {v / 1e9:.2f} GB ({v / 4e9:.2f} GB a rank)"
+                      for k, v in tables.items()))
+    t0 = time.perf_counter()
+    ranks = run_jobs(jobs, MESH_SHAPE, MESH_AXES, device="cuda", timeout=900)
+    support = ranks[0][0]["out"]
+    say11(f"[11] the ranks' launch: {time.perf_counter() - t0:.1f} s; "
+          f"{support['backend']} on {support['device']} accepts: "
+          + ", ".join(f"{k} {v}" for k, v in support["kinds"].items()))
+    # the collective helpers hand every kind to the backend directly
+    check(all(v == "ok" for v in support["kinds"].values()),
+          f"{support['backend']} refuses a collective on CUDA tensors: "
+          f"{support['kinds']}")
+    launches: dict = {}
+    for j, (name, cfg, draw, rank_fn, kw, batch, u, cand) in enumerate(cases):
+        mod = importlib.import_module(draw.module)
+        params = draw.draw("cuda")
+        with torch.no_grad():
+            want_s = mod.serve_scores(params, _to(batch, "cuda"), cfg)
+            v, i = getattr(mod, rank_fn)(params, _to(u, "cuda"),
+                                         _to(cand, "cuda"), cfg,
+                                         top_k=MESH_C, **kw)
+        for call, k, want in (("serve_scores", 1 + 2 * j, want_s),
+                              (rank_fn, 2 + 2 * j, (v, i))):
+            checked = mesh_kernel_checks(
+                f"{name} {call}", [rank[k]["kernel_checks"] for rank in ranks])
+            expect = MESH_LAUNCHES[(name, call)]
+            check(checked == set(expect), f"{name} {call}: kernels checked "
+                  f"{sorted(checked)}, launched {sorted(expect)}")
+            for r, rank in enumerate(ranks):
+                row = rank[k]
+                if call == "serve_scores":
+                    compare(f"[11] {name} {call} B={MESH_BATCH} rank {r} vs "
+                            f"whole", torch.as_tensor(row["out"]),
+                            want.cpu(), TOL_MODEL)
+                else:
+                    compare(f"[11] {name} {call} C={MESH_C} rank {r} vs "
+                            f"whole", torch.as_tensor(row["out"][0]),
+                            want[0].cpu(), TOL_MODEL)
+                    check(row["out"][1].tolist() == want[1].cpu().tolist(),
+                          f"{name} {call} rank {r}: ranking differs from the "
+                          f"whole run's")
+                expect = MESH_LAUNCHES[(name, call)]
+                check(row["launches"] == expect,
+                      f"{name} {call} rank {r}: launches {row['launches']}, "
+                      f"expected {expect}")
+                for kname, n in row["launches"].items():
+                    launches[kname] = launches.get(kname, 0) + n
+                say11(f"[11] {name} {call} rank {r}: {_rank_line(row)}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_cell_sweep(card: str):
+    """Phase 11 (c): ``launch/dryrun.py::run_cell`` over MESH_SWEEP on
+    the 2x2 mesh of 4 ranks sharing the card over gloo (records
+    ``<arch>__<shape>__2x2@1xH100.json``): the per-rank fit check, every
+    kernel call of each rank's counted step held to its plain version on
+    the rank's own inputs (``check_kernels``), ms per step, each rank's
+    peak memory, launches and collectives by kind with their bytes; then
+    the same cell run whole on the card by this process (seed 0), the
+    max-abs-diff of the outputs and, for a ranking, its indices equal."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import dryrun, specs
+
+    for arch, shape, kernels in MESH_SWEEP:
+        rec = dryrun.run_cell(arch, shape, device="cuda", mesh=MESH_SHAPE,
+                              check_kernels=True)
+        mem = rec.get("memory", {})
+        say11(f"[11c] {arch} x {shape} on {rec['mesh']}@1xH100 (4 ranks "
+              f"sharing one card over {rec['backend']}; {card}): ok "
+              f"{rec['ok']}, fits a rank's share {mem.get('fits_per_rank')} "
+              f"(estimate {mem.get('estimate_bytes_per_rank')} bytes against "
+              f"{mem.get('device_bytes_per_rank')}), step_ms {rec.get('step_ms')} "
+              f"(the slowest rank); {rec.get('error', '')}")
+        check(rec["ok"], f"{arch} x {shape} on the mesh: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')}")
+        checked = mesh_kernel_checks(f"{arch} x {shape}", rec["kernel_checks"])
+        check(set(kernels) <= checked, f"{arch} x {shape}: kernels checked "
+              f"{sorted(checked)}, expected {sorted(kernels)}")
+        for r in rec["ranks"]:
+            coll = "; ".join(
+                f"{k} x{row['calls']:g} {row['bytes']:g} B (traffic "
+                f"{row['traffic_bytes']:g} B)"
+                for k, row in sorted(r["collectives_per_step"].items()))
+            say11(f"[11c]   rank {r['rank']}: {r['step_ms']} ms/step, peak "
+                  f"{r['max_allocated_bytes'] / 2**30:.3f} GiB, launches per "
+                  f"step {r['launches_per_step']}, per step: {coll}")
+            for name in kernels:
+                check(r["launches_per_step"].get(name, 0) > 0,
+                      f"{arch} x {shape} rank {r['rank']}: {name} never "
+                      f"launched")
+        cell = specs.build_cell(arch, shape, device="cuda")
+        args = cell.materialize("cuda", torch.Generator(device="cuda")
+                                .manual_seed(0))
+        with torch.no_grad():
+            want = cell.fn(*args)
+        got = rec["output"]
+        if isinstance(want, tuple):
+            err = float(np.abs(got[0] - want[0].cpu().numpy()).max())
+            same = float((got[1] == want[1].cpu().numpy()).mean())
+            say11(f"[11c] {arch} x {shape}: top-{len(got[1])} values vs the "
+                  f"whole run max_abs_diff {err:.3e}, {same:.3f} of the "
+                  f"indices equal")
+            # merge_topk keeps lax.top_k's order over global indices
+            check(same == 1.0, f"{arch} x {shape}: the mesh's ranking "
+                  f"differs from the whole run's ({same:.3f} of the indices "
+                  f"equal)")
+        else:
+            err = float(np.abs(got - want.cpu().numpy()).max())
+            say11(f"[11c] {arch} x {shape}: output vs the whole run "
+                  f"max_abs_diff {err:.3e}")
+        check(err <= TOL_MODEL, f"{arch} x {shape}: the mesh run differs "
+              f"from the whole run by {err}")
+        del cell, args, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2465,6 +2748,11 @@ def main() -> int:
         sweep = cell_sweep()
         print(f"[10] done at {time.perf_counter() - t_run:.1f} s; kernel "
               f"launches over the cell sweep {sweep}", flush=True)
+        mesh_launches = mesh_models_run(card)
+        mesh_cell_sweep(card)
+        print(f"[11] done at {time.perf_counter() - t_run:.1f} s; kernel "
+              f"launches over (a) and (b), all ranks: {mesh_launches}",
+              flush=True)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2478,7 +2766,8 @@ def main() -> int:
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"],
-                      "backward_ms": backward.get(name)})
+                      "backward_ms": backward.get(name),
+                      "mesh_launches": mesh_launches.get(name, 0)})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,13 @@ also hands :func:`launch` its kernel's ``cost(...)`` (flops and bytes from
 the shapes, the formulas of the roofline bound): while an op counter
 (``launch/op_analysis.py``) is active, that cost is added to it.
 
+Checks on a path's own inputs: inside :func:`recording` every call of a
+wrapper is kept with its inputs and the plain version that takes the same
+arguments, and :func:`replay` runs each again through the wrapper and the
+plain version, so a caller can hold a kernel to its plain version at the
+shapes and on the inputs a path gave it (a rank's shard and ownership
+weights on a mesh).
+
 Gradients: no kernel has a backward kernel (the reference differentiates
 its plain math). The kernels on the training path (embedding_bag,
 din_attention, augru) run their forward on the card and take the
@@ -34,8 +41,12 @@ drops the gradient.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
+import functools
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -137,6 +148,75 @@ def require(cond: bool, msg: str):
         raise ValueError(msg)
 
 
+# ---------------------------------------------------------------- recording
+
+_recording = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep every call of a :func:`recorded` wrapper made on this thread
+    inside the block: yields the list they go to, each ``(kernel,
+    wrapper, plain, args, kwargs)`` with the wrapper's defaults applied.
+    The inputs are kept by reference: :func:`replay` them before anything
+    overwrites them."""
+    calls: list = []
+    outer = getattr(_recording, "calls", None)
+    _recording.calls = calls
+    try:
+        yield calls
+    finally:
+        _recording.calls = outer
+
+
+def recorded(kernel_name: str, plain):
+    """Decorator of kernel ``kernel_name``'s public wrapper: inside
+    :func:`recording` each call is kept with ``plain``, the plain version
+    that takes the wrapper's arguments."""
+    def deco(wrapper):
+        sig = inspect.signature(wrapper)
+
+        @functools.wraps(wrapper)
+        def call(*args, **kwargs):
+            calls = getattr(_recording, "calls", None)
+            if calls is not None:
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                calls.append((kernel_name, wrapper, plain, bound.args,
+                              bound.kwargs))
+            return wrapper(*args, **kwargs)
+        return call
+    return deco
+
+
+def _outputs(out) -> list:
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def _shapes(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tuple(tree.shape)]
+    if isinstance(tree, (list, tuple)):
+        return [s for x in tree for s in _shapes(x)]
+    if isinstance(tree, dict):
+        return [s for x in tree.values() for s in _shapes(x)]
+    return []
+
+
+def replay(calls) -> list:
+    """Each recorded call run again through its wrapper (a launch on the
+    card) and through its plain version, on the same inputs: a list of
+    ``(kernel, input shapes, the wrapper's outputs, the plain version's
+    outputs)``, outputs as lists of tensors."""
+    out = []
+    with torch.no_grad():
+        for name, wrapper, plain, args, kwargs in calls:
+            got = _outputs(wrapper(*args, **kwargs))
+            want = _outputs(plain(*args, **kwargs))
+            out.append((name, _shapes((args, kwargs)), got, want))
+    return out
+
+
 # ---------------------------------------------------------------- gradients
 
 def grad_wanted(*tensors) -> bool:
@@ -233,20 +313,27 @@ def build() -> Path:
     """Compile every source into the shared library with one ``nvcc`` call
     and return its path. A library already built from the same sources is
     reused. The compiler's output, ptxas resource usage included, is kept
-    in ``build.log`` beside the library."""
+    in ``build.log`` beside the library. Processes that build at once
+    (the ranks of a mesh) take turns on a file lock in the build
+    directory: the first compiles, the others find its library."""
     out = build_dir()
     lib = out / LIB_NAME
     if lib.exists():
         return lib
     nvcc = _nvcc()
     out.mkdir(parents=True, exist_ok=True)
-    tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, *map(str, sources()), "-o", str(tmp)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    (out / "build.log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + proc.stdout)
-    os.replace(tmp, lib)
+    with open(out / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():                   # built while this one waited
+            return lib
+        tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, *map(str, sources()),
+                               "-o", str(tmp)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        (out / "build.log").write_text(proc.stdout)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + proc.stdout)
+        os.replace(tmp, lib)
     return lib
 
 

@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, require, with_plain_gradient
+from repro_torch.kernels import (launch, on_cpu, recorded, require,
+                                 with_plain_gradient)
 from repro_torch.kernels.augru.ref import augru_ref
 
 #: the largest H a block holds U for in registers: 4 threads per hidden
@@ -17,6 +18,7 @@ def gx_cols(H: int) -> int:
     return -(-3 * H // 4) * 4
 
 
+@recorded("augru", augru_ref)
 def augru(x, att, w, u, b):
     """x (B,T,Din), att (B,T), GRU weights w (Din,3H) u (H,3H) b (3H,) →
     final hidden (B,H), float32. CPU tensors take the plain version; CUDA

@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, refuse_grad, require
+from repro_torch.kernels import (launch, on_cpu, recorded, refuse_grad,
+                                 require)
 from repro_torch.kernels.candidate_scorer.ref import candidate_scorer_ref
 
 #: candidates per block at most (``kBlockC`` in the source)
@@ -19,6 +20,7 @@ _ENTRY = {torch.float32: "candidate_scorer_f32",
           torch.bfloat16: "candidate_scorer_bf16"}
 
 
+@recorded("candidate_scorer", candidate_scorer_ref)
 def candidate_scorer(cands, query, k: int = 8):
     """cands (C, D) float32 or bfloat16, query (D,) of the same dtype →
     the exact global top-k: values (k,) float32, best first, and their

@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, require, with_plain_gradient
+from repro_torch.kernels import (launch, on_cpu, recorded, require,
+                                 with_plain_gradient)
 from repro_torch.kernels.din_attention.ref import din_attention_ref
 
 #: history steps per chunk (``kChunk`` in the source), the widths of the
@@ -12,6 +13,7 @@ from repro_torch.kernels.din_attention.ref import din_attention_ref
 CHUNK, MAX_H1, MAX_H2, MAX_CLUSTER = 16, 80, 40, 8
 
 
+@recorded("din_attention", din_attention_ref)
 def din_attention(hist, mask, target, w1, b1, w2, b2, w3, b3):
     """Fused DIN local activation unit: hist (B,T,D), mask (B,T), target
     (B,D), attention MLP 4D→H1→H2→1 as (w, b) pairs. Returns (B, D).

@@ -7,7 +7,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, require, with_plain_gradient
+from repro_torch.kernels import (launch, on_cpu, recorded, require,
+                                 with_plain_gradient)
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_group_ref,
                                                    embedding_bag_ref)
 
@@ -19,6 +20,7 @@ _GROUP_ENTRY = {torch.float32: "embedding_bag_group_f32",
 MAX_GROUPS = 8
 
 
+@recorded("embedding_bag", embedding_bag_ref)
 def embedding_bag(table, ids, weights=None, combiner: str = "sum"):
     """Drop-in EmbeddingBag over padded bags: table (V, D) float32 or
     bfloat16, ids (B, K) integer (clipped to [0, V-1]), weights (B, K) or
@@ -104,6 +106,7 @@ class _Groups(ctypes.Structure):
                 ("lanes", ctypes.c_int)]
 
 
+@recorded("embedding_bag", embedding_bag_group_ref)
 def embedding_bag_group(lookups, blocks=None):
     """Several embedding bags in one launch. ``lookups`` is a sequence of
     (table (V_g, D), ids (B_g, K_g), weights (B_g, K_g) or None, combiner)

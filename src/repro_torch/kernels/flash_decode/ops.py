@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch import kernels as K
-from repro_torch.kernels import launch, on_cpu, refuse_grad, require
+from repro_torch.kernels import (launch, on_cpu, recorded, refuse_grad,
+                                 require)
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 #: cache rows of a split granule (``kTile`` in the source): each of a
@@ -85,6 +86,7 @@ def device_slots(device: torch.device, dtype, G: int, D: int) -> int:
     return _slots[key]
 
 
+@recorded("flash_decode", flash_decode_ref)
 def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
     """q (B,H,G,D) one new token per sequence, caches (B,S,H,D), cache_len
     the valid prefix (one int32 on q's device; an int too on the CPU) →

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import launch, on_cpu, refuse_grad, require
+from repro_torch.kernels import (launch, on_cpu, recorded, refuse_grad,
+                                 require)
 from repro_torch.kernels.rerank_score.ref import rerank_score_ref
 
 #: candidates per block (``kCands`` in the source), and the widths of the
@@ -18,6 +19,18 @@ CANDS, MAX_H1, MAX_H2 = 4, 80, 40
 _MAX_GRID_Y = 65535
 
 
+def _weights(attn_mlp, score_mlp) -> list:
+    return [p[k] for p in (*attn_mlp, *score_mlp) for k in ("w", "b")]
+
+
+def rerank_score_plain(hist, mask, target, user_other, item_other,
+                       attn_mlp, score_mlp):
+    """:func:`rerank_score_ref` on :func:`rerank_score`'s arguments."""
+    return rerank_score_ref(hist, mask, target, user_other, item_other,
+                            *_weights(attn_mlp, score_mlp))
+
+
+@recorded("rerank_score", rerank_score_plain)
 def rerank_score(hist, mask, target, user_other, item_other,
                  attn_mlp, score_mlp):
     """Score C candidates against one user's shared history, fused: the
@@ -34,7 +47,7 @@ def rerank_score(hist, mask, target, user_other, item_other,
     require(len(attn_mlp) == 3 and len(score_mlp) == 3,
             "fused path expects 2-hidden-layer towers (got "
             f"{len(attn_mlp)}/{len(score_mlp)} layers)")
-    weights = [p[k] for p in (*attn_mlp, *score_mlp) for k in ("w", "b")]
+    weights = _weights(attn_mlp, score_mlp)
     args = (hist, mask, target, user_other, item_other, *weights)
     if on_cpu(*args):
         return rerank_score_ref(*args)

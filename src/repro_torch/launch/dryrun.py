@@ -17,10 +17,24 @@ to stop at, so a cell that fits the card is run:
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch schnet --shape molecule
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all      # subprocesses
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch din --shape serve_p99 --mesh 2x2
+
+With ``mesh`` (a recsys serving cell on a mesh; the LM, GNN and training
+cells wait for ROADMAP A8) the cell runs as one rank per mesh device
+(``launch/mesh.py::run_jobs``): the fit check is per rank (its part of
+the arguments against its share of the card), each rank draws its part
+of the arguments and records its ms per step (CUDA events), its
+``max_memory_allocated``, its kernels' launches and its collectives by
+kind with their bytes; the record keeps every rank's and the slowest
+rank's step. Ranks that share one card (NCCL refuses two ranks on one
+device) run over gloo: their times are several processes on one card,
+not a multi-card figure, and the record's name says so.
 
 Records: ``<out>/<arch>__<shape>__1xH100.json`` (``1xcpu`` for a CPU run,
-whose times are the host's and are not written as the card's). The CLI
-runs on ``cuda`` only; :func:`run_cell` also takes ``device="cpu"``.
+whose times are the host's and are not written as the card's); on a mesh
+``<arch>__<shape>__2x2@1xH100.json`` (ranks on one card) or
+``...__2x2@cpu.json``. The CLI runs on ``cuda`` only; :func:`run_cell`
+also takes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -36,6 +50,8 @@ import torch
 
 from repro_torch import default_device
 from repro_torch import kernels as K
+from repro_torch.configs import registry
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import op_analysis, roofline
 from repro_torch.launch.specs import build_cell
 
@@ -98,12 +114,22 @@ def profile_step(run, dev) -> dict:
 
 def run_cell(arch_id: str, shape_name: str, out_dir: str = DEFAULT_OUT,
              device=None, steps: int = 5, warmup: int = 2,
-             reduced: bool = False) -> dict:
+             reduced: bool = False, mesh=None,
+             check_kernels: bool = False) -> dict:
     """Build, fit-check, run, time and count one cell on ``device``
-    (``cuda`` if None); write and return its record. An exception inside
-    the cell is recorded (``ok: false``, ``error``) and not raised, so a
-    sweep goes on."""
+    (``cuda`` if None), on one device or, given ``mesh`` ("2x2" or a
+    shape tuple; axes as the reference's ``--mesh`` names them), one rank
+    per mesh device; write and return its record. On a mesh,
+    ``check_kernels`` also replays every kernel call of each rank's
+    counted step through the wrapper and its plain version (the record's
+    ``kernel_checks``, per rank, not written). An exception inside the
+    cell is recorded (``ok: false``, ``error``) and not raised, so a sweep
+    goes on; a cell that does not run on a mesh yet raises
+    ``NotImplementedError``."""
     dev = default_device(device)
+    if mesh is not None:
+        return _run_mesh_cell(arch_id, shape_name, out_dir, dev, steps,
+                              warmup, reduced, mesh, check_kernels)
     mesh = "1xH100" if dev.type == "cuda" else f"1x{dev.type}"
     rec = {"arch": arch_id, "shape": shape_name, "mesh": mesh,
            "n_devices": 1, "reduced": reduced, "ok": False,
@@ -134,10 +160,98 @@ def run_cell(arch_id: str, shape_name: str, out_dir: str = DEFAULT_OUT,
         rec["traceback"] = traceback.format_exc()[-3000:]
     rec["t_total_s"] = round(time.monotonic() - t0, 2)
 
+    _write(rec, out_dir, f"{arch_id}__{shape_name}__{mesh}.json")
+    return rec
+
+
+#: a record's arrays, returned to the caller and not written
+_ARRAYS = ("output", "kernel_checks")
+
+
+def _write(rec, out_dir, name):
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"{arch_id}__{shape_name}__{mesh}.json"),
-              "w") as f:
-        json.dump(rec, f, indent=1, default=str)
+    with open(os.path.join(out_dir, name), "w") as f:
+        json.dump({k: v for k, v in rec.items() if k not in _ARRAYS}, f,
+                  indent=1, default=str)
+
+
+def _run_mesh_cell(arch_id, shape_name, out_dir, dev, steps, warmup,
+                   reduced, mesh, check_kernels) -> dict:
+    dims, axes = (mesh_lib.parse_mesh(mesh) if isinstance(mesh, str) else
+                  (tuple(mesh), ("pod", "data", "model")[-len(mesh):]))
+    if registry.get(arch_id).family != "recsys":
+        raise NotImplementedError(
+            f"{arch_id} on a device mesh is not ported yet (ROADMAP A8: the "
+            f"LM and GNN cells on a mesh come in later slices)")
+    cell = build_cell(arch_id, shape_name, device=dev, reduced=reduced,
+                      mesh=mesh_lib.abstract_mesh(dims, axes))
+    if cell.draw_local is None:
+        raise NotImplementedError(
+            f"{arch_id} x {shape_name} on a device mesh is not ported yet "
+            f"(ROADMAP A8: training on a mesh)")
+    n = cell.mesh.size
+    shared = dev.type == "cuda" and n > torch.cuda.device_count()
+    where = (f"{1 if shared else n}xH100" if dev.type == "cuda"
+             else dev.type)
+    name = f"{arch_id}__{shape_name}__{cell.mesh.name}@{where}.json"
+    rec = {"arch": arch_id, "shape": shape_name, "mesh": cell.mesh.name,
+           "axes": list(axes), "n_devices": n, "reduced": reduced,
+           "ok": False, "backend": mesh_lib.backend_for(dev, n),
+           "ranks_share_one_card": shared,
+           "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                      else dev.type)}
+    rec["meta"] = {k: (float(v) if isinstance(v, (int, float)) else v)
+                   for k, v in cell.meta.items()}
+    capacity = (torch.cuda.get_device_properties(dev).total_memory
+                if dev.type == "cuda" else roofline.HBM_BYTES)
+    per_rank = capacity // n if shared else capacity
+    arg_bytes = cell.arg_bytes_per_device()
+    estimate = arg_bytes + cell.meta["model_bytes_per_device"]
+    rec["memory"] = {"argument_bytes_per_rank": arg_bytes,
+                     "estimate_bytes_per_rank": estimate,
+                     "device_bytes_per_rank": per_rank,
+                     "fits_per_rank": bool(estimate <= per_rank)}
+    t0 = time.monotonic()
+    if not rec["memory"]["fits_per_rank"]:
+        rec["error"] = (f"does not fit a rank's share: {estimate / 1e9:.1f} "
+                        f"GB estimated against {per_rank / 1e9:.1f} GB")
+    else:
+        try:
+            job = mesh_lib.Job(
+                params=mesh_lib.CellDraw(arch_id, shape_name, reduced),
+                warmup=warmup - 1, repeat=steps, count_ops=True,
+                check_kernels=check_kernels)
+            rows = [r[0] for r in mesh_lib.run_jobs([job], dims, axes,
+                                                    device=dev)]
+            key = "step_ms" if dev.type == "cuda" else "host_step_ms"
+            rec["output"] = rows[0]["out"]
+            rec["ranks"] = [_rank_record(r, row, key)
+                            for r, row in enumerate(rows)]
+            if check_kernels:
+                rec["kernel_checks"] = [row["kernel_checks"] for row in rows]
+            rec[key] = max(r[key] for r in rec["ranks"])
+            rec["steps"] = steps
+            rec["ok"] = True
+        except Exception as e:  # noqa: BLE001 — record and continue the sweep
+            rec["error"] = f"{type(e).__name__}: {e}"
+            rec["traceback"] = traceback.format_exc()[-3000:]
+    rec["t_total_s"] = round(time.monotonic() - t0, 2)
+    _write(rec, out_dir, name)
+    return rec
+
+
+def _rank_record(rank: int, row: dict, key: str) -> dict:
+    """A rank's part of a mesh cell's record from its ``run_jobs`` row:
+    its ms per step (``key``), the launches and collectives of one step,
+    the op count and, on the card, its peak memory."""
+    rec = {"rank": rank, key: row["ms"],
+           "t_materialize_s": row["t_prepare_s"],
+           "launches_per_step": row["launches"],
+           "collectives_per_step": op_analysis.collectives_by_kind(
+               row["collectives"]),
+           "ops": row["ops"]}
+    if "max_allocated_bytes" in row:
+        rec["max_allocated_bytes"] = row["max_allocated_bytes"]
     return rec
 
 
@@ -216,13 +330,16 @@ def main():
     ap.add_argument("--shape")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--mesh", help="e.g. 2x2 (with pod: 2x2x4): the cell "
+                    "as one rank per mesh device")
     args = ap.parse_args()
     default_device()                     # the CLI runs on cuda only
     if args.all:
         run_all(args.out)
         return
-    rec = run_cell(args.arch, args.shape, args.out)
-    print(json.dumps({k: v for k, v in rec.items() if k != "traceback"},
+    rec = run_cell(args.arch, args.shape, args.out, mesh=args.mesh)
+    print(json.dumps({k: v for k, v in rec.items()
+                      if k != "traceback" and k not in _ARRAYS},
                      indent=1, default=str))
     if not rec["ok"]:
         print(rec.get("traceback", ""), file=sys.stderr)

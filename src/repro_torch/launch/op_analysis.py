@@ -14,7 +14,11 @@ a step dispatches (autograd's backward ops too) and accumulates:
                        Each eager op is a top-level op, the counterpart of
                        "fusion internals excluded"; views and allocations
                        move no bytes and are skipped
-  * collective_bytes — 0: the port runs on one device (ROADMAP A8)
+  * collective_bytes — the ring-model traffic of the collectives the step
+                       made on the current mesh (``runtime``'s counters,
+                       by kind and group size), by the reference's
+                       factors per kind (``hlo_analysis.py``'s
+                       ``_collective_traffic``); 0 without a mesh
 
 A Python loop dispatches its body once per trip, so loops count once per
 trip by construction: the counterpart of the HLO analyzer's while-loop
@@ -34,6 +38,7 @@ from torch.utils.flop_counter import flop_registry
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import kernels as K
+from repro_torch import runtime
 
 #: ops that allocate or alias without moving bytes (views are skipped by
 #: ``OpOverload.is_view``)
@@ -42,6 +47,33 @@ _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
              "_local_scalar_dense", "set_", "resize_", "record_stream"}
 #: ops a summary lists, by bytes moved
 TOP_OPS = 12
+
+
+def collective_traffic(kind: str, out_bytes: int, g: int) -> float:
+    """Bytes one device moves for collectives of ``kind`` over groups of
+    ``g`` whose outputs total ``out_bytes`` (the ring model)."""
+    if g <= 1:
+        return 0.0
+    if kind == "all_reduce":
+        return 2.0 * out_bytes * (g - 1) / g
+    if kind == "reduce_scatter":
+        return float(out_bytes) * (g - 1)
+    if kind in ("all_gather", "all_to_all"):
+        return float(out_bytes) * (g - 1) / g
+    return float(out_bytes)          # collective-permute, broadcast
+
+
+def collectives_by_kind(rows: dict) -> dict:
+    """``runtime.CollectiveCounts`` rows ({(kind, group): (calls, bytes)})
+    by kind: calls, output bytes and ring-model traffic."""
+    out: dict = {}
+    for (kind, g), (calls, nbytes) in sorted(rows.items()):
+        row = out.setdefault(kind, {"calls": 0, "bytes": 0,
+                                    "traffic_bytes": 0.0})
+        row["calls"] += calls
+        row["bytes"] += nbytes
+        row["traffic_bytes"] += collective_traffic(kind, nbytes, g)
+    return out
 
 
 def _tensors(tree):
@@ -74,6 +106,9 @@ class OpCounter(TorchDispatchMode):
         self.by_op: dict = defaultdict(lambda: [0, 0, 0])     # n, flops, bytes
         self.kernels: dict = defaultdict(lambda: [0, 0, 0])   # launches, ...
         self._muted = False
+        self._mesh = None
+        self._coll_before: dict = {}
+        self.collectives: dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -112,19 +147,29 @@ class OpCounter(TorchDispatchMode):
 
     def __enter__(self):
         K.add_cost_sink(self)
+        self._mesh = runtime.current_mesh()
+        if self._mesh is not None:
+            self._coll_before = self._mesh.counts.snapshot()
         return super().__enter__()
 
     def __exit__(self, *exc):
         K.remove_cost_sink(self)
+        if self._mesh is not None:
+            self.collectives = collectives_by_kind(
+                runtime.CollectiveCounts.since(self._mesh.counts.snapshot(),
+                                               self._coll_before))
         return super().__exit__(*exc)
 
     def summary(self) -> dict:
-        """The reference analyzer's totals (per device: one device here),
-        the ops moving the most bytes, and every kernel's share."""
+        """The reference analyzer's totals per device (this rank's, on a
+        mesh), the ops moving the most bytes, every kernel's share and the
+        collectives by kind."""
         ops = sorted(self.by_op.items(), key=lambda kv: -kv[1][2])[:TOP_OPS]
         return {"flops_per_device": float(self.flops),
                 "bytes_per_device": float(self.bytes),
-                "collective_bytes_per_device": 0.0,
+                "collective_bytes_per_device": float(sum(
+                    r["traffic_bytes"] for r in self.collectives.values())),
+                "collectives_by_kind": self.collectives,
                 "top_ops": {k: {"n": n, "flops": f, "bytes": b}
                             for k, (n, f, b) in ops},
                 "kernels": {k: {"launches": n, "flops": f, "bytes": b}

@@ -1,19 +1,24 @@
-"""Cell builder: (arch × shape) → step fn + abstract inputs + analytic
-MODEL_FLOPS, on one device. The cell run (``launch/dryrun.py``), the op
-counter and the roofline consume Cells.
+"""Cell builder: (arch × shape × mesh) → step fn + abstract inputs +
+shardings + analytic MODEL_FLOPS. The cell run (``launch/dryrun.py``), the
+op counter and the roofline consume Cells.
 
-The single-device counterpart of the reference's ``launch/specs.py``:
-there is no mesh, so there are no PartitionSpecs and every ``n_dev`` is 1
-(sharded cells wait for ROADMAP A8). Abstract arguments are tensors on
-torch's ``meta`` device (nothing is allocated); :meth:`Cell.materialize`
-draws real ones on a device: parameters from the port's ``init``s with an
-explicit generator, token ids, recsys ids by the port's copy of
-``data/synthetic.py``, graphs by ``synthetic.molecule_batch`` /
-``random_graph`` or ``sampler.sample_fanout``. The ``meta`` dict carries
-the reference's keys and formulas.
+The counterpart of the reference's ``launch/specs.py``. Every cell carries
+``in_specs`` / ``out_specs`` from ``launch/sharding.py`` for its mesh (an
+abstract (1, 1) mesh when none is given), as the reference's Cell does,
+and ``meta["model_bytes_per_device"]`` divided by the mesh's size.
+Abstract arguments are tensors on torch's ``meta`` device (nothing is
+allocated); :meth:`Cell.materialize` draws real ones on a device:
+parameters from the port's ``init``s with an explicit generator, token
+ids, recsys ids by the port's copy of ``data/synthetic.py``, graphs by
+``synthetic.molecule_batch`` / ``random_graph`` or
+``sampler.sample_fanout``. Given a live mesh it draws the rank's part of
+the same values: the recsys serving cells' tables as this rank's rows
+only (``tables_init``), the batch whole and then its ``local_part``. The
+``meta`` dict carries the reference's keys and formulas.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
@@ -25,6 +30,9 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs import registry
 from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig, ShapeSpec
 from repro_torch.data import sampler, synthetic
+from repro_torch.launch import sharding as shr
+from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.launch.sharding import P
 from repro_torch.models import schnet, transformer
 from repro_torch.models.recsys import dien, din, mind, towers
 from repro_torch.train import optimizer as opt_lib
@@ -47,17 +55,36 @@ class Cell:
     carry: int = 0                  # leading outputs fed back as leading args
     meta: dict = field(default_factory=dict)
     device: Any = None              # where materialize() draws by default
+    in_specs: tuple = ()            # trees of sharding.P, like .args
+    out_specs: Any = None
+    mesh: Any = None                # the mesh the specs are for
+    #: (device, generator, rng, live mesh) → the rank's part of the args;
+    #: None where the cell does not run on a mesh yet
+    draw_local: Optional[Callable] = None
+    #: the layout the rank's arguments take on a live mesh, where it is
+    #: not ``in_specs`` (the retrieval cells: the port's ranking calls
+    #: take their candidates whole on every rank)
+    local_specs: Optional[tuple] = None
 
     def materialize(self, device=None, generator: Optional[torch.Generator]
-                    = None) -> tuple:
+                    = None, mesh=None) -> tuple:
         """Real arguments on ``device`` (the cell's, else ``cuda``):
         parameters drawn from ``generator`` (a generator on that device;
         seed 0 if None), ids and graphs from a numpy generator seeded by
-        its initial seed."""
+        its initial seed. With a live ``mesh``, this rank's part of the
+        same values."""
         dev = default_device(device if device is not None else self.device)
         g = generator if generator is not None else \
             torch.Generator(device=dev).manual_seed(0)
-        return self.draw(dev, g, np.random.default_rng(g.initial_seed()))
+        rng = np.random.default_rng(g.initial_seed())
+        if mesh is None:
+            return self.draw(dev, g, rng)
+        if self.draw_local is None:
+            raise NotImplementedError(
+                f"{self.arch_id} x {self.shape_name} on a device mesh is not "
+                f"ported yet (ROADMAP A8): only the recsys serving cells run "
+                f"on a mesh")
+        return self.draw_local(dev, g, rng, mesh)
 
     def next_args(self, args: tuple, out) -> tuple:
         """The arguments of the next call after ``fn(*args)`` gave ``out``:
@@ -68,6 +95,26 @@ class Cell:
         return int(sum(t.numel() * t.element_size()
                        for t in tree_lib.leaves(self.args)
                        if isinstance(t, torch.Tensor)))
+
+    def arg_bytes_per_device(self) -> int:
+        """The argument bytes one rank of the cell's mesh holds: each
+        leaf divided by the ranks its spec (``local_specs``, else
+        ``in_specs``) splits it over."""
+        sizes: list = []
+
+        def one(leaf, spec):
+            if isinstance(leaf, torch.Tensor):
+                split = math.prod(shr.flat_index(self.mesh, shr.entry_axes(e))[1]
+                                  for e in spec) if isinstance(spec, P) else 1
+                sizes.append(leaf.numel() * leaf.element_size() // split)
+        for a, sp in zip(self.args, self.local_specs or self.in_specs):
+            tree_lib.tree_map(one, a, sp)
+        return int(sum(sizes))
+
+
+def _mesh(mesh):
+    """The cell's mesh: an abstract (1, 1) one when none is given."""
+    return abstract_mesh((1, 1), ("data", "model")) if mesh is None else mesh
 
 
 def n_params(params) -> int:
@@ -93,13 +140,13 @@ def _f32(*shape):
 
 # ------------------------------------------------------------------ LM
 
-def _lm_micro(cfg: LMConfig, batch: int) -> int:
-    """Grad-accum microbatches: hold ~1-4 sequences per data shard (one
-    shard here)."""
+def _lm_micro(cfg: LMConfig, batch: int, mesh) -> int:
+    """Grad-accum microbatches: hold ~1-4 sequences per data shard."""
     per_shard = {"deepseek-v3-671b": 1, "qwen3-8b": 2, "starcoder2-7b": 2,
                  "deepseek-v2-lite-16b": 4, "smollm-135m": 2}.get(cfg.name, 2)
-    n = max(1, batch // per_shard)
-    while batch % n:
+    ds = shr.data_size(mesh)
+    n = max(1, batch // (per_shard * ds))
+    while batch % n or (batch // n) % ds:
         n -= 1
     return max(1, n)
 
@@ -133,13 +180,15 @@ def lm_model_bytes(cfg: LMConfig, shape: ShapeSpec, n_dev: int = 1) -> float:
     return (3 * w * 3 + 4 * B * S * cfg.d_model * bpp * cfg.n_layers) / n_dev
 
 
-def build_lm_cell(arch, shape: ShapeSpec, device=None) -> Cell:
+def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
+    mesh = _mesh(mesh)
     cfg: LMConfig = arch.config
     dims = shape.dims
     B, S = dims["global_batch"], dims["seq_len"]
     params = transformer.init(torch.Generator(), cfg, device=META)
+    pspecs = shr.param_specs(params, cfg, mesh)
     meta = {"model_flops": lm_model_flops(cfg, shape),
-            "model_bytes_per_device": lm_model_bytes(cfg, shape),
+            "model_bytes_per_device": lm_model_bytes(cfg, shape, mesh.size),
             "param_dtype": cfg.param_dtype,
             "params": cfg.param_count(), "active_params": cfg.active_param_count()}
 
@@ -150,25 +199,39 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None) -> Cell:
         return _tensors(synthetic.lm_batch(rng, cfg, B, seq)["tokens"], dev)
 
     if shape.kind == "train":
-        n_micro = _lm_micro(cfg, B)
+        n_micro = _lm_micro(cfg, B, mesh)
         step, opt_init = build_train_step(
             lambda p, toks: transformer.lm_loss(p, toks, cfg),
             opt_lib.for_family("lm", cfg.param_count()), n_micro=n_micro)
         meta["n_micro"] = n_micro
+        # ZeRO-2: grad accumulator + optimizer state pick up an extra
+        # `data` sharding (ZeRO-3 with fsdp_params: the params too)
+        zspecs = shr.zero_specs(params, pspecs, mesh)
+        if getattr(cfg, "fsdp_params", False):
+            pspecs = zspecs
+        opt_state = opt_init(params)
+        ospecs = shr.opt_state_specs(opt_state, params, zspecs)
 
         def draw(dev, g, rng):
             p = draw_params(dev, g)
             return p, opt_init(p), draw_tokens(rng, dev, S)
         return Cell(arch.arch_id, shape.name, step,
-                    (params, opt_init(params), _ids(B, S)), draw, carry=2,
-                    meta=meta, device=device)
+                    (params, opt_state, _ids(B, S)), draw, carry=2,
+                    meta=meta, device=device,
+                    in_specs=(pspecs, ospecs, shr.batched_spec(mesh, (B, S))),
+                    out_specs=(pspecs, ospecs, P()), mesh=mesh)
 
+    logits_spec = shr.batched_spec(mesh, (B, cfg.vocab))
+    ca, cb, cl = shr.kv_cache_specs(cfg, B, mesh)
+    cache_specs = transformer.KVCache(a=ca, b=cb, length=cl)
     if shape.kind == "prefill":
         def draw(dev, g, rng):
             return draw_params(dev, g), draw_tokens(rng, dev, S)
         return Cell(arch.arch_id, shape.name,
                     lambda p, toks: transformer.prefill(p, toks, cfg, smax=S),
-                    (params, _ids(B, S)), draw, meta=meta, device=device)
+                    (params, _ids(B, S)), draw, meta=meta, device=device,
+                    in_specs=(pspecs, shr.batched_spec(mesh, (B, S))),
+                    out_specs=(logits_spec, cache_specs), mesh=mesh)
 
     # decode / decode_long: one new token against a seq_len KV cache whose
     # valid prefix is S - 1, so the step reads (and writes) all S rows;
@@ -184,7 +247,9 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None) -> Cell:
         return draw_params(dev, g), cache, draw_tokens(rng, dev, 1)
     return Cell(arch.arch_id, shape.name, decode_fn,
                 (params, transformer.KVCache.zeros(cfg, B, S, device=META),
-                 _ids(B, 1)), draw, meta=meta, device=device)
+                 _ids(B, 1)), draw, meta=meta, device=device,
+                in_specs=(pspecs, cache_specs, shr.batched_spec(mesh, (B, 1))),
+                out_specs=(logits_spec, cache_specs), mesh=mesh)
 
 
 # ------------------------------------------------------------------ GNN
@@ -207,7 +272,8 @@ def _pad_edges(edges: np.ndarray, dist: np.ndarray, n_nodes: int, E: int):
     return edges, dist
 
 
-def build_gnn_cell(arch, shape: ShapeSpec, device=None) -> Cell:
+def build_gnn_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
+    mesh = _mesh(mesh)
     cfg: GNNConfig = arch.config
     d = shape.dims
     if shape.kind == "graph_batched":
@@ -263,10 +329,17 @@ def build_gnn_cell(arch, shape: ShapeSpec, device=None) -> Cell:
         lambda p, b: schnet.loss_fn(p, b["inputs"], b["targets"], cfg,
                                     n_graphs=n_graphs), opt_lib.adamw())
     params = schnet.init(torch.Generator(), cfg, d_feat_in, device=META)
+    pspecs = shr.param_specs(params, cfg, mesh)
+    opt_state = opt_init(params)
+    ospecs = shr.opt_state_specs(opt_state, params, pspecs)
+    in_spec = {k: (shr.edge_spec(mesh, v.dim()) if k in ("edges", "edge_dist")
+                   else P(*(None,) * v.dim()))
+               for k, v in inputs.items()}
+    bspec = {"inputs": in_spec, "targets": P(None)}
     meta = {"model_flops": gnn_model_flops(cfg, N, E, d_in),
             "model_bytes_per_device":
                 (E * (cfg.n_rbf + 3 * cfg.d_hidden) * 4 * cfg.n_interactions
-                 + N * (d_in + 4 * cfg.d_hidden) * 4),
+                 + N * (d_in + 4 * cfg.d_hidden) * 4) / mesh.size,
             "param_dtype": "float32",
             "params": n_params(params)}
 
@@ -277,9 +350,10 @@ def build_gnn_cell(arch, shape: ShapeSpec, device=None) -> Cell:
                  "targets": _tensors(targets_np, dev)}
         return p, opt_init(p), batch
     return Cell(arch.arch_id, shape.name, step,
-                (params, opt_init(params),
-                 {"inputs": inputs, "targets": targets}),
-                draw, carry=2, meta=meta, device=device)
+                (params, opt_state, {"inputs": inputs, "targets": targets}),
+                draw, carry=2, meta=meta, device=device,
+                in_specs=(pspecs, ospecs, bspec),
+                out_specs=(pspecs, ospecs, P()), mesh=mesh)
 
 
 # --------------------------------------------------------------- recsys
@@ -297,15 +371,24 @@ def _rec_batch_abstract(cfg: RecsysConfig, batch: int, with_label=True):
     return b
 
 
+def _rec_batch_specs(batch: dict, mesh):
+    """``batched_spec`` of every leaf of a (meta) recsys batch (the
+    reference's ``_rec_batch_specs``)."""
+    return tree_lib.tree_map(lambda t: shr.batched_spec(mesh, tuple(t.shape)),
+                             batch)
+
+
 def rec_dense_params(params) -> int:
     return int(sum(t.numel() for path, t in tree_lib.flatten_with_paths(params)
                    if "tables" not in path))
 
 
-def build_rec_cell(arch, shape: ShapeSpec, device=None) -> Cell:
+def build_rec_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
+    mesh = _mesh(mesh)
     cfg: RecsysConfig = arch.config
     mod = REC_MODULES[cfg.model]
     params = mod.init(torch.Generator(), cfg, device=META)
+    pspecs = shr.param_specs(params, cfg, mesh)
     n_dense = rec_dense_params(params)
     n_table = n_params(params) - n_dense
     d = shape.dims
@@ -316,10 +399,19 @@ def build_rec_cell(arch, shape: ShapeSpec, device=None) -> Cell:
     def rec_bytes(B):
         # embedding rows touched + dense params + activations (fp32)
         return (B * n_lookup_rows * cfg.embed_dim * 4 + n_dense * 4
-                + B * n_lookup_rows * cfg.embed_dim * 4)
+                + B * n_lookup_rows * cfg.embed_dim * 4) / mesh.size
 
     def draw_params(dev, g):
         return mod.init(g, cfg, device=dev)
+
+    def local_draw(draw_rest, in_specs):
+        """The rank's part: its rows of the tables, the rest whole, then
+        its local_part by ``in_specs``."""
+        def draw_local(dev, g, rng, live):
+            rest = draw_rest(rng, dev)
+            return (mod.init(g, cfg, device=dev, mesh=live),
+                    *shr.local_tree(rest, in_specs[1:], live))
+        return draw_local
 
     if shape.kind in ("rec_train", "rec_serve"):
         B = d["batch"]
@@ -331,9 +423,11 @@ def build_rec_cell(arch, shape: ShapeSpec, device=None) -> Cell:
                 b.pop("label")
             return _tensors(b, dev)
         batch = _rec_batch_abstract(cfg, B, with_label=train)
+        bspec = _rec_batch_specs(batch, mesh)
         if train:
             step, opt_init = build_train_step(
                 lambda p, b: mod.loss_fn(p, b, cfg), opt_lib.for_family("recsys"))
+            opt_state = opt_init(params)
             meta = {"model_flops": 6.0 * n_dense * B, "params": n_dense + n_table,
                     "model_bytes_per_device": 3 * rec_bytes(B),
                     "param_dtype": "float32", "dense_params": n_dense}
@@ -341,51 +435,79 @@ def build_rec_cell(arch, shape: ShapeSpec, device=None) -> Cell:
             def draw(dev, g, rng):
                 p = draw_params(dev, g)
                 return p, opt_init(p), draw_batch(rng, dev)
+            ospecs = shr.opt_state_specs(opt_state, params, pspecs)
             return Cell(arch.arch_id, shape.name, step,
-                        (params, opt_init(params), batch), draw, carry=2,
-                        meta=meta, device=device)
+                        (params, opt_state, batch), draw, carry=2,
+                        meta=meta, device=device,
+                        in_specs=(pspecs, ospecs, bspec),
+                        out_specs=(pspecs, ospecs, P()), mesh=mesh)
         meta = {"model_flops": 2.0 * n_dense * B, "params": n_dense + n_table,
                 "model_bytes_per_device": rec_bytes(B),
                 "param_dtype": "float32"}
+        in_specs = (pspecs, bspec)
         return Cell(arch.arch_id, shape.name,
                     lambda p, b: mod.serve_scores(p, b, cfg), (params, batch),
                     lambda dev, g, rng: (draw_params(dev, g),
                                          draw_batch(rng, dev)),
-                    meta=meta, device=device)
+                    meta=meta, device=device, in_specs=in_specs,
+                    out_specs=shr.batched_spec(mesh, (B,)), mesh=mesh,
+                    draw_local=local_draw(
+                        lambda rng, dev: (draw_batch(rng, dev),), in_specs))
 
     # rec_retrieval: 1 query vs n_candidates
     C = d["n_candidates"]
     user = _rec_batch_abstract(cfg, 1, with_label=False)["user"]
     cand = _rec_batch_abstract(cfg, C, with_label=False)["item"]
+    uspec = tree_lib.tree_map(lambda t: P(*(None,) * t.dim()), user)
+    cspec = _rec_batch_specs(cand, mesh)
     meta = {"model_flops": 2.0 * n_dense * C, "params": n_dense + n_table,
             "model_bytes_per_device": rec_bytes(C), "param_dtype": "float32"}
     if cfg.model == "two_tower":
-        fn = lambda p, u, c: towers.retrieve(p, u["fields"], c, cfg)
+        def fn(p, u, c):
+            return towers.retrieve(p, u["fields"], c, cfg)
     elif cfg.model == "mind":
-        fn = lambda p, u, c: mind.retrieve(p, u, c, cfg)
+        def fn(p, u, c):
+            return mind.retrieve(p, u, c, cfg)
     elif cfg.model == "din":
         # the reference pins its broadcast path here (the mesh-sharded
         # computation); in the port path="jnp" is that same math: the
         # history broadcast to every candidate, the din_attention kernel
         # over a batch of C, then the score MLP (not the fused
         # rerank_score kernel)
-        fn = lambda p, u, c: din.score_candidates(p, u, c, cfg, path="jnp")
+        def fn(p, u, c):
+            return din.score_candidates(p, u, c, cfg, path="jnp")
     else:
-        fn = lambda p, u, c: mod.score_candidates(p, u, c, cfg)
+        def fn(p, u, c):
+            return mod.score_candidates(p, u, c, cfg)
 
-    def draw(dev, g, rng):
+    def draw_rest(rng, dev):
         u = synthetic.recsys_batch(rng, cfg, 1)["user"]
         c = synthetic.recsys_ids(rng, cfg.item_fields, C)
-        return draw_params(dev, g), _tensors(u, dev), _tensors(c, dev)
+        return _tensors(u, dev), _tensors(c, dev)
+
+    def draw(dev, g, rng):
+        return (draw_params(dev, g), *draw_rest(rng, dev))
+    # the reference's layout splits the candidates over data; the port's
+    # ranking calls take them whole on every rank and split them
+    # themselves where the reference's model code does (a local slice),
+    # so each rank draws them whole and no collective undoes the layout
+    in_specs = (pspecs, uspec, cspec)
+    local_specs = (pspecs, uspec,
+                   tree_lib.tree_map(lambda t: P(*(None,) * t.dim()), cand))
     return Cell(arch.arch_id, shape.name, fn, (params, user, cand), draw,
-                meta=meta, device=device)
+                meta=meta, device=device, in_specs=in_specs,
+                out_specs=(P(None), P(None)), mesh=mesh,
+                draw_local=local_draw(draw_rest, local_specs),
+                local_specs=local_specs)
 
 
 def build_cell(arch_id: str, shape_name: str, device=None,
-               reduced: bool = False) -> Cell:
-    """The cell of ``arch_id`` × ``shape_name``; ``reduced`` takes the
-    arch's reduced config (the shapes stay as published). ``device`` is
-    where :meth:`Cell.materialize` draws by default (``cuda`` if None)."""
+               reduced: bool = False, mesh=None) -> Cell:
+    """The cell of ``arch_id`` × ``shape_name`` on ``mesh`` (an abstract
+    or live ``launch.mesh.Mesh``; an abstract (1, 1) mesh if None), which
+    sets its specs and per-device bytes; ``reduced`` takes the arch's
+    reduced config (the shapes stay as published). ``device`` is where
+    :meth:`Cell.materialize` draws by default (``cuda`` if None)."""
     arch = registry.get(arch_id)
     shape = registry.get_shape(arch, shape_name)
     if reduced:
@@ -394,4 +516,4 @@ def build_cell(arch_id: str, shape_name: str, device=None,
                                 arch.reduced)
     builder = {"lm": build_lm_cell, "gnn": build_gnn_cell,
                "recsys": build_rec_cell}[arch.family]
-    return builder(arch, shape, device)
+    return builder(arch, shape, device, mesh=mesh)

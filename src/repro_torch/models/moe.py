@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 from repro_torch.models.layers import activation, as_dtype, randn_scaled
 from repro_torch.topk import ordered_topk
 
@@ -100,8 +100,10 @@ def _dispatch_compute_combine(xg, gate, idx, w1, w3, w2, *, e0: int, C: int,
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, act: str = "silu", mesh=None):
     """x (..., d) → (same, aux_loss). Token dims are flattened internally.
-    Single device only: a ``mesh`` raises."""
-    if mesh is not None:
+    Single device only: a ``mesh``, or an installed mesh
+    (``runtime.current_mesh()``) whose ``model`` axis is larger than 1,
+    raises."""
+    if mesh is not None or runtime.axis_size("model") > 1:
         raise NotImplementedError(
             "the expert-parallel MoE over a device mesh is not ported yet "
             "(ROADMAP A8); only the single-device path exists")

@@ -5,19 +5,56 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import default_device
+from repro_torch.runtime import RowShard
 from repro_torch.configs.base import FeatureField, RecsysConfig
 from repro_torch.sparse.sharded import sharded_embedding_bag_group
 
 
+#: rows drawn from one seed by :func:`tables_init` (a rank's part of a
+#: table is drawn chunk by chunk, so it equals the whole table's rows)
+TABLE_CHUNK_ROWS = 1 << 16
+
+
+def _table_rows(seed: int, vocab: int, dim: int, start: int, stop: int,
+                dev) -> torch.Tensor:
+    """Rows [start, stop) of a (vocab, dim) table ~ N(0, 0.01²) whose
+    chunk c (rows [c * TABLE_CHUNK_ROWS, ...)) is drawn from seed + c."""
+    out = torch.empty((stop - start, dim), dtype=torch.float32, device=dev)
+    if dev.type == "meta":                  # shapes only (launch/specs.py)
+        return out
+    for c in range(start // TABLE_CHUNK_ROWS,
+                   -(-stop // TABLE_CHUNK_ROWS)):
+        lo = c * TABLE_CHUNK_ROWS
+        hi = min(lo + TABLE_CHUNK_ROWS, vocab)
+        gen = torch.Generator(device=dev).manual_seed(seed + c)
+        chunk = torch.randn((hi - lo, dim), generator=gen, device=dev,
+                            dtype=torch.float32).mul_(0.01)
+        a, b = max(lo, start), min(hi, stop)
+        out[a - start:b - start] = chunk[a - lo:b - lo]
+    return out
+
+
 def tables_init(generator: torch.Generator, cfg: RecsysConfig,
-                device=None) -> dict:
+                device=None, mesh=None) -> dict:
     """One (vocab, embed_dim) table per feature field, ~ N(0, 0.01²), keyed
-    by field name. Drawn in place so a multi-GB table never exists twice."""
+    by field name. Each table takes one seed from ``generator`` and draws
+    its rows chunk by chunk from it, never existing twice. On a live
+    ``mesh`` a table whose rows split over ("data", "model")
+    (``sharding.recsys_param_specs``) is drawn as this rank's
+    ``RowShard`` only: the same rows as the whole table's."""
+    from repro_torch.launch import sharding
     dev = default_device(device)
-    fields = cfg.user_fields + cfg.item_fields
-    return {f.name: torch.randn((f.vocab, cfg.embed_dim), generator=generator,
-                                device=dev, dtype=torch.float32).mul_(0.01)
-            for f in fields}
+    out = {}
+    for f in cfg.user_fields + cfg.item_fields:
+        seed = int(torch.randint(0, 1 << 62, (1,), generator=generator,
+                                 device=generator.device))
+        axes = None if mesh is None else sharding.table_axes(f.vocab, mesh)
+        idx, n = (0, 1) if axes is None else sharding.flat_index(mesh, axes)
+        rows = f.vocab // n
+        part = _table_rows(seed, f.vocab, cfg.embed_dim, idx * rows,
+                           (idx + 1) * rows, dev)
+        out[f.name] = part if n == 1 else RowShard(part, f.vocab, axes)
+    return out
 
 
 def field_lookups(tables: dict, fields: tuple[FeatureField, ...],
@@ -44,7 +81,8 @@ def masked_hist(emb: torch.Tensor, hist_ids: torch.Tensor, dim: int):
 def embed_fields(tables: dict, fields: tuple[FeatureField, ...],
                  ids: dict) -> torch.Tensor:
     """ids[name]: (B,) or (B, bag) int → concat (B, n_fields * D), from one
-    grouped lookup that writes the concatenation in place."""
+    grouped lookup that writes the concatenation in place (on a mesh, ids
+    in the batch layout of ``sharded_embedding_bag_group``)."""
     return sharded_embedding_bag_group(field_lookups(tables, fields, ids),
                                        blocks=(len(fields),))[0]
 

@@ -16,16 +16,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels.augru import augru
 from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
 from repro_torch.models.recsys.common import (bce_loss, field_lookups,
                                               hist_lookup, masked_hist,
                                               tables_init)
-from repro_torch.sparse.sharded import (sharded_embedding_bag_group,
+from repro_torch.sparse.sharded import (BIG_AXES, sharded_embedding_bag_group,
                                         sharded_gather_a2a)
-from repro_torch.topk import ordered_topk
+from repro_torch.topk import sharded_topk
 
 
 def _randn(generator, shape, dev):
@@ -72,15 +72,17 @@ def augru_apply(p, x: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
     return augru(x.contiguous(), att.contiguous(), p["w"], p["u"], p["b"])
 
 
-def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
+def init(generator: torch.Generator, cfg: RecsysConfig, device=None,
+         mesh=None) -> dict:
     """Random DIEN parameters drawn from ``generator`` (which must live on
     ``device``), in the reference's layout: {"tables", "gru", "augru",
-    "att_w", "mlp", "aux_w"}."""
+    "att_w", "mlp", "aux_w"}.; on a live
+    ``mesh`` the split tables are this rank's RowShards (``tables_init``)."""
     dev = default_device(device)
     D, H = cfg.embed_dim, cfg.gru_dim
     d_other = (len(cfg.user_fields) + len(cfg.item_fields) - 1) * D
     return {
-        "tables": tables_init(generator, cfg, device=dev),
+        "tables": tables_init(generator, cfg, device=dev, mesh=mesh),
         "gru": gru_init(generator, D, H, device=dev),
         "augru": gru_init(generator, H, H, device=dev),
         "att_w": _randn(generator, (H, D), dev) / np.sqrt(H),
@@ -150,26 +152,35 @@ def serve_scores(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
 def score_candidates(params, user_batch: dict, cand_ids: dict,
                      cfg: RecsysConfig, top_k: int = 100):
     """Re-rank vs C candidates: GRU once, AUGRU per candidate (C rows of
-    one ``augru`` launch). Returns (values, indices) of the ``top_k`` best
-    scores, best first, the lower index first among equal scores
-    (``lax.top_k``'s order)."""
+    one ``augru`` launch). On a mesh (``user_batch`` and ``cand_ids``
+    whole on every rank) C splits over ("data", "model") as in the
+    reference (dien.py:141-142): each rank runs the AUGRU over its block
+    and the ranks' top-k lists are merged. Returns (values, indices) of
+    the ``top_k`` best scores, best first, the lower index first among
+    equal scores (``lax.top_k``'s order), the same on every rank."""
     C = cand_ids["item_id"].shape[0]
     tables = params["tables"]
     item_side = tuple(f for f in cfg.item_fields if f.name != "item_id")
     hist_ids = user_batch["hist"]
+    # the rank's candidates (a local slice of the whole ids)
+    cands = {k: runtime.shard(v, BIG_AXES) for k, v in cand_ids.items()}
     emb, other_u, other_i = sharded_embedding_bag_group(
         [hist_lookup(tables, hist_ids),
          *field_lookups(tables, cfg.user_fields, user_batch["fields"]),
-         *field_lookups(tables, item_side, cand_ids)],
-        blocks=(1, len(cfg.user_fields), len(item_side)))
+         *field_lookups(tables, item_side, cands)],
+        blocks=(1, len(cfg.user_fields), len(item_side)),
+        batch_axes=BIG_AXES)
     hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)    # (1,T,D)
     states = gru_apply(params["gru"], hist)                   # (1,T,H)
-    target = sharded_gather_a2a(tables["item_id"], cand_ids["item_id"])  # (C,D)
-    states_b = states.expand(C, *states.shape[1:])
-    mask_b = mask.expand(C, mask.shape[1])
+    # already split over ("data", "model"): the reference's shard at
+    # dien.py:141 holds; its broadcast (dien.py:142) covers the rank's rows
+    target = sharded_gather_a2a(tables["item_id"], cands["item_id"])  # (n,D)
+    n = target.shape[0]
+    states_b = states.expand(n, *states.shape[1:])
+    mask_b = mask.expand(n, mask.shape[1])
     att = _attention(states_b, params["att_w"], target, mask_b)
-    final = augru_apply(params["augru"], states_b, att)        # (C,H)
-    other_u = other_u.expand(C, other_u.shape[-1])
+    final = augru_apply(params["augru"], states_b, att)        # (n,H)
+    other_u = other_u.expand(n, other_u.shape[-1])
     x = torch.cat([final, target, other_u, other_i], dim=-1)
     scores = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
-    return ordered_topk(scores.float(), top_k)
+    return sharded_topk(scores.float(), top_k, C)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels.din_attention import din_attention
 from repro_torch.kernels.rerank_score import rerank_score
@@ -20,20 +20,23 @@ from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
 from repro_torch.models.recsys.common import (bce_loss, field_lookups,
                                               hist_lookup, masked_hist,
                                               tables_init)
-from repro_torch.sparse.sharded import (sharded_embedding_bag_group,
+from repro_torch.sparse.sharded import (BIG_AXES, sharded_embedding_bag_group,
                                         sharded_gather_a2a)
-from repro_torch.topk import ordered_topk
+from repro_torch.topk import ordered_topk, sharded_topk
 
 
-def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
+def init(generator: torch.Generator, cfg: RecsysConfig, device=None,
+         mesh=None) -> dict:
     """Random DIN parameters drawn from ``generator`` (which must live on
-    ``device``), in the reference's layout: {"tables", "attn_mlp", "mlp"}."""
+    ``device``), in the reference's layout: {"tables", "attn_mlp", "mlp"};
+    on a live ``mesh`` the split tables are this rank's RowShards
+    (``tables_init``)."""
     dev = default_device(device)
     D = cfg.embed_dim
     # final MLP sees [pooled, target, all user fields, item fields sans item_id]
     d_other = (len(cfg.user_fields) + len(cfg.item_fields) - 1) * D
     return {
-        "tables": tables_init(generator, cfg, device=dev),
+        "tables": tables_init(generator, cfg, device=dev, mesh=mesh),
         "attn_mlp": mlp_tower_init(generator, 4 * D, cfg.attn_mlp + (1,),
                                    torch.float32, device=dev),
         "mlp": mlp_tower_init(generator, D + D + d_other, cfg.mlp + (1,),
@@ -102,27 +105,46 @@ def score_candidates(params, user_batch: dict, cand_ids: dict,
     (serve/bucketing.compact_history) so the fused pass scores only the
     valid history rows.
 
+    On a mesh (``user_batch`` and ``cand_ids`` whole on every rank) the
+    fused path gathers the candidates' target rows (all-to-all, then
+    all_gather) and runs the kernel on every rank over all C, as the
+    reference's jit replicates a kernel call no shard_map wraps
+    (din.py:93-102); the broadcast path splits C over ("data", "model")
+    as the reference's launch cells pin it (din.py:106, 111), each rank
+    scoring its block, and the ranks' top-k lists are merged.
+
     Returns (values, indices) of the ``top_k`` best scores, best first,
-    the lower index first among equal scores (``lax.top_k``'s order)."""
+    the lower index first among equal scores (``lax.top_k``'s order), the
+    same on every rank."""
     C = cand_ids["item_id"].shape[0]
     tables = params["tables"]
     item_side = tuple(f for f in cfg.item_fields if f.name != "item_id")
     hist_ids = user_batch["hist"]
+    fused = path == "fused" and len(cfg.attn_mlp) == 2 and len(cfg.mlp) == 2
+    # the broadcast path's candidates: the rank's block over ("data",
+    # "model") (a local slice; the reference's shard at din.py:106, 111)
+    cands = cand_ids if fused else {
+        k: runtime.shard(v, BIG_AXES) for k, v in cand_ids.items()}
     emb, other_u, other_i = sharded_embedding_bag_group(
         [hist_lookup(tables, hist_ids),
          *field_lookups(tables, cfg.user_fields, user_batch["fields"]),
-         *field_lookups(tables, item_side, cand_ids)],
-        blocks=(1, len(cfg.user_fields), len(item_side)))
+         *field_lookups(tables, item_side, cands)],
+        blocks=(1, len(cfg.user_fields), len(item_side)),
+        batch_axes=() if fused else BIG_AXES)
     hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)    # (1,T,D)
-    target = sharded_gather_a2a(tables["item_id"], cand_ids["item_id"])  # (C,D)
-    if path == "fused" and len(cfg.attn_mlp) == 2 and len(cfg.mlp) == 2:
+    target = sharded_gather_a2a(
+        tables["item_id"], runtime.shard(cand_ids["item_id"], BIG_AXES))
+    if fused:
+        target = runtime.gather_rows(target, BIG_AXES, C)     # (C,D)
         scores = rerank_score(hist[0], mask[0], target, other_u[0], other_i,
                               params["attn_mlp"], params["mlp"])
-    else:
-        hist = hist.expand(C, *hist.shape[1:])
-        mask = mask.expand(C, mask.shape[1])
-        pooled = attention_pool(params, hist, mask, target)
-        other_u = other_u.expand(C, other_u.shape[-1])
-        x = torch.cat([pooled, target, other_u, other_i], dim=-1)
-        scores = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
-    return ordered_topk(scores.float(), top_k)
+        return ordered_topk(scores.float(), top_k)
+    n = target.shape[0]                     # the rank's candidates
+    # the history broadcast to the rank's rows only (din.py:106)
+    hist = hist.expand(n, *hist.shape[1:])
+    mask = mask.expand(n, mask.shape[1])
+    pooled = attention_pool(params, hist, mask, target)
+    other_u = other_u.expand(n, other_u.shape[-1])
+    x = torch.cat([pooled, target, other_u, other_i], dim=-1)
+    scores = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
+    return sharded_topk(scores.float(), top_k, C)

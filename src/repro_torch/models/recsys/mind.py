@@ -16,25 +16,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
 from repro_torch.models.recsys.common import (hist_lookup, l2_normalize,
                                               masked_hist,
                                               sampled_softmax_loss, tables_init)
-from repro_torch.sparse.sharded import (sharded_embedding_bag_group,
+from repro_torch.sparse.sharded import (BIG_AXES, sharded_embedding_bag_group,
                                         sharded_gather_a2a)
-from repro_torch.topk import ordered_topk
+from repro_torch.topk import sharded_topk
 
 
-def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
+def init(generator: torch.Generator, cfg: RecsysConfig, device=None,
+         mesh=None) -> dict:
     """Random MIND parameters drawn from ``generator`` (which must live on
     ``device``), in the reference's layout: {"tables", "s_bilinear",
-    "interest_mlp"}."""
+    "interest_mlp"}.; on a live
+    ``mesh`` the split tables are this rank's RowShards (``tables_init``)."""
     dev = default_device(device)
     D = cfg.embed_dim
     return {
-        "tables": tables_init(generator, cfg, device=dev),
+        "tables": tables_init(generator, cfg, device=dev, mesh=mesh),
         "s_bilinear": torch.randn((D, D), generator=generator, device=dev,
                                   dtype=torch.float32) / np.sqrt(D),
         "interest_mlp": mlp_tower_init(generator, D, cfg.mlp + (D,),
@@ -116,10 +118,17 @@ def serve_scores(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
 def retrieve(params, user_batch: dict, cand_ids: dict, cfg: RecsysConfig,
              top_k: int = 100):
     """One user's K interests vs C candidates: the best interest's score
-    per candidate, then the top ``top_k`` (values, indices), best first."""
+    per candidate, then the top ``top_k`` (values, indices), best first.
+    On a mesh (``user_batch`` and ``cand_ids`` whole on every rank) each
+    rank scores its block of C over ("data", "model") and the ranks'
+    top-k lists are merged."""
+    C = cand_ids["item_id"].shape[0]
     emb, mask = _hist(params, {"user": user_batch}, cfg)
     I = interests(params, emb, mask, cfg)[0]                  # (K,D)
-    v = l2_normalize(sharded_gather_a2a(params["tables"]["item_id"],
-                                        cand_ids["item_id"]))
-    scores = torch.amax(v @ I.T, dim=-1).float()              # (C,)
-    return ordered_topk(scores, top_k)
+    # already split over ("data", "model"): the reference's shard at
+    # mind.py:98 holds
+    v = l2_normalize(sharded_gather_a2a(
+        params["tables"]["item_id"],
+        runtime.shard(cand_ids["item_id"], BIG_AXES)))
+    scores = torch.amax(v @ I.T, dim=-1).float()              # (n,)
+    return sharded_topk(scores, top_k, C)

@@ -47,3 +47,45 @@ def ordered_topk(x: torch.Tensor, k: int):
     i = torch.sort(total_order_key(x), dim=-1, descending=True,
                    stable=True).indices[..., :k]
     return torch.gather(x, -1, i), i
+
+
+def merge_topk(values: torch.Tensor, indices: torch.Tensor, k: int):
+    """The ``k`` best of candidate lists gathered from several ranks, in
+    ``lax.top_k``'s order over the global ``indices``: key descending,
+    the lower index first among equal keys; entries with index -1 (a
+    rank's padding) come last."""
+    order = torch.sort(indices, stable=True).indices
+    order = order[torch.sort(total_order_key(values[order]), descending=True,
+                             stable=True).indices]
+    valid = (indices[order] >= 0).to(torch.int8)
+    order = order[torch.sort(valid, descending=True, stable=True).indices][:k]
+    return values[order], indices[order]
+
+
+def merge_over_mesh(values: torch.Tensor, indices: torch.Tensor, start: int,
+                    k: int, axes=("data", "model")):
+    """A rank's top-k (values, indices local to its block of a vector split
+    over ``axes``, which starts at global index ``start``) merged with
+    every other rank's into the global top ``k`` (:func:`merge_topk`), the
+    same on every rank. No mesh: the lists as they are."""
+    from repro_torch import runtime
+    if runtime.current_mesh() is None or runtime.axes_size(axes) == 1:
+        return values, indices
+    pad = k - values.shape[-1]
+    values = torch.nn.functional.pad(values, (0, pad))
+    indices = torch.nn.functional.pad(indices + start, (0, pad), value=-1)
+    return merge_topk(runtime.all_gather(values, axes),
+                      runtime.all_gather(indices, axes), k)
+
+
+def sharded_topk(x: torch.Tensor, k: int, n: int, axes=("data", "model")):
+    """:func:`ordered_topk` of a length-``n`` vector of which each rank
+    holds its block over ``axes`` (``runtime.block``; padding past ``n``
+    ignored): each rank's top-k, merged (:func:`merge_over_mesh`)."""
+    from repro_torch import runtime
+    if not 0 <= k <= n:
+        raise ValueError(f"top-k: k={k} must lie in [0, {n}]")
+    start, per = runtime.block(n, axes)
+    valid = max(0, min(per, n - start))
+    v, i = ordered_topk(x[:valid], min(k, valid))
+    return merge_over_mesh(v, i, start, k, axes)

@@ -199,13 +199,37 @@ def test_lookup_and_padded_bag_match_reference(rng):
         embedding.lookup(tt, it[:, 0]).numpy(), **TOL)
 
 
-def test_sharded_paths_refuse_a_mesh():
-    t = torch.zeros(4, 2)
-    i = torch.zeros(3, dtype=torch.int64)
-    for fn in (sharded.sharded_lookup, sharded.sharded_gather_a2a,
-               sharded.sharded_embedding_bag, sharded.sharded_embedding_bag_2d):
-        with pytest.raises(NotImplementedError):
-            fn(t, i[:, None] if "bag" in fn.__name__ else i, mesh=object())
+def test_sharded_paths_refuse_a_mesh(rng):
+    """The four lookup paths on a 2x2 mesh of gloo ranks (their collective
+    paths; they no longer refuse a mesh) equal the reference's lookups on
+    one device: the table's rows split over ``model`` for
+    ``sharded_lookup`` / ``sharded_embedding_bag`` and over ("data",
+    "model") for ``sharded_gather_a2a`` / ``sharded_embedding_bag_2d``,
+    the ids the ranks' blocks."""
+    from repro_torch.launch.mesh import Job, run_jobs
+    from repro_torch.launch.sharding import P
+    table = rng.normal(size=(32, 6)).astype(np.float32)
+    ids = rng.integers(0, 32, (8, 3))
+    w = rng.random((8, 3)).astype(np.float32)
+    S, big = "repro_torch.sparse.sharded:", ("data", "model")
+    jobs = [Job(S + "sharded_lookup", table, P("model", None), (ids,),
+                (P("data", None),), out_specs=P("data", None, None)),
+            Job(S + "sharded_gather_a2a", table, P(big, None), (ids[:, 0],),
+                (P(big),), out_specs=P(big, None)),
+            Job(S + "sharded_embedding_bag", table, P("model", None),
+                (ids, w, "mean"), (P("data", None), P("data", None), None),
+                out_specs=P("data", None)),
+            Job(S + "sharded_embedding_bag_2d", table, P(big, None),
+                (ids, w, "mean"), (P("data", None), P("data", None), None),
+                out_specs=P("data", None))]
+    tj, ij = jnp.asarray(table), jnp.asarray(ids.astype(np.int32))
+    bag = np.asarray(jax_embedding.embedding_bag_padded(
+        tj, ij, jnp.asarray(w), "mean"))
+    want = [np.asarray(jax_embedding.lookup(tj, ij)),
+            np.asarray(jax_embedding.lookup(tj, ij[:, 0])), bag, bag]
+    for rank in run_jobs(jobs, (2, 2), timeout=150):
+        for got, ref in zip(rank, want):
+            np.testing.assert_allclose(got["out"], ref, **TOL)
 
 
 def test_offsets_and_cube_bag_are_the_reference_numpy(rng):

@@ -247,10 +247,23 @@ def test_sharded_row_update_matches_reference(dtype, rng):
     assert torch.equal(tt, before)
 
 
-def test_sharded_row_update_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A8"):
-        sharded_row_update(torch.zeros(2, 2), [0], [[1.0, 1.0]],
-                           mesh=object())
+def test_sharded_row_update_refuses_a_mesh(rng):
+    """On a (1, 4) mesh of gloo ranks (the table's rows over ``model``; it
+    no longer refuses a mesh) each rank writes only the rows it owns: ids
+    on every shard edge land where the reference's one-device scatter puts
+    them, none wraps into another shard's tail, and an id past the table
+    is dropped."""
+    from repro_torch.launch.mesh import Job, run_jobs
+    from repro_torch.launch.sharding import P
+    base = rng.standard_normal((32, DIM)).astype(np.float32)
+    ids = np.array([0, 7, 8, 15, 16, 23, 24, 31, 40])
+    rows = rng.standard_normal((ids.size, DIM)).astype(np.float32)
+    want = np.asarray(jax_row_update(jax.numpy.asarray(base), ids, rows))
+    job = Job("repro_torch.sparse.sharded:sharded_row_update", base,
+              P("model", None), (ids, rows), (None, None),
+              out_specs=P("model", None))
+    for rank in run_jobs([job], (1, 4), timeout=150):
+        np.testing.assert_array_equal(rank[0]["out"], want)
 
 
 # -------------------------------------------------------------- snapshots

@@ -209,13 +209,35 @@ def test_each_model_call_makes_one_grouped_lookup(call, monkeypatch):
 
 def test_sharded_group_takes_single_ids_and_refuses_a_mesh(rng):
     """``sharded_embedding_bag_group`` reads (B,) ids as bags of one, as
-    ``sharded_embedding_bag_2d`` does, and refuses a device mesh like the
-    port's other sharded paths (the collective paths are not ported)."""
+    ``sharded_embedding_bag_2d`` does, on one device and on a 2x2 mesh of
+    gloo ranks (its collective path; it no longer refuses a mesh): there
+    ``embed_fields`` over single-id and multi-hot sum / mean fields equals
+    the reference's ``embed_fields`` on one device, in one all_gather, one
+    reduce_scatter and one all_reduce."""
+    from repro_torch.launch.mesh import Job, run_jobs
+    from repro_torch.launch.sharding import P
     table = torch.as_tensor(rng.normal(size=(10, 4)).astype(np.float32))
     ids = torch.as_tensor(rng.integers(0, 10, 6))
     got, = sharded.sharded_embedding_bag_group([(table, ids, None, "sum")])
     torch.testing.assert_close(got, sharded.sharded_embedding_bag_2d(table,
                                                                      ids))
-    with pytest.raises(NotImplementedError):
-        sharded.sharded_embedding_bag_group([(table, ids, None, "sum")],
-                                            mesh=object())
+    cfg, port_cfg = (reg.get("din").reduced(reg.get("din").config)
+                     for reg in (registry, torch_registry))
+    fields = cfg.user_fields + cfg.item_fields
+    tables = {f.name: rng.normal(size=(f.vocab, cfg.embed_dim)).astype(
+        np.float32) for f in fields}
+    ids = synthetic.recsys_ids(rng, fields, 8)
+    want = np.asarray(jax_common.embed_fields(
+        {k: jnp.asarray(v) for k, v in tables.items()}, fields,
+        {k: jnp.asarray(v.astype(np.int32)) for k, v in ids.items()}))
+    big = ("data", "model")
+    job = Job("repro_torch.models.recsys.common:embed_fields", tables,
+              {k: P(big, None) for k in tables},
+              (port_cfg.user_fields + port_cfg.item_fields, ids),
+              (None, {k: P("data") if v.ndim == 1 else P("data", None)
+                      for k, v in ids.items()}),
+              out_specs=P("data", None))
+    for rank in run_jobs([job], (2, 2), timeout=150):
+        np.testing.assert_allclose(rank[0]["out"], want, **TOL["float32"])
+        assert {k: n for (k, _), (n, _) in rank[0]["collectives"].items()} \
+            == {"all_gather": 1, "reduce_scatter": 1, "all_reduce": 1}

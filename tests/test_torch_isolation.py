@@ -1239,3 +1239,85 @@ def test_training_path_grids_keep_the_batch_off_the_y_extent():
         text = re.sub(r"//[^\n]*", "", (K.CSRC / source).read_text())
         assert "blockIdx.y" not in text, source
         assert not re.search(r"dim3\s*\w*\s*\([^)]*,", text), source
+
+
+# ------------------------------------------------------------------- mesh
+
+def test_mesh_paths_run_with_jax_and_reference_blocked():
+    """A fresh interpreter in which ``import jax`` and ``import repro``
+    fail imports ``runtime``, ``launch.mesh``, ``launch.sharding`` and the
+    mesh paths and runs a sharded bag on two gloo ranks; the ranks the
+    launcher spawns import neither ``jax`` nor ``repro``."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        from repro_torch import runtime
+        from repro_torch.launch import dryrun, mesh, sharding, specs
+        from repro_torch.models.recsys import din, dien, mind, towers
+        from repro_torch.sparse import sharded
+        from repro_torch.launch.mesh import Job, run_jobs, run_ranks
+        from repro_torch.launch.sharding import P
+        table = np.arange(32 * 4, dtype=np.float32).reshape(32, 4)
+        ids = np.array([[0, 31], [8, 17]])
+        job = Job("repro_torch.sparse.sharded:sharded_embedding_bag_2d",
+                  table, P(("data", "model"), None), (ids,),
+                  (P("data", None),), out_specs=P("data", None))
+        ranks = run_jobs([job], (2, 1), timeout=120)
+        assert all(np.array_equal(r[0]["out"], table[ids].sum(1))
+                   for r in ranks), ranks
+        mods = run_ranks(eval, 2, ("sorted(m for m in __import__('sys')"
+                                   ".modules if m.split('.')[0] in "
+                                   "('jax', 'jaxlib', 'repro'))",),
+                         timeout=120)
+        assert mods == [[], []], mods
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                        and sys.modules[m] is not None)
+        assert not loaded, loaded
+        print("MESH-ISOLATED")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)),
+                         capture_output=True, text=True, timeout=170)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "MESH-ISOLATED" in out.stdout
+
+
+def test_build_takes_turns_across_processes(tmp_path):
+    """Two processes that build the kernel library at once (the ranks of
+    a mesh on one card) take turns on the build directory's file lock:
+    one compiles, the other finds its library; the compiles never
+    overlap. The compile is a stub that takes a second."""
+    script = textwrap.dedent("""
+        import os, sys, time, types
+        from pathlib import Path
+        import repro_torch.kernels as K
+        root, log = Path(sys.argv[1]), Path(sys.argv[2])
+        K.BUILD_ROOT = root
+        K._nvcc = lambda: "nvcc"
+
+        def run(cmd, **kw):
+            with open(log, "a") as f:
+                f.write(f"start {os.getpid()} {time.time()}\\n")
+            time.sleep(1.0)
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"library")
+            with open(log, "a") as f:
+                f.write(f"end {os.getpid()} {time.time()}\\n")
+            return types.SimpleNamespace(returncode=0, stdout="")
+        K.subprocess = types.SimpleNamespace(run=run, PIPE=None, STDOUT=None)
+        print(K.build())
+    """)
+    log = tmp_path / "compiles.log"
+    procs = [subprocess.Popen([sys.executable, "-c", script,
+                               str(tmp_path / "build"), str(log)], cwd=ROOT,
+                              env=dict(os.environ, PYTHONPATH=str(SRC)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [o[1][-2000:] for o in outs]
+    paths = {o[0].strip() for o in outs}
+    assert len(paths) == 1 and Path(paths.pop()).read_bytes() == b"library"
+    events = [line.split() for line in log.read_text().splitlines()]
+    assert [e[0] for e in events] == ["start", "end"], events
