@@ -94,10 +94,30 @@ Phases, each printing its lines; any failure exits nonzero:
      rank's counted call in (a), (b) and (c) is replayed on that rank's
      own inputs (its table shard, ownership weights, block of the batch)
      through the wrapper and the plain version, and held to TOL_F32;
- 12. the kernel table as one JSON line (launches from phase 6, and from
+ 12. the LM on the same 2x2 mesh of 4 ranks sharing the card over gloo,
+     at published widths: (a) smollm-135m x long_500k and (b)
+     deepseek-v2-lite-16b x long_500k by ``run_cell`` (no cut: B=1, the
+     sequence split over (data, model), B6 with its lse on every rank of
+     (a), MLA's distributed softmax and the replicated-token MoE in (b));
+     (c) deepseek-v2-lite-16b prefill at B=4, S=4096 (cut from
+     prefill_32k's B=32, S=32,768: the token-sharded MoE); (d) qwen3-8b
+     prefill of 64 tokens then 4 teacher-forced decode steps in a cache
+     of 32,768 rows at B=4 (cut from decode_32k's B=128: head TP, B6 in
+     bf16 with sequence shards left empty); (e) (b) and (f) (d) cut to
+     6 and 4 layers in float32. Each is held against the same draws run
+     whole by one process first (``--lm-whole``, a process of its own):
+     float32 logits and cache rows within TOL_LM ((c)'s rows with the
+     recorded routing explaining each row off); (d)'s bf16 logits
+     against the float32 run of its weights, at most BF16_ERR_RATIO
+     times the bf16 whole run's error; (b)'s reported (a bf16 MoE's near
+     ties trade experts; (e) holds its layers); every rank's B6 calls
+     replayed against the plain version; each rank's ms per call, peak
+     memory, launches and collectives by kind;
+ 13. the kernel table as one JSON line (launches from phase 6, and from
      phase 7 for flash_decode; ``backward_ms`` from phase 9;
-     ``mesh_launches`` from phase 11 (a) and (b), over all ranks), the
-     card line, and the result.
+     ``mesh_launches`` from phase 11 (a) and (b), and for flash_decode
+     from phase 12 (a), (d) and (f), over all ranks; ``lse_ms``, B6 with
+     ``return_lse``, from phase 3), the card line, and the result.
 
 Needs a CUDA device; exits nonzero without one, and without the
 repository's ``src/repro_torch`` beside this script.
@@ -285,8 +305,9 @@ def verdict(got, want, tol, scale_tol=None):
     # share of the allowance used: |got - want| / (tol + tol * |want|) <= 1
     used = float((diff / (tol + tol * want.abs())).max())
     ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
-    if scale_tol is not None:
-        used = max(used, err / (scale_tol * float(want.abs().max())))
+    scale = float(want.abs().max())
+    if scale_tol is not None and scale > 0:     # (an all-zero want: no scale)
+        used = max(used, err / (scale_tol * scale))
         ok = ok and used <= 1.0
     return err, used, ok
 
@@ -892,10 +913,14 @@ def flash_decode_checks(results: dict, rng, t):
     long_500k at qwen3-8b's (B=1, S=524288, H=8, G=4, D=128, bf16,
     L=524283) and at smollm's (B=1, S=524288, L=524288, f32: phase
     10b's cell), starcoder2-7b's (B=8, S=4096, H=4, G=9, D=128, bf16,
-    L=4001); beside them G=9 in f32, a bf16 serve-like shape at qwen3-8b's
-    geometry, every bf16 head dim, and lengths at the plan's split
-    boundaries. The library call is ``scaled_dot_product_attention`` on
-    the valid prefix with ``enable_gqa``."""
+    L=4001), and one rank's shard of [12] (a) (B=1, S=L=131,072, H=3,
+    G=3, D=64, f32); beside them G=9 in f32, a bf16 serve-like shape at
+    qwen3-8b's geometry, every bf16 head dim, and lengths at the plan's
+    split boundaries. The library call is ``scaled_dot_product_attention`` on
+    the valid prefix with ``enable_gqa``. Each path shape also runs with
+    ``return_lse`` (the output and the lse against the plain version's,
+    and its time beside the default call's) and at cache_len 0 (a mesh's
+    empty sequence shard: out 0 and lse -1e30)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
@@ -966,6 +991,11 @@ def flash_decode_checks(results: dict, rng, t):
              ("flash_decode@long_500k_smollm",
               "long_500k, smollm-135m geometry ([10b]'s cell)", 1, 524288, 3,
               3, 64, 524288, f32),
+             # [12] (a)'s call on each rank: its 131,072 rows of the cache,
+             # all of them valid
+             ("flash_decode@long_500k_smollm_rank",
+              "long_500k, smollm-135m geometry, one rank of [12] (a)", 1,
+              131072, 3, 3, 64, 131072, f32),
              ("flash_decode@starcoder2", "starcoder2-7b geometry", 8, 4096, 4,
               9, 128, 4001, bf16)]
     for key, where, B, S, H, G, D, L, dtype in paths:
@@ -993,12 +1023,35 @@ def flash_decode_checks(results: dict, rng, t):
                         .abs().max())
         print(f"  {shape}: library call vs plain max_abs_err={lib_err:.3e}",
               flush=True)
+        # the mesh's call: the output and each row's log-sum-exp, and a
+        # shard that holds no valid row (cache_len = 0): 0 and -1e30
+        out, lse = flash_decode(q, k, v, length, return_lse=True)
+        want_o, want_lse = flash_decode_ref(q, k, v, length, return_lse=True)
+        compare(f"{shape}: return_lse out", out, want_o,
+                TOL_BF16 if dtype == bf16 else TOL_F32,
+                TOL_BF16 if dtype == bf16 else None)
+        compare(f"{shape}: return_lse lse", lse, want_lse, TOL_F32)
+        empty = torch.zeros((), dtype=torch.int32, device="cuda")
+        for label, fn in (("kernel", flash_decode),
+                          ("plain version", flash_decode_ref)):
+            out, lse = fn(q, k, v, empty, return_lse=True)
+            torch.cuda.synchronize()
+            check(not out.float().any() and bool((lse == -1e30).all()),
+                  f"{shape}: cache_len 0 gives the {label} out != 0 or "
+                  f"lse != -1e30")
+        print(f"  {shape}: cache_len 0: out 0, lse -1e30 (kernel and plain "
+              f"version)", flush=True)
         bms, by = bound_ms(decode_ops.cost(q, k, v, L), str(dtype)[6:])
         results[key] = dict(
             max_abs_err=err, bound_ms=bms, bound_by=by, shape=shape,
+            lse_ms=device_ms(lambda: flash_decode(q, k, v, length,
+                                                  return_lse=True)),
             **timings(lambda: flash_decode(q, k, v, length),
                       lambda: flash_decode_ref(q, k, v, length), library))
-        del q, k, v
+        print(f"  {shape}: device ms per call {results[key]['ms']:.5f}, with "
+              f"return_lse {results[key]['lse_ms']:.5f}, bound {bms:.5f} "
+              f"({by})", flush=True)
+        del q, k, v, out, lse, want_o, want_lse
         torch.cuda.empty_cache()
 
 
@@ -2479,27 +2532,49 @@ def _rank_line(r) -> str:
             f"call (CUDA events), collectives: {coll}")
 
 
-def mesh_kernel_checks(label: str, ranks_checks: list) -> set:
+def mesh_kernel_checks(label: str, ranks_checks: list, phase: str = "[11]",
+                       bf16_outputs: tuple = (), per_call: bool = True) -> set:
     """Hold each rank's replayed kernel calls (``Job.check_kernels``: the
     wrapper's outputs and the plain version's on the rank's own inputs)
-    to TOL_F32, integer outputs (top-k indices) equal; returns the
-    kernels checked."""
+    to TOL_F32, integer outputs (top-k indices) equal; the outputs named
+    in ``bf16_outputs`` ((kernel, output index): a bf16 kernel's output,
+    shipped as float32) to TOL_BF16 and TOL_BF16 x max|want|, as phase 3
+    holds bf16 B6. Without ``per_call`` one line per rank, kernel and
+    output gives the count of calls and the worst. Returns the kernels
+    checked."""
     import torch
     names = set()
     for r, checks in enumerate(ranks_checks):
+        worst: dict = {}
         for c in checks:
             names.add(c["kernel"])
             shapes = ", ".join("x".join(map(str, sh)) or "()"
                                for sh in c["shapes"][:4])
             for j, (got, want) in enumerate(zip(c["got"], c["want"])):
-                name = (f"[11] {label} rank {r} {c['kernel']} out {j} "
+                name = (f"{phase} {label} rank {r} {c['kernel']} out {j} "
                         f"({shapes}{', ...' if len(c['shapes']) > 4 else ''})")
                 got, want = torch.as_tensor(got), torch.as_tensor(want)
-                if got.is_floating_point():
-                    compare(name, got, want, TOL_F32)
+                tols = ((TOL_BF16, TOL_BF16) if (c["kernel"], j) in bf16_outputs
+                        else (TOL_F32, None))
+                if not per_call and got.is_floating_point():
+                    check(got.shape == want.shape and bool(
+                        torch.isfinite(got).all()), f"{name}: shape or "
+                        f"non-finite output")
+                    err, used, ok = verdict(got, want, *tols)
+                    check(ok, f"{name}: kernel disagrees with its plain "
+                          f"version by {err}")
+                    n, e, u = worst.get((c["kernel"], j), (0, 0.0, 0.0))
+                    worst[(c["kernel"], j)] = (n + 1, max(e, err), max(u, used))
+                elif got.is_floating_point():
+                    compare(name, got, want, *tols)
                 else:
                     check(torch.equal(got, want), f"{name}: differs from the "
                           f"plain version")
+        for (kernel, j), (n, err, used) in sorted(worst.items()):
+            tol = TOL_BF16 if (kernel, j) in bf16_outputs else TOL_F32
+            print(f"  {phase} {label} rank {r} {kernel} out {j}: {n} calls "
+                  f"replayed, max_abs_err={err:.3e} tol={tol:g}, allowance "
+                  f"used {used:.3f} ok", flush=True)
     return names
 
 
@@ -2679,6 +2754,480 @@ def mesh_cell_sweep(card: str):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 12
+
+#: (a), (b): the LM's batch-1 long-context decode cells run on the mesh
+#: by ``run_cell`` at published widths and shapes, each with the kernels
+#: every rank must launch and its dtype's hold (TOL_LM for float32; a
+#: bf16 MoE's routing turns rounding into other experts, so (b) is held
+#: by (e))
+LM_MESH_CELLS = (("smollm-135m", "long_500k", ("flash_decode",)),
+                 ("deepseek-v2-lite-16b", "long_500k", ()))
+#: (c)-(f): serving runs on the mesh (``transformer.teacher_forced``: a
+#: prefill, then teacher-forced decode steps), at published widths:
+#: (key, arch, layers, dtype (None: the published ones), B, cache rows,
+#: prompt tokens, decode steps, what the run holds). The cuts: (c)
+#: prefill_32k's B=32, S=32,768 to 4, 4,096 and 27 layers to 6 in float32
+#: (bf16 routing flips make a bf16 MoE run incomparable, see (b)); (d)
+#: decode_32k's B=128 to 4; (e) long_500k's 27 layers to 6 in float32;
+#: (f) (d) at 4 layers in float32
+LM_CALLS = (
+    ("c", "deepseek-v2-lite-16b", 6, "float32", 4, 4096, 4096, 0,
+     "prefill B=4 S=4096, the token-sharded MoE"),
+    ("e", "deepseek-v2-lite-16b", 6, "float32", 1, 524288, 9, 3,
+     "prefill 9 + 3 decode steps in a 524,288-row cache, B=1"),
+    ("d", "qwen3-8b", None, None, 4, 32768, 64, 4,
+     "prefill 64 + 4 decode steps, B=4, bf16 B6 with G=4"),
+    ("f", "qwen3-8b", 4, "float32", 4, 32768, 64, 4,
+     "prefill 64 + 4 decode steps, B=4, f32 B6 with G=4"))
+LM_SEED = 12
+#: the items whose MoE routing is recorded (:func:`routed_teacher_forced`)
+ROUTED = ("c",)
+#: (c): a token's top-k may move between the runs only where its k-th and
+#: (k+1)-th router probabilities lie within GAP_TIE in the whole run, and
+#: a layer's cache may hold at most ROWS_OFF rows off; an H100 run read
+#: gaps up to 1.5e-6 (the median token's 2.3e-3) and 2 and 4 rows off
+#: (PERF.md §6)
+GAP_TIE = 1e-5
+ROWS_OFF = 16
+#: a bf16 run on the mesh against the float32 run of its weights: at most
+#: this times the bf16 whole run's RMS error (an H100 run read 1.04 for
+#: (d); PERF.md §6)
+BF16_ERR_RATIO = 1.5
+_T12 = []
+
+
+def say12(msg: str):
+    """A line of phase 12, with the seconds since the phase began."""
+    if not _T12:
+        _T12.append(time.perf_counter())
+    print(f"{msg} [{time.perf_counter() - _T12[0]:.1f} s into [12]]",
+          flush=True)
+
+
+def _lm_calls():
+    """[(key, cfg, tokens, smax, prompt, label)] of LM_CALLS, the tokens
+    drawn from LM_SEED."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import registry
+    rng = np.random.default_rng(LM_SEED)
+    out = []
+    for key, arch, layers, dtype, B, smax, n, steps, what in LM_CALLS:
+        cfg = registry.get(arch).config
+        cut = {k: v for k, v in (("n_layers", layers), ("param_dtype", dtype))
+               if v is not None}
+        cfg = dataclasses.replace(cfg, **cut)
+        toks = rng.integers(0, cfg.vocab, (B, n + steps))
+        label = (f"({key}) {arch} {what}" + (f" ({cfg.n_layers} layers, "
+                                             f"{cfg.param_dtype})" if cut
+                                             else ""))
+        out.append((key, cfg, toks, smax, n, label))
+    return out
+
+
+def routed_teacher_forced(params, tokens, cfg, smax, n_prompt, **kw):
+    """``transformer.teacher_forced`` of a prefill (no decode steps) with
+    each MoE layer's routing kept: → (logits, cache, idx (MoE layers, B,
+    T, top_k) the experts each token chose, sorted; gap (MoE layers, B,
+    T) its k-th router probability less its (k+1)-th, float32). The record
+    adds one softmax and top-k of the router's logits a layer, in the
+    timed calls too."""
+    import torch
+    from repro_torch.models import moe, transformer
+    route, seen = moe._route, []
+
+    def spy(x, w, k):
+        gate, idx, aux = route(x, w, k)
+        top = torch.softmax(x.float() @ w, -1).topk(k + 1, -1).values
+        seen.append((idx.sort(-1).values, top[:, k - 1] - top[:, k]))
+        return gate, idx, aux
+    moe._route = spy
+    try:
+        logits, cache = transformer.teacher_forced(params, tokens, cfg, smax,
+                                                   n_prompt, **kw)
+    finally:
+        moe._route = route
+    B, T = tokens.shape
+    return (logits, cache,
+            torch.stack([i for i, _ in seen]).reshape(len(seen), B, T, -1),
+            torch.stack([g for _, g in seen]).reshape(len(seen), B, T))
+
+
+def lm_whole_run(out_path: str) -> int:
+    """Phase 12's whole runs, in a process of their own (``chip_smoke.py
+    --lm-whole OUT``, started by :func:`lm_mesh_run` before the mesh
+    runs, so that its ~48 GB are gone when the ranks draw): each item on
+    the card by this one process, no mesh, from the draws the ranks take
+    their parts of; saves the logits, the cache rows (c)-(f) wrote, the
+    routing of ROUTED's items, the logits of a bf16 item's weights run in
+    float32 (the reference its bf16 runs, whole and on the mesh, are
+    measured against) and each item's ms per call (CUDA events) to
+    ``out_path``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    def f32(t):
+        return t.float().cpu().numpy()
+
+    out = {}
+    with torch.no_grad():
+        for arch, shape, _ in LM_MESH_CELLS:
+            cell = specs.build_cell(arch, shape, device="cuda")
+            args = cell.materialize("cuda", torch.Generator(device="cuda")
+                                    .manual_seed(0))
+            out[f"{arch}/logits"] = f32(cell.fn(*args)[0])
+            out[f"{arch}/ms"] = _event_ms(
+                lambda: [cell.fn(*args) for _ in range(3)], 3)
+            del cell, args
+            gc.collect()
+            torch.cuda.empty_cache()
+        for key, cfg, toks, smax, n, _label in _lm_calls():
+            params = transformer.init(
+                torch.Generator(device="cuda").manual_seed(LM_SEED), cfg,
+                "cuda")
+            t = torch.as_tensor(toks, device="cuda")
+
+            def run():
+                return transformer.teacher_forced(params, t, cfg, smax, n)
+            if key in ROUTED:
+                logits, cache, idx, gap = routed_teacher_forced(
+                    params, t, cfg, smax, n)
+                out[f"{key}/idx"], out[f"{key}/gap"] = (idx.cpu().numpy(),
+                                                        f32(gap))
+                del idx, gap
+            else:
+                logits, cache = run()
+            out[f"{key}/logits"] = f32(logits)
+            out[f"{key}/cache_a"], out[f"{key}/cache_b"] = (f32(cache.a),
+                                                            f32(cache.b))
+            del logits, cache
+            out[f"{key}/ms"] = _event_ms(run, 1)
+            if cfg.param_dtype == "bfloat16":
+                # the float32 reference of the same bf16 weights, in a
+                # cache of the rows the run writes
+                params = tree_map(lambda p: p.float(), params)
+                ref, _ = transformer.teacher_forced(
+                    params, t, dataclasses.replace(cfg,
+                                                   param_dtype="float32"),
+                    toks.shape[1], n)
+                out[f"{key}/ref32"] = f32(ref)
+                del ref
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    np.savez(out_path, **out)
+    return 0
+
+
+def _held(label, got, want, tol=TOL_LM) -> float:
+    """The mesh's output against the whole run's, within ``tol``
+    (rtol=atol)."""
+    import torch
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    check(got.shape == want.shape, f"{label}: shape {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    err, used, ok = verdict(got, want, tol)
+    say12(f"[12] {label}: max_abs_diff vs the whole run {err:.3e} "
+          f"(rtol=atol={tol:g}; allowance used {used:.3f}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the mesh run differs from the whole run by {err}")
+    return err
+
+
+def _kept(idx, C):
+    """The experts each token's pairs reach, by the dispatch's rule (pairs
+    in token order, sorted stably by expert, the first C of each kept):
+    idx (T, k) → (T, k) bool."""
+    import numpy as np
+    T, k = idx.shape
+    flat = idx.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    e = flat[order]
+    starts = np.searchsorted(e, e, side="left")
+    keep = np.empty(flat.shape, bool)
+    keep[order] = np.arange(flat.size) - starts < C
+    return keep.reshape(T, k)
+
+
+def _held_routed_rows(label, ranks_out, want, cfg):
+    """(c): a MoE prefill's cache rows, (layers, B, T, ...), against the
+    whole run's within TOL_LM, with the routing that explains each row
+    that is off. A token "moves" at a MoE layer where the experts that
+    take its pairs differ between the runs: its top-k changed, or a drop
+    did (a capacity slot taken or freed by another token that moved).
+    Held: the layers before any routed expert all rows; each token's first
+    move a near tie (its top-k changed with the whole run's k-th and
+    (k+1)-th router probabilities within GAP_TIE) or a drop moved by
+    another token in the same layer; every row off a token that moved in
+    an earlier layer; at most ROWS_OFF rows off a layer."""
+    import numpy as np
+    from repro_torch.models.moe import _capacity
+    n_dense = cfg.moe.n_dense_layers
+    for r, (logits, cache, idx, gap) in enumerate(ranks_out):
+        idx, w_idx = np.asarray(idx), want["idx"]
+        check(np.array_equal(np.asarray(gap).shape, want["gap"].shape),
+              f"{label} rank {r}: routing of shape {np.shape(gap)}")
+        L_moe, B, T, k = idx.shape
+        C = _capacity(B * T, cfg.moe)
+        moved = np.zeros((L_moe, B * T), bool)
+        flips = np.zeros((L_moe, B * T), bool)
+        first = []
+        for m in range(L_moe):
+            a, b = idx[m].reshape(-1, k), w_idx[m].reshape(-1, k)
+            flip = flips[m] = (a != b).any(-1)
+            # the experts a token's pairs reach (its top-k masked by its
+            # drops), as sorted sets
+            reach_a = np.sort(np.where(_kept(a, C), a, -1), -1)
+            reach_b = np.sort(np.where(_kept(b, C), b, -1), -1)
+            moved[m] = (reach_a != reach_b).any(-1) | flip
+            new = moved[m] & ~moved[:m].any(0)
+            g = want["gap"][m].reshape(-1)
+            for tok in np.flatnonzero(new):
+                first.append((m + n_dense, int(tok), bool(flip[tok]),
+                              float(g[tok])))
+        ties = [f for f in first if f[2]]
+        say12(f"[12] {label} rank {r}: tokens whose experts moved, by MoE "
+              f"layer: {[int(x) for x in moved.sum(-1)]}; first moves "
+              f"(layer, token, top-k changed, the whole run's gap): "
+              f"{[(l, t, f, f'{g:.3e}') for l, t, f, g in first[:24]]}"
+              f"{' ...' if len(first) > 24 else ''}; the whole run's median "
+              f"gap {float(np.median(want['gap'])):.3e}")
+        check(all(g <= GAP_TIE for _, _, _, g in ties),
+              f"{label} rank {r}: a token's top-k moved with its k-th and "
+              f"(k+1)-th router probabilities "
+              f"{max((g for *_, g in ties), default=0):.3e} apart (> "
+              f"{GAP_TIE:g}): not a rounding tie")
+        for m in range(L_moe):   # a drop moves only beside a changed top-k
+            check(flips[m].any() or not any(
+                l == m + n_dense and not f for l, _, f, _ in first),
+                f"{label} rank {r}: drops moved at layer {m + n_dense} with "
+                f"no top-k changed")
+        for name in ("a", "b"):
+            got = np.asarray(getattr(cache, name))
+            ref = want[f"cache_{name}"]
+            check(got.shape == ref.shape and np.isfinite(got).all(),
+                  f"{label} rank {r} cache.{name}: shape {got.shape} vs "
+                  f"{ref.shape} or non-finite")
+            rows = lambda x: x.reshape(x.shape[0], -1,
+                                       int(np.prod(x.shape[3:])))
+            off = ~(np.abs(rows(got) - rows(ref))
+                    <= TOL_LM * (1 + np.abs(rows(ref)))).all(-1)  # (L, B*T)
+            n_off = [int(x) for x in off.sum(-1)]
+            unexplained = [
+                (l, int(tok)) for l in range(off.shape[0])
+                for tok in np.flatnonzero(off[l])
+                if not moved[:max(l - n_dense, 0)].any(0)[tok]]
+            say12(f"[12] {label} rank {r} cache.{name}: rows off (beyond "
+                  f"rtol=atol={TOL_LM:g}) by layer {n_off} of "
+                  f"{off.shape[1]}; rows off of no moved token "
+                  f"{unexplained[:8]}")
+            check(not unexplained and max(n_off) <= ROWS_OFF,
+                  f"{label} rank {r} cache.{name}: rows off {n_off} (at "
+                  f"most {ROWS_OFF} a layer), of no moved token "
+                  f"{unexplained[:8]}")
+        _held(f"{label} rank {r} logits", logits, want["logits"])
+
+
+def _rel_err(got, want) -> float:
+    """The RMS of got - want over the RMS of want."""
+    import numpy as np
+    return float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2)))
+
+
+def _bf16_run(label, ranks_logits, want, ref32=None):
+    """A bf16 run on the mesh: the ranks' gathered logits finite, of the
+    whole run's shape and equal to the first's bit for bit (one result,
+    held by every rank). Where ``ref32`` (the same bf16 weights run whole
+    in float32) is given, the mesh's error against it is held to
+    BF16_ERR_RATIO times the bf16 whole run's (RMS errors): the mesh
+    rounds in other places than the whole run (the TP partial sums, the
+    shards' partials), not more often. Else (a bf16 MoE, whose nearly tied
+    6th and 7th experts trade places under rounding, PERF.md §6) the
+    max-abs-diff and the share of rows whose argmax agrees are reported,
+    not held."""
+    import numpy as np
+    first = np.asarray(ranks_logits[0])
+    for r, got in enumerate(ranks_logits):
+        got = np.asarray(got)
+        check(got.shape == want.shape and np.isfinite(got).all(),
+              f"{label} rank {r}: logits {got.shape}, finite "
+              f"{np.isfinite(got).all()}")
+        check(np.array_equal(got, first), f"{label} rank {r}: logits differ "
+              f"from rank 0's")
+    agree = float((first.argmax(-1) == want.argmax(-1)).mean())
+    who = (f"the {len(ranks_logits)} ranks' logits equal"
+           if len(ranks_logits) > 1 else "rank 0's logits")
+    line = (f"[12] {label}: {who}; vs the bf16 whole run max_abs_diff "
+            f"{float(np.abs(first - want).max()):.3e} (max|want| "
+            f"{float(np.abs(want).max()):.3e}), argmax agrees on {agree:.3f} "
+            f"of the rows")
+    if ref32 is None:
+        say12(line + " (a bf16 MoE: reported, not held)")
+        return
+    e_mesh, e_whole = _rel_err(first, ref32), _rel_err(want, ref32)
+    ok = e_mesh <= BF16_ERR_RATIO * e_whole
+    say12(line + f"; RMS error against the float32 run of the same "
+          f"weights: mesh {e_mesh:.4e}, whole {e_whole:.4e}, ratio "
+          f"{e_mesh / e_whole:.3f} (at most {BF16_ERR_RATIO:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the bf16 mesh run's error {e_mesh:.4e} against "
+          f"float32 is more than {BF16_ERR_RATIO:g} x the whole run's "
+          f"{e_whole:.4e}")
+
+
+def _rank_lines(label, rows, key="ms"):
+    """Each rank's ms per call (CUDA events), peak GiB, launches and
+    collectives by kind, and the slowest rank's ms."""
+    for r, row in enumerate(rows):
+        coll = "; ".join(f"{k} x{v['calls']:g} {v['bytes']:g} B"
+                         for k, v in sorted(row["collectives"].items()))
+        say12(f"[12] {label} rank {r}: {row[key]:.2f} ms a call, peak "
+              f"{row['peak'] / 2**30:.2f} GiB, launches {row['launches']}, "
+              f"collectives {coll}")
+    say12(f"[12] {label}: rank 0 {rows[0][key]:.2f} ms, slowest rank "
+          f"{max(r[key] for r in rows):.2f} ms a call (4 ranks sharing one "
+          f"card over gloo: function, not a multi-GPU speed)")
+
+
+def lm_mesh_run(card: str) -> int:
+    """Phase 12: the LM on the 2x2 (data, model) mesh of 4 ranks sharing
+    the one card over gloo, at published widths: (a) smollm-135m x
+    long_500k and (b) deepseek-v2-lite-16b x long_500k by ``run_cell``,
+    no cut; then (c)-(f) of LM_CALLS in one launch. Each is held against
+    the same draws run whole by one process (:func:`lm_whole_run`, first,
+    in its own process): float32 logits and cache rows within TOL_LM
+    ((c)'s rows with the routing that explains those off,
+    :func:`_held_routed_rows`), bf16 runs by :func:`_bf16_run` ((d)
+    against the float32 run of its weights); every rank's B6 calls replayed
+    against the plain version; B6 launched on every rank of (a), (d) and
+    (f). Returns B6's launches over all ranks."""
+    import numpy as np
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.mesh import Job, ModelDraw, run_jobs
+    from repro_torch.launch.sharding import P
+    from repro_torch.models.transformer import KVCache
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        path = os.path.join(tmp, "whole.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--lm-whole", path], capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0, "the whole runs failed:\n"
+              + (proc.stdout + proc.stderr)[-4000:])
+        whole = dict(np.load(path))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say12(f"[12] whole runs on one card by one process ({card}): "
+          f"{time.perf_counter() - t0:.1f} s; ms a call: "
+          + ", ".join(f"{k[:-3]} {v:.2f}" for k, v in whole.items()
+                      if k.endswith("/ms")))
+
+    b6 = 0
+    for arch, shape, kernels in LM_MESH_CELLS:
+        rec = dryrun.run_cell(arch, shape, device="cuda", mesh=MESH_SHAPE,
+                              check_kernels=True)
+        mem = rec.get("memory", {})
+        say12(f"[12] {arch} x {shape} on {rec['mesh']}@1xH100 (4 ranks "
+              f"sharing one card over {rec['backend']}; {card}): ok "
+              f"{rec['ok']}, fits a rank's share {mem.get('fits_per_rank')} "
+              f"(estimate {mem.get('estimate_bytes_per_rank')} bytes), "
+              f"{rec.get('t_total_s')} s; {rec.get('error', '')}")
+        check(rec["ok"], f"{arch} x {shape} on the mesh: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')}")
+        checked = mesh_kernel_checks(f"{arch} x {shape}", rec["kernel_checks"],
+                                     "[12]", per_call=False)
+        check(checked == set(kernels), f"{arch} x {shape}: kernels checked "
+              f"{sorted(checked)}, expected {sorted(kernels)}")
+        rows = [{"ms": r["step_ms"], "peak": r["max_allocated_bytes"],
+                 "launches": r["launches_per_step"],
+                 "collectives": r["collectives_per_step"]}
+                for r in rec["ranks"]]
+        _rank_lines(f"{arch} x {shape}", rows)
+        for r in rec["ranks"]:
+            for name in kernels:
+                n = r["launches_per_step"].get(name, 0)
+                check(n > 0, f"{arch} x {shape} rank {r['rank']}: {name} "
+                      f"never launched")
+                b6 += n
+        if rec["meta"]["param_dtype"] == "float32":
+            _held(f"{arch} x {shape} logits", rec["output"][0],
+                  whole[f"{arch}/logits"])
+        else:       # run_cell returns rank 0's; (e) holds the layers
+            _bf16_run(f"{arch} x {shape}", [rec["output"][0]],
+                      whole[f"{arch}/logits"])
+
+    mod = "repro_torch.models.transformer"
+    calls = _lm_calls()
+    jobs, draws = [], {}
+    for key, cfg, toks, smax, n, _label in calls:
+        split = toks.shape[0] % MESH_SHAPE[0] == 0
+        # one draw for the calls of one config (a rank keeps it between
+        # consecutive jobs)
+        draw = draws.setdefault(cfg, ModelDraw(mod, cfg, LM_SEED))
+        out_specs = ((P(None, "data", None), KVCache(
+            P(None, "data"), P(None, "data"), P())) if split else None)
+        if key in ROUTED:
+            out_specs += (P(None, "data", None, None), P(None, "data", None))
+        jobs.append(Job(
+            "chip_smoke:routed_teacher_forced" if key in ROUTED
+            else f"{mod}:teacher_forced", draw, None,
+            (toks, cfg, smax, n),
+            ((P("data", None) if split else None), None, None, None),
+            {} if split else {"batch_axes": ()}, out_specs=out_specs,
+            repeat=1, check_kernels=True))
+    t0 = time.perf_counter()
+    ranks = run_jobs(jobs, MESH_SHAPE, MESH_AXES, device="cuda", timeout=900)
+    say12(f"[12c-f] the ranks' launch: {time.perf_counter() - t0:.1f} s")
+    for j, (key, cfg, toks, smax, n, label) in enumerate(calls):
+        rows = [{"ms": rank[j]["ms"], "peak": rank[j]["max_allocated_bytes"],
+                 "launches": rank[j]["launches"],
+                 "collectives": op_analysis.collectives_by_kind(
+                     rank[j]["collectives"])} for rank in ranks]
+        _rank_lines(label, rows)
+        if key in ROUTED:
+            _held_routed_rows(label, [rank[j]["out"] for rank in ranks],
+                              {k: whole[f"{key}/{k}"] for k in (
+                                  "logits", "cache_a", "cache_b", "idx",
+                                  "gap")}, cfg)
+        elif cfg.param_dtype == "float32":
+            for r, rank in enumerate(ranks):
+                logits, cache = rank[j]["out"]
+                _held(f"{label} rank {r} logits", logits,
+                      whole[f"{key}/logits"])
+                for name in ("a", "b"):
+                    _held(f"{label} rank {r} cache.{name}, the rows written",
+                          getattr(cache, name), whole[f"{key}/cache_{name}"])
+        else:
+            _bf16_run(label, [rank[j]["out"][0] for rank in ranks],
+                      whole[f"{key}/logits"], whole[f"{key}/ref32"])
+        steps = toks.shape[1] - n
+        gqa = cfg.mla is None
+        checked = mesh_kernel_checks(
+            label, [rank[j]["kernel_checks"] for rank in ranks], "[12]",
+            bf16_outputs=(("flash_decode", 0),) if cfg.param_dtype ==
+            "bfloat16" else (), per_call=False)
+        check(checked == ({"flash_decode"} if gqa and steps else set()),
+              f"{label}: kernels checked {checked}")
+        for r, rank in enumerate(ranks):
+            got = rank[j]["launches"].get("flash_decode", 0)
+            want = cfg.n_layers * steps if gqa else 0
+            check(got == want, f"{label} rank {r}: {got} B6 launches, "
+                  f"expected {want}")
+            b6 += got
+    return b6
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2753,6 +3302,11 @@ def main() -> int:
         print(f"[11] done at {time.perf_counter() - t_run:.1f} s; kernel "
               f"launches over (a) and (b), all ranks: {mesh_launches}",
               flush=True)
+        lm_b6 = lm_mesh_run(card)
+        mesh_launches["flash_decode"] = lm_b6
+        print(f"[12] done at {time.perf_counter() - t_run:.1f} s; B6 "
+              f"launches over (a), (d) and (f), all ranks: {lm_b6}",
+              flush=True)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2767,7 +3321,8 @@ def main() -> int:
                       "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"],
                       "backward_ms": backward.get(name),
-                      "mesh_launches": mesh_launches.get(name, 0)})
+                      "mesh_launches": mesh_launches.get(name, 0),
+                      **({"lse_ms": r["lse_ms"]} if "lse_ms" in r else {})})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2777,6 +3332,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lm-whole"]:      # phase 12's whole runs
+        sys.exit(lm_whole_run(sys.argv[2]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -76,8 +76,9 @@ SIGNATURES = {
     "augru_f32": [_P] * 7 + [_I] * 4 + [_P],
     "candidate_scorer_f32": [_P] * 4 + [_I] * 4 + [_P, _P],
     "candidate_scorer_bf16": [_P] * 4 + [_I] * 4 + [_P, _P],
-    "flash_decode_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
-    "flash_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
+    # ..., scale, then the lse output (null: not written), then the stream
+    "flash_decode_f32": [_P] * 6 + [_I] * 7 + [_F, _P, _P],
+    "flash_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P, _P],
     # a query, not a launch: SM count and resident split blocks per SM
     "flash_decode_residency": [_I] * 3 + [_P, _P],
     # an empty kernel, timed as the launch floor; no path launches it

@@ -47,6 +47,12 @@
 // whose chunk starts at or past cache_len writes an empty partial (m =
 // -1e30, l = 0, acc = 0) and exits.
 //
+// With an lse pointer (the sequence shards of a device mesh combine their
+// partial results by it) the kernel also writes each row's float32
+// log-sum-exp m + log(l) over the valid prefix: the one-split block
+// itself, else flash_decode_combine. A prefix of length 0 (a shard that
+// holds no valid row yet) gives out = 0 and lse = -1e30, never NaN.
+//
 // cache_len is read from device memory (the TPU kernel's scalar prefetch),
 // so the host never waits on it and the launch can be captured into a CUDA
 // graph. Scores past it are masked with -1e30, as the reference masks them;
@@ -97,12 +103,21 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
 }
 
+// the log-sum-exp of a row from its running (m, l): -1e30 when no
+// position was valid
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.0f ? m + logf(l) : kNegInf;
+}
+
 // the partial of a block with nothing valid: (m, l, acc) = (-1e30, 0, 0),
-// or, with one split, the output 0 (acc / max(l, 1e-30))
+// or, with one split, the output 0 (acc / max(l, 1e-30)) and lse -1e30
 template <typename T>
-__device__ void write_empty(float* part, T* out, int G, int D, int n_split) {
+__device__ void write_empty(float* part, T* out, float* lse, int G, int D,
+                            int n_split) {
   if (n_split == 1) {
     for (int i = threadIdx.x; i < G * D; i += kThreads) store(out + i, 0.0f);
+    if (lse != nullptr)
+      for (int g = threadIdx.x; g < G; g += kThreads) lse[g] = kNegInf;
     return;
   }
   for (int i = threadIdx.x; i < G * (D + 2); i += kThreads)
@@ -117,8 +132,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_split(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const int* __restrict__ cache_len, float* __restrict__ work,
-                   float* __restrict__ out, int H, int G, int S, int chunk,
-                   int n_split, float scale) {
+                   float* __restrict__ out, float* __restrict__ lse, int H,
+                   int G, int S, int chunk, int n_split, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                      // kSimtTile x D
   float* vs = ks + kSimtTile * D;        // kSimtTile x D
@@ -137,7 +152,8 @@ flash_decode_split(const float* __restrict__ q, const float* __restrict__ k,
   const size_t bh = static_cast<size_t>(b) * H + h;
   float* part = work + (bh * n_split + split) * G * (D + 2);
   if (start >= end) {                    // nothing valid in this chunk
-    write_empty(part, out + bh * G * D, G, D, n_split);
+    write_empty(part, out + bh * G * D, lse ? lse + bh * G : nullptr, G, D,
+                n_split);
     return;
   }
   for (int i = tid; i < G * D; i += kThreads) {
@@ -228,6 +244,9 @@ flash_decode_split(const float* __restrict__ q, const float* __restrict__ k,
   if (n_split == 1) {
     for (int i = tid; i < G * D; i += kThreads)
       out[bh * G * D + i] = acc[i] / fmaxf(ls[i / D], 1e-30f);
+    if (lse != nullptr)
+      for (int g = tid; g < G; g += kThreads)
+        lse[bh * G + g] = row_lse(ms[g], ls[g]);
     return;
   }
   for (int i = tid; i < G * (D + 2); i += kThreads)
@@ -302,7 +321,8 @@ flash_decode_split_tc(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ v,
                       const int* __restrict__ cache_len,
                       float* __restrict__ work,
-                      __nv_bfloat16* __restrict__ out, int H, int G, int S,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int H, int G, int S,
                       int chunk, int n_split, float scale) {
   constexpr int kCpr = D / 8;            // 16-byte chunks per row
   constexpr int kStage = 2 * kRows * D;  // bf16 values of a stage: K, V
@@ -320,7 +340,8 @@ flash_decode_split_tc(const __nv_bfloat16* __restrict__ q,
   const size_t bh = static_cast<size_t>(b) * H + h;
   float* part = work + (bh * n_split + split) * G * (D + 2);
   if (start >= end) {
-    write_empty(part, out + bh * G * D, G, D, n_split);
+    write_empty(part, out + bh * G * D, lse ? lse + bh * G : nullptr, G, D,
+                n_split);
     return;
   }
 
@@ -498,6 +519,7 @@ flash_decode_split_tc(const __nv_bfloat16* __restrict__ q,
     }
     if (n_split == 1) {
       out[bh * G * D + i] = __float2bfloat16(a / fmaxf(ls, 1e-30f));
+      if (lse != nullptr && d == 0) lse[bh * G + g] = row_lse(mx, ls);
     } else {
       part[2 * G + i] = a;
       if (d == 0) {
@@ -513,7 +535,7 @@ flash_decode_split_tc(const __nv_bfloat16* __restrict__ q,
 template <typename T>
 __global__ void __launch_bounds__(32)
 flash_decode_combine(const float* __restrict__ work, T* __restrict__ out,
-                     int G, int D, int n_split) {
+                     float* __restrict__ lse, int G, int D, int n_split) {
   const size_t bhg = blockIdx.x;         // (b H + h) G + g
   const size_t bh = bhg / G;
   const int g = static_cast<int>(bhg % G);
@@ -531,6 +553,7 @@ flash_decode_combine(const float* __restrict__ work, T* __restrict__ out,
     a = fmaf(w[2 * G + g * D + d], e, a);
   }
   store(out + bhg * D + d, a / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0) lse[bhg] = row_lse(m, l);
 }
 
 // ------------------------------------------------------------ launching
@@ -586,7 +609,8 @@ int with_config(int bf16, int G, int D, F&& f) {
 
 int launch(int bf16, const void* q, const void* k, const void* v,
            const void* cache_len, void* work, void* out, int B, int H, int G,
-           int D, int S, int chunk, int n_split, float scale, void* stream) {
+           int D, int S, int chunk, int n_split, float scale, void* lse,
+           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_config(bf16, G, D, [&](auto cfg) {
     using Cfg = decltype(cfg);
@@ -597,12 +621,13 @@ int launch(int bf16, const void* q, const void* k, const void* v,
     Cfg::kernel<<<dim3(n_split, H, B), kThreads, bytes, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(cache_len),
-        static_cast<float*>(work), static_cast<T*>(out), H, G, S, chunk,
-        n_split, scale);
+        static_cast<float*>(work), static_cast<T*>(out),
+        static_cast<float*>(lse), H, G, S, chunk, n_split, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
     flash_decode_combine<T><<<dim3(B * H * G, (D + 31) / 32), 32, 0, st>>>(
-        static_cast<const float*>(work), static_cast<T*>(out), G, D, n_split);
+        static_cast<const float*>(work), static_cast<T*>(out),
+        static_cast<float*>(lse), G, D, n_split);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -611,21 +636,23 @@ int launch(int bf16, const void* q, const void* k, const void* v,
 
 // q (B,H,G,D), caches (B,S,H,D), cache_len one int32 on the device,
 // work (B*H*n_split*G*(D+2)) float32 (unused with one split), out
-// (B,H,G,D) in q's dtype
+// (B,H,G,D) in q's dtype, lse (B,H,G) float32 or null (not written)
 extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
                                 const void* cache_len, void* work, void* out,
                                 int B, int H, int G, int D, int S, int chunk,
-                                int n_split, float scale, void* stream) {
+                                int n_split, float scale, void* lse,
+                                void* stream) {
   return launch(0, q, k, v, cache_len, work, out, B, H, G, D, S, chunk,
-                n_split, scale, stream);
+                n_split, scale, lse, stream);
 }
 
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* cache_len, void* work, void* out,
                                  int B, int H, int G, int D, int S, int chunk,
-                                 int n_split, float scale, void* stream) {
+                                 int n_split, float scale, void* lse,
+                                 void* stream) {
   return launch(1, q, k, v, cache_len, work, out, B, H, G, D, S, chunk,
-                n_split, scale, stream);
+                n_split, scale, lse, stream);
 }
 
 // the split plan's input: out[0] = blocks of the split kernel for (dtype,

@@ -8,7 +8,10 @@ one split the block writes the output itself; otherwise each block writes
 a partial (m, l, acc) to a float32 workspace this wrapper allocates and a
 second kernel combines the splits in a fixed order. The valid length is
 read on the device, so a decode loop never waits on the host, and the
-launch can be captured into a CUDA graph.
+launch can be captured into a CUDA graph. With ``return_lse`` the kernel
+also writes each row's float32 log-sum-exp, by which the sequence shards
+of a device mesh combine their partial results
+(``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -87,21 +90,27 @@ def device_slots(device: torch.device, dtype, G: int, D: int) -> int:
 
 
 @recorded("flash_decode", flash_decode_ref)
-def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
+def flash_decode(q, k_cache, v_cache, cache_len, scale=None,
+                 return_lse=False):
     """q (B,H,G,D) one new token per sequence, caches (B,S,H,D), cache_len
     the valid prefix (one int32 on q's device; an int too on the CPU) →
-    (B,H,G,D) in q's dtype. Scores are scaled by ``scale`` (1/√D by
-    default), accumulated in float32, positions at or past cache_len
-    masked. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which reads cache_len on the device (no host sync) and has no
-    backward (it raises where autograd would record the call). In bf16
-    the kernel rounds p to bf16 for the PV product, as the TPU kernel does.
+    (B,H,G,D) in q's dtype; with ``return_lse`` the pair (out, lse), lse
+    the float32 (B,H,G) ``m + log(l)`` of each row's scaled scores over
+    the valid prefix. Scores are scaled by ``scale`` (1/√D by default),
+    accumulated in float32, positions at or past cache_len masked. CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    reads cache_len on the device (no host sync) and has no backward (it
+    raises where autograd would record the call). In bf16 the kernel
+    rounds p to bf16 for the PV product, as the TPU kernel does.
 
-    cache_len = 0 lies outside the references' agreement (the Pallas
-    kernel gives 0, its jnp oracle the mean of V); the kernel gives 0. The
-    model never asks for it: decode passes the cache length plus one."""
+    cache_len = 0 (a sequence shard of a mesh that holds no valid row
+    yet) gives out = 0 and lse = ``EMPTY_LSE`` (-1e30) in the kernel and
+    its plain version alike. The reference's Pallas kernel also gives 0
+    there; its jnp oracle, which the single-device model never asks for
+    length 0, the mean of V."""
     if on_cpu(q, k_cache, v_cache):
-        return flash_decode_ref(q, k_cache, v_cache, cache_len, scale)
+        return flash_decode_ref(q, k_cache, v_cache, cache_len, scale,
+                                return_lse)
     refuse_grad("flash_decode", q, k_cache, v_cache)
     require(q.dim() == 4 and k_cache.dim() == 4,
             f"q (B,H,G,D) and caches (B,S,H,D) expected, got "
@@ -128,8 +137,10 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
             and cache_len.dtype == torch.int32 and cache_len.device == q.device,
             "cache_len must be one int32 tensor on q's device")
     out = torch.empty((B, H, G, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, G), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B == 0 or H == 0 or G == 0:
-        return out
+        return (out, lse) if return_lse else out
     chunk, n_split = split_plan(B, H, S, device_slots(q.device, q.dtype, G, D))
     # per (b, h, split): m and l per query head, then acc (G, D)
     work = (torch.empty((B * H * n_split * G * (D + 2),), dtype=torch.float32,
@@ -139,15 +150,17 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None):
            cache_len.data_ptr(), None if work is None else work.data_ptr(),
            out.data_ptr(), B, H, G, D, S, chunk, n_split,
            float(scale if scale is not None else 1.0 / np.sqrt(D)),
+           None if lse is None else lse.data_ptr(),
            cost=lambda: cost(q, k_cache, v_cache, int(cache_len)))
-    return out
+    return (out, lse) if return_lse else out
 
 
 def cost(q, k_cache, v_cache, L: int) -> tuple[int, int]:
-    """(flops, bytes) of one call over a valid prefix of L rows, the work
-    its roofline bound counts: q·K and p·V over the prefix (4·B·H·G·L·D);
-    bytes: the prefix of K and V and q read once, the output written
-    once (the split partials are the kernel's choice)."""
+    """(flops, bytes) of one call over a valid prefix of L rows (on a
+    mesh, the rank's own shard's), the work its roofline bound counts: q·K
+    and p·V over the prefix (4·B·H·G·L·D); bytes: the prefix of K and V
+    and q read once, the output written once (the split partials and the
+    lse, 4·B·H·G bytes where asked, are left out)."""
     B, H, G, D = q.shape
     item = k_cache.element_size()
     return (4 * B * H * G * L * D,

@@ -19,8 +19,9 @@ to stop at, so a cell that fits the card is run:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all      # subprocesses
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch din --shape serve_p99 --mesh 2x2
 
-With ``mesh`` (a recsys serving cell on a mesh; the LM, GNN and training
-cells wait for ROADMAP A8) the cell runs as one rank per mesh device
+With ``mesh`` (a recsys or LM serving cell on a mesh; the GNN and
+training cells wait for ROADMAP A8) the cell runs as one rank per mesh
+device
 (``launch/mesh.py::run_jobs``): the fit check is per rank (its part of
 the arguments against its share of the card), each rank draws its part
 of the arguments and records its ms per step (CUDA events), its
@@ -179,10 +180,10 @@ def _run_mesh_cell(arch_id, shape_name, out_dir, dev, steps, warmup,
                    reduced, mesh, check_kernels) -> dict:
     dims, axes = (mesh_lib.parse_mesh(mesh) if isinstance(mesh, str) else
                   (tuple(mesh), ("pod", "data", "model")[-len(mesh):]))
-    if registry.get(arch_id).family != "recsys":
+    if registry.get(arch_id).family == "gnn":
         raise NotImplementedError(
             f"{arch_id} on a device mesh is not ported yet (ROADMAP A8: the "
-            f"LM and GNN cells on a mesh come in later slices)")
+            f"GNN cells on a mesh come with training on a mesh)")
     cell = build_cell(arch_id, shape_name, device=dev, reduced=reduced,
                       mesh=mesh_lib.abstract_mesh(dims, axes))
     if cell.draw_local is None:

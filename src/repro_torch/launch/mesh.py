@@ -174,6 +174,8 @@ def _rank_main(rank, n, store_path, backend, device, fn, args, results):
         dev = torch.device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(rank if backend == "nccl" else 0)
+        else:                    # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
         dist.init_process_group(
             backend, store=dist.FileStore(store_path, n), rank=rank,
             world_size=n, timeout=timedelta(seconds=RANK_TIMEOUT_S))
@@ -235,9 +237,10 @@ def run_ranks(fn: Callable, n: int, args: tuple = (), device="cpu",
 @dataclass(frozen=True)
 class ModelDraw:
     """Parameters each rank draws itself: ``module``'s ``init`` (a recsys
-    model) from a generator on the rank's device seeded ``seed``, on the
-    rank's mesh — its rows of the split tables only (``tables_init``),
-    the same values as :meth:`draw` without a mesh gives whole."""
+    model's, the LM's) from a generator on the rank's device seeded
+    ``seed``, on the rank's mesh — its part of the parameters only (a
+    recsys model's rows of the split tables, an LM's slice of every
+    layer), the same values as :meth:`draw` without a mesh gives whole."""
     module: str
     cfg: Any
     seed: int = 0
@@ -254,7 +257,8 @@ class CellDraw:
     """A cell of ``launch/specs.py`` as a job: each rank builds it on its
     live mesh and draws its part of the arguments (``Cell.materialize``
     with a generator seeded ``seed``); the call is ``cell.fn(*args)``,
-    its output gathered by the cell's ``out_specs``."""
+    its output (the leading ``cell.mesh_outputs`` of it, where the cell
+    says) gathered by the cell's ``out_specs``."""
     arch: str
     shape: str
     reduced: bool = False
@@ -267,7 +271,10 @@ class CellDraw:
         args = cell.materialize(
             dev, torch.Generator(device=dev).manual_seed(self.seed),
             mesh=mesh)
-        return (lambda: cell.fn(*args)), cell.out_specs
+        n = cell.mesh_outputs
+        if n is None:
+            return (lambda: cell.fn(*args)), cell.out_specs
+        return (lambda: tuple(cell.fn(*args)[:n])), tuple(cell.out_specs[:n])
 
 
 @dataclass
@@ -402,6 +409,8 @@ def _jobs_rank(shape, axes, device, jobs):
             t0 = time.monotonic()
             call, out_specs = _prepare(job, dev, mesh, drawn)
             _sync(dev)
+            if dev.type == "cuda":       # the draw's transients, for the
+                torch.cuda.empty_cache()  # ranks sharing the card
             row: dict = {"t_prepare_s": round(time.monotonic() - t0, 2)}
             before = mesh.counts.snapshot()
             K.reset_launches()
@@ -431,42 +440,83 @@ def _jobs_rank(shape, axes, device, jobs):
             if dev.type == "cuda":
                 row["max_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
             out.append(row)
+            # the call's arguments go before the next job draws its own
+            # (a ModelDraw the next job shares stays in ``drawn``)
+            del call
     return out
 
 
 def collective_support(params=None) -> dict:
-    """Which collectives the current mesh's backend accepts on tensors of
-    this rank's device, each tried once over the whole mesh: {kind: "ok"
-    or the error}. A report for the records (run as a :class:`Job`): the
+    """Which collectives the current mesh's backend carries correctly on
+    tensors of this rank's device, each tried once over the whole mesh in
+    float32 and in bfloat16 ("_bf16"): {kind: "ok", "wrong values" or the
+    error}. Rank r contributes r + 1 everywhere, so every kind's result is
+    known. A report for the records (run as a :class:`Job`): the
     collective helpers hand every kind to the backend directly, so a kind
-    refused here is one the mesh paths cannot run on this backend."""
+    not "ok" here is one the mesh paths cannot use on this backend."""
     import torch.distributed as dist
     from repro_torch import runtime
     mesh = runtime.current_mesh()
     group = mesh.group(mesh.axis_names)
     dev = torch.device("cuda", torch.cuda.current_device()) \
         if torch.cuda.is_available() else torch.device("cpu")
-    n = mesh.size
-    x = torch.ones(n, device=dev)
-    tries = {
-        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
-        "broadcast": lambda: dist.broadcast(x.clone(), src=0, group=group),
-        "all_gather": lambda: dist.all_gather_into_tensor(
-            x.new_empty(n * n), x, group=group),
-        "reduce_scatter": lambda: dist.reduce_scatter_tensor(
-            x.new_empty(1), x, group=group),
-        "all_to_all": lambda: dist.all_to_all_single(torch.empty_like(x), x,
-                                                     group=group)}
+    n, r = mesh.size, mesh.rank
+    ranks = torch.arange(1, n + 1, dtype=torch.float32)
+    total = float(ranks.sum())
+
+    def reduce(x, op=dist.ReduceOp.SUM):
+        dist.all_reduce(x, op=op, group=group)
+        return x
+
+    def broadcast(x):
+        dist.broadcast(x, src=0, group=group)
+        return x
+
+    def gather(x):
+        out = x.new_empty(n * n)
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    def scatter(x):
+        out = x.new_empty(1)
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+
+    def to_all(x):
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    tries = {"all_reduce": (reduce, torch.full((n,), total)),
+             "all_reduce_max": (lambda x: reduce(x, dist.ReduceOp.MAX),
+                                torch.full((n,), float(n))),
+             "broadcast": (broadcast, torch.ones(n)),
+             "all_gather": (gather, ranks.repeat_interleave(n)),
+             "reduce_scatter": (scatter, torch.full((1,), total)),
+             "all_to_all": (to_all, ranks)}
     out = {}
-    for kind, run in tries.items():
-        try:
-            run()
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            out[kind] = "ok"
-        except RuntimeError as e:     # the backend's refusal, reported
-            out[kind] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        for kind, (run, want) in tries.items():
+            x = torch.full((n,), float(r + 1), dtype=dtype, device=dev)
+            try:
+                got = run(x)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+            except RuntimeError as e:     # the backend's refusal, reported
+                out[kind + suffix] = (f"{type(e).__name__}: "
+                                      f"{str(e).splitlines()[0][:160]}")
+                continue
+            out[kind + suffix] = ("ok" if torch.equal(got.float().cpu(), want)
+                                  else f"wrong values {got.tolist()}")
     return {"device": str(dev), "backend": mesh.backend, "kinds": out}
+
+
+def imported(params=None, packages=("jax", "jaxlib", "repro")) -> list:
+    """The modules of ``packages`` this rank has imported (run as the last
+    :class:`Job` of a launch: what the jobs before it pulled in)."""
+    import sys
+    return sorted(m for m in sys.modules if m.split(".")[0] in packages
+                  and sys.modules[m] is not None)
 
 
 def run_jobs(jobs: list, shape=(2, 2), axes=("data", "model"),

@@ -13,8 +13,12 @@ ids, recsys ids by the port's copy of ``data/synthetic.py``, graphs by
 ``synthetic.molecule_batch`` / ``random_graph`` or
 ``sampler.sample_fanout``. Given a live mesh it draws the rank's part of
 the same values: the recsys serving cells' tables as this rank's rows
-only (``tables_init``), the batch whole and then its ``local_part``. The
-``meta`` dict carries the reference's keys and formulas.
+only (``tables_init``), the batch whole and then its ``local_part``; the
+LM serving cells' parameters and decode cache part by part and layer by
+layer, each part from its own seeded generator
+(``transformer.init``, :func:`draw_lm_cache`), keeping the
+rank's slice of each layer. The ``meta`` dict carries the reference's
+keys and formulas.
 """
 from __future__ import annotations
 
@@ -65,6 +69,9 @@ class Cell:
     #: not ``in_specs`` (the retrieval cells: the port's ranking calls
     #: take their candidates whole on every rank)
     local_specs: Optional[tuple] = None
+    #: the leading outputs a mesh run gathers whole and returns (None:
+    #: all): an LM cell's logits, not the cache its ranks hold in part
+    mesh_outputs: Optional[int] = None
 
     def materialize(self, device=None, generator: Optional[torch.Generator]
                     = None, mesh=None) -> tuple:
@@ -82,8 +89,8 @@ class Cell:
         if self.draw_local is None:
             raise NotImplementedError(
                 f"{self.arch_id} x {self.shape_name} on a device mesh is not "
-                f"ported yet (ROADMAP A8): only the recsys serving cells run "
-                f"on a mesh")
+                f"ported yet (ROADMAP A8): only the serving cells run on a "
+                f"mesh")
         return self.draw_local(dev, g, rng, mesh)
 
     def next_args(self, args: tuple, out) -> tuple:
@@ -180,6 +187,32 @@ def lm_model_bytes(cfg: LMConfig, shape: ShapeSpec, n_dev: int = 1) -> float:
     return (3 * w * 3 + 4 * B * S * cfg.d_model * bpp * cfg.n_layers) / n_dev
 
 
+def draw_lm_cache(seed: int, cfg: LMConfig, batch: int, smax: int, device,
+                  mesh=None, specs=None) -> "transformer.KVCache":
+    """A decode cell's cache, N(0, 1) in the parameters' dtype: each layer
+    of each stack (a, b) from its own generator
+    (``transformer.part_generator``), so that on a live ``mesh`` a rank
+    draws one layer at a time and keeps its part by ``specs`` (the
+    cache's ``kv_cache_specs``), the same values as drawn whole. The
+    length is smax - 1."""
+    whole = transformer.KVCache.zeros(cfg, batch, smax, device=META)
+    stacks = {}
+    for name in ("a", "b"):
+        t = getattr(whole, name)
+
+        def draw(i, name=name, t=t):
+            layer = torch.empty(t.shape[1:], dtype=t.dtype, device=device)
+            layer.normal_(generator=transformer.part_generator(
+                seed, "cache", name, i, device=device))
+            if mesh is None:
+                return layer
+            return shr.local_part(layer, P(*getattr(specs, name)[1:]), mesh)
+        stacks[name] = transformer.stack_layers(draw, cfg.n_layers)
+    return transformer.KVCache(
+        a=stacks["a"], b=stacks["b"],
+        length=torch.full((), smax - 1, dtype=torch.int32, device=device))
+
+
 def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
     mesh = _mesh(mesh)
     cfg: LMConfig = arch.config
@@ -192,11 +225,15 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
             "param_dtype": cfg.param_dtype,
             "params": cfg.param_count(), "active_params": cfg.active_param_count()}
 
-    def draw_params(dev, g):
-        return transformer.init(g, cfg, device=dev)
+    def draw_params(dev, g, live=None):
+        return transformer.init(g, cfg, dev, mesh=live)
 
     def draw_tokens(rng, dev, seq):
         return _tensors(synthetic.lm_batch(rng, cfg, B, seq)["tokens"], dev)
+
+    # a batch that does not split over the data axes is held whole by
+    # every rank (the serving calls' batch_axes=())
+    batch_axes = None if shr.batched_spec(mesh, (B,))[0] is not None else ()
 
     if shape.kind == "train":
         n_micro = _lm_micro(cfg, B, mesh)
@@ -221,35 +258,47 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
                     in_specs=(pspecs, ospecs, shr.batched_spec(mesh, (B, S))),
                     out_specs=(pspecs, ospecs, P()), mesh=mesh)
 
+    # the serving cells: parameters (and a decode cache) drawn part by
+    # part and layer by layer, whole or, on a live mesh, the rank's slice
+    # of the same values; a mesh run returns the logits gathered, not the
+    # cache
     logits_spec = shr.batched_spec(mesh, (B, cfg.vocab))
     ca, cb, cl = shr.kv_cache_specs(cfg, B, mesh)
     cache_specs = transformer.KVCache(a=ca, b=cb, length=cl)
+    tok_spec = shr.batched_spec(mesh, (B, S if shape.kind == "prefill" else 1))
+
     if shape.kind == "prefill":
-        def draw(dev, g, rng):
-            return draw_params(dev, g), draw_tokens(rng, dev, S)
+        def draw(dev, g, rng, live=None):
+            toks = draw_tokens(rng, dev, S)
+            return (draw_params(dev, g, live),
+                    toks if live is None else shr.local_part(toks, tok_spec,
+                                                             live))
         return Cell(arch.arch_id, shape.name,
-                    lambda p, toks: transformer.prefill(p, toks, cfg, smax=S),
+                    lambda p, toks: transformer.prefill(
+                        p, toks, cfg, smax=S, batch_axes=batch_axes),
                     (params, _ids(B, S)), draw, meta=meta, device=device,
-                    in_specs=(pspecs, shr.batched_spec(mesh, (B, S))),
-                    out_specs=(logits_spec, cache_specs), mesh=mesh)
+                    in_specs=(pspecs, tok_spec),
+                    out_specs=(logits_spec, cache_specs), mesh=mesh,
+                    draw_local=draw, mesh_outputs=1)
 
     # decode / decode_long: one new token against a seq_len KV cache whose
     # valid prefix is S - 1, so the step reads (and writes) all S rows;
     # the step's cache is not fed back (the next call repeats the step)
     def decode_fn(p, c, toks):
-        return transformer.decode_step(p, c, toks, cfg)
+        return transformer.decode_step(p, c, toks, cfg, batch_axes=batch_axes)
 
-    def draw(dev, g, rng):
-        cache = transformer.KVCache.zeros(cfg, B, S, device=dev)
-        for t in (cache.a, cache.b):
-            t.normal_(generator=g)
-        cache.length.fill_(S - 1)
-        return draw_params(dev, g), cache, draw_tokens(rng, dev, 1)
+    def draw(dev, g, rng, live=None):
+        toks = draw_tokens(rng, dev, 1)
+        cache = draw_lm_cache(g.initial_seed(), cfg, B, S, dev, live,
+                              cache_specs)
+        return (draw_params(dev, g, live), cache,
+                toks if live is None else shr.local_part(toks, tok_spec, live))
     return Cell(arch.arch_id, shape.name, decode_fn,
                 (params, transformer.KVCache.zeros(cfg, B, S, device=META),
                  _ids(B, 1)), draw, meta=meta, device=device,
-                in_specs=(pspecs, cache_specs, shr.batched_spec(mesh, (B, 1))),
-                out_specs=(logits_spec, cache_specs), mesh=mesh)
+                in_specs=(pspecs, cache_specs, tok_spec),
+                out_specs=(logits_spec, cache_specs), mesh=mesh,
+                draw_local=draw, mesh_outputs=1)
 
 
 # ------------------------------------------------------------------ GNN

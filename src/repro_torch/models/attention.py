@@ -13,21 +13,129 @@ GQA decode on a CUDA tensor runs the hand-written ``flash_decode`` kernel;
 on a CPU tensor it is the reference's math. MLA's expanded prefill and
 absorbed decode are plain PyTorch, as in the reference (no kernel covers
 them, and Dv differs from D there).
+
+On a device mesh (``runtime.current_mesh()``) each rank holds its part of
+the parameters by ``launch/sharding.py::lm_param_specs`` and of the KV
+cache by ``kv_cache_specs``; GSPMD partitions the reference's attention
+from those specs, and every collective it would insert is written out
+here:
+
+  * head tensor parallelism (reference ``launch/sharding.py:75-88``):
+    ``wq`` / ``wk`` / ``wv`` (MLA: ``wq_b`` / ``wk_b`` / ``wv_b``) hold the
+    rank's heads where the head counts divide ``model``, ``wo`` the
+    matching rows; the row-parallel ``wo`` ends in one ``all_reduce`` over
+    ``model``. :func:`head_split` is the one place that says which query
+    heads a rank holds and which kv head each uses (query head h uses kv
+    head h // G, also where ``wq`` is split and ``wk`` / ``wv`` are not);
+  * prefill attends over the whole prompt for the rank's heads, then
+    returns its cache rows in ``kv_cache_specs``' layout (every kv head,
+    the rank's sequence rows; kv heads split over ``model`` are gathered
+    first);
+  * decode over a sequence-sharded cache is a distributed softmax
+    (reference ``attention.py:109-133``): the new token's K/V row goes to
+    the rank that owns its position (a masked write on the device), every
+    rank runs B6 with ``return_lse`` over its own valid rows, and the
+    partials meet by one max and one sum over the sequence axes
+    (:func:`combine_shards`). MLA's absorbed decode takes the same max and
+    sum over its latent rows.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.models.layers import (apply_rope, as_dtype, norm_init,
-                                      randn_scaled, rmsnorm)
+                                      randn_scaled, rmsnorm, row_parallel)
 
 NEG_INF = -1e30
+
+
+# ------------------------------------------------------------ on a mesh
+
+class SeqShard(NamedTuple):
+    """A rank's rows of a KV cache whose sequence dim is split over mesh
+    ``axes`` (``kv_cache_specs``): global rows [r0, r0 + rows) of
+    ``smax``."""
+    axes: tuple
+    r0: int
+    rows: int
+    smax: int
+
+
+class HeadSplit(NamedTuple):
+    """The query heads a rank holds under ``lm_param_specs`` and the
+    grouped layout it attends them in: ``n`` heads from global head
+    ``h0``, as ``groups`` kv groups of ``group`` query heads;
+    ``kv_heads`` names the global kv head of each local group."""
+    n: int
+    h0: int
+    q_split: bool
+    kv_split: bool
+    groups: int
+    group: int
+    kv_heads: tuple
+
+
+def head_split(cfg) -> HeadSplit:
+    """The rank's heads on the installed mesh (all of them without one).
+    ``wq`` splits where ``model`` divides n_heads, ``wk`` / ``wv`` where it
+    divides n_kv (MLA: every per-head weight with n_heads). Query head h
+    uses kv head h // G, so the local heads group as: whole groups of G
+    where the rank holds a multiple of G; one group of all its heads where
+    it holds fewer than G within one kv head (qwen3-8b at ``model`` = 16,
+    the reduced GQA configs at (2, 4)); else one head per group."""
+    H = cfg.n_heads
+    G = 1 if cfg.mla else H // cfg.n_kv
+    q_split = runtime.splits(H, "model")
+    kv_split = not cfg.mla and runtime.splits(cfg.n_kv, "model")
+    n = H // runtime.axis_size("model") if q_split else H
+    h0 = runtime.axis_index("model") * n if q_split else 0
+    if n % G == 0:
+        groups, group = n // G, G
+        kv_heads = tuple(h0 // G + j for j in range(groups))
+    elif G % n == 0:
+        groups, group, kv_heads = 1, n, (h0 // G,)
+    else:
+        groups, group = n, 1
+        kv_heads = tuple((h0 + j) // G for j in range(n))
+    return HeadSplit(n, h0, q_split, kv_split, groups, group, kv_heads)
+
+
+def _gather_heads(x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, n, ...) holding the rank's heads → every head, gathered
+    over ``model`` (``all_gather`` concatenates dim 0: the head dim moves
+    there and back)."""
+    return runtime.all_gather(x.movedim(2, 0), "model").movedim(0, 2)
+
+
+def _cache_rows(t: torch.Tensor, seq: SeqShard) -> torch.Tensor:
+    """The rank's rows [r0, r0 + rows) of a prompt's ``t`` (B, S, ...)
+    padded with zeros to ``seq.smax``: its block of the prefill cache."""
+    S = t.shape[1]
+    lo, hi = min(seq.r0, S), min(seq.r0 + seq.rows, S)
+    pad = seq.rows - (hi - lo)
+    return F.pad(t[:, lo:hi], (0, 0) * (t.dim() - 2) + (0, pad)).contiguous()
+
+
+def combine_shards(out: torch.Tensor, lse: torch.Tensor,
+                   axes) -> torch.Tensor:
+    """The softmax over every sequence shard from each shard's normalized
+    ``out`` (B, H, G, D) and its ``lse`` (B, H, G): with M the max of the
+    lse over ``axes`` and w = exp(lse - M), the sum of w·out over the sum
+    of w, in float32 (one max, one sum of out and w packed together),
+    cast to ``out``'s dtype once. A shard with no valid row has lse =
+    -1e30 and out = 0, so it adds nothing; some shard holds the new token,
+    so M is finite."""
+    M = runtime.all_reduce(lse.clone(), axes, op="max")
+    w = torch.exp(lse - M)[..., None]
+    packed = runtime.all_reduce(torch.cat([out.float() * w, w], -1), axes)
+    return (packed[..., :-1] / packed[..., -1:]).to(out.dtype)
 
 
 def _chunk_scores(q, k, scale):
@@ -136,14 +244,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)                # (B,1,H,G,Dv)
 
 
-def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_len):
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_len,
+                 seq: Optional[SeqShard] = None):
     """Write ``new`` (B,S,...) into ``cache`` (B,Smax,...) along dim 1 at
     cache_len, in place and on the device. The start is clamped so the
-    update fits, as ``dynamic_update_slice`` clamps it."""
+    update fits, as ``dynamic_update_slice`` clamps it.
+
+    On a sequence shard (``seq``) ``cache`` holds the rank's rows and
+    ``new`` one row (decode): it lands only on the rank that owns its
+    global position (clamped into the whole cache, as above); every other
+    rank writes its own row back unchanged. The owner is chosen on the
+    device, so the step never reads cache_len on the host."""
     Smax, S = cache.shape[1], new.shape[1]
-    start = torch.as_tensor(cache_len, device=cache.device).clamp(0, Smax - S)
-    idx = start.long() + torch.arange(S, device=cache.device)
-    return cache.index_copy_(1, idx, new.to(cache.dtype))
+    if seq is None:
+        start = torch.as_tensor(cache_len, device=cache.device).clamp(
+            0, Smax - S)
+        idx = start.long() + torch.arange(S, device=cache.device)
+        return cache.index_copy_(1, idx, new.to(cache.dtype))
+    if S != 1:
+        raise ValueError(f"a sequence-sharded cache takes one new row, got {S}")
+    local = torch.as_tensor(cache_len, device=cache.device).clamp(
+        0, seq.smax - 1) - seq.r0
+    owned = (local >= 0) & (local < seq.rows)
+    idx = local.clamp(0, seq.rows - 1).long().reshape(1)
+    row = torch.where(owned, new.to(cache.dtype), cache.index_select(1, idx))
+    return cache.index_copy_(1, idx, row)
+
+
+def _local_len(cache_len, seq: SeqShard) -> torch.Tensor:
+    """The valid rows of the rank's shard after the step's write: the
+    global length cache_len + 1 less the shard's start, within [0, rows],
+    as one int32 on the device."""
+    return (torch.as_tensor(cache_len) + 1 - seq.r0).clamp(
+        0, seq.rows).to(torch.int32)
 
 
 # ---------------------------------------------------------------- GQA block
@@ -165,17 +298,19 @@ def gqa_init(generator: torch.Generator, cfg, dtype, device=None) -> dict:
 
 
 def _gqa_qkv(p, x, positions, cfg):
+    """q (B,S,n,D) for the rank's n query heads, k and v (B,S,Hk,D) for
+    the kv heads its ``wk`` / ``wv`` hold (all of them without a mesh)."""
     B, S, _ = x.shape
-    Hq, Hkv, D = cfg.n_heads, cfg.n_kv, cfg.d_head
-    G = Hq // Hkv
-    q = (x @ p["wq"]).reshape(B, S, Hkv, G, D)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, D)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, D)
+    D = cfg.d_head
+    q = (x @ p["wq"]).reshape(B, S, -1, D)
+    k = (x @ p["wk"]).reshape(B, S, -1, D)
+    v = (x @ p["wv"]).reshape(B, S, -1, D)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"]["scale"], cfg.norm_eps)
-    # RoPE on the last dim; the grouped q rotates per (Hkv, G) head
-    q = apply_rope_grouped(q, positions, cfg.rope_theta)
+    # RoPE on the last dim, per head (the reference rotates its grouped q
+    # per (Hkv, G) head: the same rotation)
+    q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope_heads(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -190,23 +325,75 @@ def apply_rope_grouped(q, positions, theta):
     return q.reshape(B, S, H, G, D)
 
 
-def gqa_forward(p, x, positions, cfg, *, cache=None, cache_len=None):
+def _group_kv(k, v, hs: HeadSplit):
+    """The kv heads of the rank's local groups: k / v as they are where
+    they hold exactly those (split over ``model`` with the query heads, or
+    no split at all), else the groups' heads taken from the whole."""
+    if hs.kv_split or hs.kv_heads == tuple(range(k.shape[2])):
+        return k, v
+    idx = torch.tensor(hs.kv_heads, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _decode_on_shards(q, k, v, cache, cache_len, seq: SeqShard,
+                      hs: HeadSplit):
+    """One new token (q (B,1,n,D), k / v (B,1,Hk,D)) against the rank's
+    rows of a sequence-sharded cache: every head gathered over ``model``
+    where the heads split (B × H × D each), the new row written on its
+    owner, B6 with ``return_lse`` over the rank's valid rows (possibly
+    none), the shards combined over the sequence axes; → the rank's own
+    heads (B,1,n,D)."""
+    B, _, _, D = q.shape
+    if hs.q_split:
+        q = _gather_heads(q)
+    if hs.kv_split:
+        k, v = _gather_heads(k), _gather_heads(v)
+    k_cache, v_cache = cache
+    _write_cache(k_cache, k, cache_len, seq)
+    _write_cache(v_cache, v, cache_len, seq)
+    H, Hkv = q.shape[2], k.shape[2]
+    out, lse = flash_decode(q[:, 0].reshape(B, Hkv, H // Hkv, D).contiguous(),
+                            k_cache, v_cache, _local_len(cache_len, seq),
+                            return_lse=True)
+    o = combine_shards(out, lse, seq.axes).reshape(B, 1, H, D)
+    return o[:, :, hs.h0:hs.h0 + hs.n]
+
+
+def gqa_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
+                seq: Optional[SeqShard] = None):
     """cache=None: full causal self-attention (prefill). With cache: decode
     — x is (B,1,d); the new K/V are written into the cache in place at
-    cache_len, and (out, (k_cache, v_cache)) is returned."""
+    cache_len, and (out, (k_cache, v_cache)) is returned.
+
+    On a mesh the rank attends for its heads (:func:`head_split`) and
+    ``wo`` is row-parallel; ``seq`` (the cache's sequence shard) makes a
+    prefill return its cache rows in ``kv_cache_specs``' layout and a
+    decode combine the shards (:func:`_decode_on_shards`)."""
     B, S, _ = x.shape
+    D = cfg.d_head
+    hs = head_split(cfg)
     q, k, v = _gqa_qkv(p, x, positions, cfg)
     if cache is None:
-        o = chunked_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, S))
+        kg, vg = _group_kv(k, v, hs)
+        o = chunked_attention(q.reshape(B, S, hs.groups, hs.group, D), kg, vg,
+                              causal=True, chunk=min(cfg.attn_chunk, S))
         new_kv = (k, v)
+        if seq is not None:
+            if hs.kv_split:
+                k, v = _gather_heads(k), _gather_heads(v)
+            new_kv = (_cache_rows(k, seq), _cache_rows(v, seq))
+    elif seq is not None:
+        o = _decode_on_shards(q, k, v, cache, cache_len, seq, hs)
+        new_kv = cache
     else:
         k_cache, v_cache = cache
         _write_cache(k_cache, k, cache_len)
         _write_cache(v_cache, v, cache_len)
-        o = decode_attention(q, k_cache, v_cache, cache_len + S)
+        o = decode_attention(q.reshape(B, S, hs.groups, hs.group, D),
+                             k_cache, v_cache, cache_len + S)
         new_kv = (k_cache, v_cache)
-    o = o.reshape(B, S, cfg.n_heads * cfg.d_head)
-    return o @ p["wo"], new_kv
+    o = o.reshape(B, S, hs.n * D)
+    return row_parallel(o, p["wo"], hs.q_split), new_kv
 
 
 # ---------------------------------------------------------------- MLA block
@@ -239,27 +426,64 @@ def mla_init(generator: torch.Generator, cfg, dtype, device=None) -> dict:
 
 
 def _mla_q(p, x, positions, cfg):
+    """(q_nope, q_rope) (B,S,n,d_nope / d_rope) for the rank's n heads."""
     m = cfg.mla
     B, S, _ = x.shape
-    H, dq = cfg.n_heads, m.d_nope + m.d_rope
+    dq = m.d_nope + m.d_rope
     if m.q_lora:
         ql = rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"], cfg.norm_eps)
-        q = (ql @ p["wq_b"]).reshape(B, S, H, dq)
+        q = (ql @ p["wq_b"]).reshape(B, S, -1, dq)
     else:
-        q = (x @ p["wq"]).reshape(B, S, H, dq)
+        q = (x @ p["wq"]).reshape(B, S, -1, dq)
     q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
 
 
-def mla_forward(p, x, positions, cfg, *, cache=None, cache_len=None):
+def _mla_decode_on_shards(p, q_nope, q_rope, c_kv, k_rope, cache, cache_len,
+                          seq: SeqShard, hs: HeadSplit, cfg, scale):
+    """The absorbed decode over the rank's rows of the latent cache
+    (reference ``attention.py:273-288``): q_c for the rank's heads,
+    gathered over ``model`` with q_rope; scores against the local latent
+    rows at their global positions; the softmax's max and sum taken over
+    the sequence axes; o_lat summed over them and cut to the rank's heads
+    for ``wv_b`` → (B,1,n,v_dim)."""
+    m = cfg.mla
+    c_cache, r_cache = cache
+    _write_cache(c_cache, c_kv, cache_len, seq)
+    _write_cache(r_cache, k_rope, cache_len, seq)
+    wkb = p["wk_b"].reshape(m.kv_lora, hs.n, m.d_nope)
+    q_c = torch.einsum("bshd,lhd->bshl", q_nope, wkb)      # (B,1,n,kv_lora)
+    if hs.q_split:
+        q_c, q_rope = _gather_heads(q_c), _gather_heads(q_rope)
+    s_l = torch.einsum("bshl,bSl->bhsS", q_c.float(), c_cache.float())
+    s_r = torch.einsum("bshd,bSd->bhsS", q_rope.float(), r_cache.float())
+    s = (s_l + s_r) * scale                                 # (B,H,1,rows)
+    pos = seq.r0 + torch.arange(seq.rows, device=s.device)
+    s = torch.where((pos < cache_len + 1)[None, None, None], s, NEG_INF)
+    mx = runtime.all_reduce(s.amax(-1, keepdim=True), seq.axes, op="max")
+    e = torch.exp(s - mx)
+    pr = e / runtime.all_reduce(e.sum(-1, keepdim=True), seq.axes)
+    o_lat = torch.einsum("bhsS,bSl->bshl", pr.to(c_cache.dtype).float(),
+                         c_cache.float())
+    o_lat = runtime.all_reduce(o_lat, seq.axes).to(c_cache.dtype)
+    wvb = p["wv_b"].reshape(m.kv_lora, hs.n, m.v_dim)
+    return torch.einsum("bshl,lhv->bshv", o_lat[:, :, hs.h0:hs.h0 + hs.n],
+                        wvb)
+
+
+def mla_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
+                seq: Optional[SeqShard] = None):
     """MLA attention. The cache holds the latent (c_kv, k_rope): kv_lora +
     d_rope per token. Decode uses the absorbed form (w_k_b folds into q,
     w_v_b applies after the latent-space attention); the latent caches are
-    written in place at cache_len."""
+    written in place at cache_len. On a mesh the rank computes its heads
+    (the latent projections are replicated) and ``wo`` is row-parallel;
+    ``seq`` as in :func:`gqa_forward`."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
+    hs = head_split(cfg)
+    H = hs.n
     scale = 1.0 / np.sqrt(m.d_nope + m.d_rope)
 
     kv = x @ p["wkv_a"]                                     # (B,S,kv_lora+d_rope)
@@ -279,7 +503,12 @@ def mla_forward(p, x, positions, cfg, *, cache=None, cache_len=None):
         o = chunked_attention(q, k, v, causal=True,
                               chunk=min(cfg.attn_chunk, S), scale=scale)
         o = o[:, :, :, 0]                                   # (B,S,H,v_dim)
-        new_cache = (c_kv, k_rope)
+        new_cache = (c_kv, k_rope) if seq is None else \
+            (_cache_rows(c_kv, seq), _cache_rows(k_rope, seq))
+    elif seq is not None:
+        o = _mla_decode_on_shards(p, q_nope, q_rope, c_kv, k_rope, cache,
+                                  cache_len, seq, hs, cfg, scale)
+        new_cache = cache
     else:
         c_cache, r_cache = cache                            # (B,Smax,kv_lora),(B,Smax,d_rope)
         _write_cache(c_cache, c_kv, cache_len)
@@ -298,7 +527,7 @@ def mla_forward(p, x, positions, cfg, *, cache=None, cache_len=None):
         o = torch.einsum("bshl,lhv->bshv", o_lat, wvb)      # (B,1,H,v_dim)
         new_cache = (c_cache, r_cache)
     o = o.reshape(B, S, H * m.v_dim).to(x.dtype)
-    return o @ p["wo"], new_cache
+    return row_parallel(o, p["wo"], hs.q_split), new_cache
 
 
 def attn_init(generator, cfg, dtype, device=None):
@@ -306,7 +535,7 @@ def attn_init(generator, cfg, dtype, device=None):
             else gqa_init(generator, cfg, dtype, device))
 
 
-def attn_forward(p, x, positions, cfg, *, cache=None, cache_len=None):
-    if cfg.mla:
-        return mla_forward(p, x, positions, cfg, cache=cache, cache_len=cache_len)
-    return gqa_forward(p, x, positions, cfg, cache=cache, cache_len=cache_len)
+def attn_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
+                 seq: Optional[SeqShard] = None):
+    fwd = mla_forward if cfg.mla else gqa_forward
+    return fwd(p, x, positions, cfg, cache=cache, cache_len=cache_len, seq=seq)

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 
 
 def activation(x, kind: str):
@@ -143,8 +143,24 @@ def mlp_init(generator: torch.Generator, d_in: int, d_ff: int, d_out: int,
     return {k: v.to(dt) for k, v in p.items()}
 
 
-def mlp_apply(p: dict, x: torch.Tensor, act: str, glu: bool) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, act: str, glu: bool,
+              split: bool = False) -> torch.Tensor:
+    """The FFN. ``split``: on a mesh, ``w1`` / ``w3`` hold the rank's
+    columns of d_ff and ``w2`` its rows (column- then row-parallel, the
+    reference's ``launch/sharding.py:67-72``), so the output is summed over
+    ``model`` (:func:`row_parallel`)."""
     h = activation(x @ p["w1"], act)
     if glu:
         h = h * (x @ p["w3"])
-    return h @ p["w2"]
+    return row_parallel(h, p["w2"], split)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 split: bool) -> torch.Tensor:
+    """x @ w. ``split``: ``w`` holds the rank's rows of the contraction
+    (row-parallel over ``model``), so the rank's partial product is summed
+    over ``model`` by one ``all_reduce`` in its own dtype — where and as
+    GSPMD inserts it for the reference."""
+    if not split:
+        return x @ w
+    return runtime.all_reduce(x @ w, "model")

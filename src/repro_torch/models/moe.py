@@ -1,12 +1,32 @@
-"""MoE (DeepSeek-style: shared + fine-grained routed experts), the
-single-device path, in PyTorch.
+"""Expert-parallel MoE (DeepSeek-style: shared + fine-grained routed
+experts), in PyTorch.
 
 Dispatch is sort-based, as in the reference: argsort by expert,
 rank-in-expert capacity, a gather into (E, C, d) buffers, one batched
 product per expert weight, and a combine through a zero sentinel row for
-dropped pairs. The expert-parallel path over a device mesh is not ported
-yet: passing a ``mesh`` raises ``NotImplementedError``. Shared experts are
-a plain dense GLU handled by the caller.
+dropped pairs. Shared experts are a plain dense GLU handled by the caller.
+
+On a device mesh whose ``model`` axis is larger than 1 (read from
+``runtime.current_mesh()``, as the reference reads it) each rank holds
+its experts [e0, e0 + E_loc) over ``model`` and, where ``data`` divides
+the expert d_ff, its slice of it over ``data`` (``moe_param_specs``); the
+reference's ``shard_map`` body (``moe.py:120-219``) is written out by
+rank, branch for branch:
+
+  * token-sharded (the rank's tokens are its block of a batch split over
+    the data axes): tokens, gates and expert ids all-gathered over
+    ``data``, dispatched at the capacity of the gathered row, then either
+    one reduce_scatter over (``data``, ``model``) and an all_gather over
+    ``model`` (the row splits over both) or an all_reduce over ``model``
+    and a reduce_scatter over ``data``; a row whose (tokens x d) passes
+    ``CHUNK_ELEMS`` goes in chunks, each with its own capacity, and the
+    chunks' outputs are put back in the (shard, chunk, pos) order;
+  * replicated tokens (a batch every rank holds whole whose token count
+    does not split over the data axes, e.g. batch-1 decode): one
+    all_reduce over (``data``, ``model``) where d_ff is split, else over
+    ``model``.
+
+The load-balance aux is averaged over every mesh axis.
 """
 from __future__ import annotations
 
@@ -14,8 +34,13 @@ import numpy as np
 import torch
 
 from repro_torch import default_device, runtime
+from repro_torch.launch.sharding import P
 from repro_torch.models.layers import activation, as_dtype, randn_scaled
 from repro_torch.topk import ordered_topk
+
+#: a gathered token row of more elements than this (tokens x d_model)
+#: dispatches in chunks: the reference's threshold (``moe.py:151``)
+CHUNK_ELEMS = 1 << 26
 
 
 def moe_expert_init(generator: torch.Generator, d_model: int, cfg, dtype,
@@ -98,20 +123,102 @@ def _dispatch_compute_combine(xg, gate, idx, w1, w3, w2, *, e0: int, C: int,
     return out
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg, act: str = "silu", mesh=None):
+def moe_apply(p: dict, x: torch.Tensor, cfg, act: str = "silu", *,
+              batch_axes=None):
     """x (..., d) → (same, aux_loss). Token dims are flattened internally.
-    Single device only: a ``mesh``, or an installed mesh
-    (``runtime.current_mesh()``) whose ``model`` axis is larger than 1,
-    raises."""
-    if mesh is not None or runtime.axis_size("model") > 1:
-        raise NotImplementedError(
-            "the expert-parallel MoE over a device mesh is not ported yet "
-            "(ROADMAP A8); only the single-device path exists")
+
+    On a mesh with a ``model`` axis the experts are split (module
+    docstring). ``x`` holds the rank's block of tokens split over
+    ``batch_axes`` (None: the mesh's data axes, ``runtime.batch_axes()``),
+    or, with ``batch_axes=()``, tokens every rank holds whole; the output
+    comes back in ``x``'s layout. Whole tokens whose count splits over the
+    data axes take the token-sharded branch on the rank's block, as the
+    reference's GSPMD reshards them, and are gathered back."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     xt = x.reshape(-1, d)
-    gate, idx, aux = _route(xt, p["router"], cfg.top_k)
-    out = _dispatch_compute_combine(
-        xt, gate, idx, p["w1"], p["w3"], p["w2"],
-        e0=0, C=_capacity(xt.shape[0], cfg), act=act)
+    if not runtime.has_axis("model"):
+        gate, idx, aux = _route(xt, p["router"], cfg.top_k)
+        out = _dispatch_compute_combine(
+            xt, gate, idx, p["w1"], p["w3"], p["w2"],
+            e0=0, C=_capacity(xt.shape[0], cfg), act=act)
+        return out.reshape(*lead, d), aux
+    out, aux = _moe_on_mesh(p, xt, cfg, act, batch_axes)
     return out.reshape(*lead, d), aux
+
+
+def _moe_on_mesh(p, xt, cfg, act, batch_axes):
+    n_model = runtime.axis_size("model")
+    n_data = runtime.axis_size("data")
+    nd = runtime.data_axis_size()
+    if cfg.n_routed % n_model:
+        raise ValueError(f"{cfg.n_routed} experts do not split over a model "
+                         f"axis of {n_model}")
+    E_loc = cfg.n_routed // n_model
+    whole = batch_axes is not None and not runtime.mesh_axes(batch_axes)
+    T = xt.shape[0] if whole else xt.shape[0] * nd          # global tokens
+    # tokens shard over the data axes when they divide (train, bulk
+    # serve); tiny-token decode keeps them replicated
+    tok_sharded = T % nd == 0 and T >= nd
+    if whole and tok_sharded:
+        xt = runtime.shard(xt, runtime.batch_axes())
+    T_row = (T // nd) * n_data if tok_sharded else T
+    C = _capacity(T_row, cfg)
+    f_sharded = cfg.d_ff_expert % n_data == 0 and n_data > 1
+    d = xt.shape[-1]
+    n_ch = 1
+    while (T_row // n_ch) * d > CHUNK_ELEMS and T_row % (n_ch * 2) == 0 \
+            and (T_row // (n_ch * 2)) % n_data == 0:
+        n_ch *= 2
+    gate, idx, aux = _route(xt, p["router"], cfg.top_k)
+    e0 = runtime.axis_index("model") * E_loc
+    w = (p["w1"], p["w3"], p["w2"])
+    if tok_sharded and n_ch > 1:
+        T_l = xt.shape[0] // n_ch
+        outc = []
+        for c in range(n_ch):
+            at = slice(c * T_l, (c + 1) * T_l)
+            outc.append(_dispatch_compute_combine(
+                runtime.all_gather(xt[at], "data"),
+                runtime.all_gather(gate[at], "data"),
+                runtime.all_gather(idx[at], "data"), *w, e0=e0,
+                C=_capacity(T_row // n_ch, cfg), act=act))
+        # each chunk's gather is shard-major within the chunk: restore the
+        # whole row's (shard, chunk, pos) order for the combine
+        out_full = torch.stack(outc).reshape(n_ch, n_data, T_l, d) \
+            .transpose(0, 1).reshape(T_row, d)
+    elif tok_sharded:
+        out_full = _dispatch_compute_combine(
+            runtime.all_gather(xt, "data"), runtime.all_gather(gate, "data"),
+            runtime.all_gather(idx, "data"), *w, e0=e0, C=C, act=act)
+    else:
+        out_full = _dispatch_compute_combine(xt, gate, idx, *w, e0=e0, C=C,
+                                             act=act)
+    if tok_sharded and T_row % (n_data * n_model) == 0:
+        # the expert (model) and f-slice (data) partials summed and the
+        # rows scattered over both axes, then the data shard's rows
+        # gathered over model: ~1.06x the buffer moved instead of ~2.9x
+        out = runtime.all_gather(
+            runtime.reduce_scatter(out_full, ("data", "model")), "model")
+    elif tok_sharded:
+        out = runtime.reduce_scatter(runtime.all_reduce(out_full, "model"),
+                                     "data")
+    else:
+        out = runtime.all_reduce(
+            out_full, ("data", "model") if f_sharded else ("model",))
+    if whole and tok_sharded:
+        out = runtime.all_gather(out, runtime.batch_axes())
+    mesh = runtime.current_mesh()
+    aux = runtime.all_reduce(aux.reshape(1), mesh.axis_names)[0] / mesh.size
+    return out, aux
+
+
+def moe_param_specs(cfg, f_sharded: bool) -> dict:
+    """The specs of one (unstacked) MoE layer's params (reference
+    ``moe.py:222-228``): experts over ``model``, expert d_ff over
+    ``data`` where ``f_sharded``, the router replicated."""
+    fs = "data" if f_sharded else None
+    return {"router": P(None, None),
+            "w1": P("model", None, fs),
+            "w3": P("model", None, fs),
+            "w2": P("model", fs, None)}

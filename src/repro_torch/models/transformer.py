@@ -17,17 +17,29 @@ them, and where ``cfg.remat`` a layer of the stack runs under
 ``torch.utils.checkpoint`` (its activations recomputed in the backward,
 the reference's ``jax.checkpoint`` with ``nothing_saveable``). Decode
 writes each layer's new K/V into the cache in place.
+
+On a device mesh (``runtime.current_mesh()``) every rank runs these
+functions on its part of the parameters (``launch/sharding.py::
+lm_param_specs``: the embedding a ``RowShard`` of the vocab, attention
+heads and FFN widths over ``model`` where they divide, the experts over
+``model``), of the KV cache (``kv_cache_specs``: the sequence over
+``model``, or over every axis where the batch does not split) and of the
+batch (its block over the data axes, or the batch whole with
+``batch_axes=()``). The residual stream stays whole on every ``model``
+rank; the logits of the vocab-split head are gathered over ``model``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import hashlib
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -40,6 +52,16 @@ def _dtype(cfg: LMConfig) -> torch.dtype:
     return as_dtype(cfg.param_dtype)
 
 
+def _ffn_width(cfg: LMConfig, moe_layer: bool) -> int:
+    """d_ff of a block's dense FFN: the shared experts' in a MoE layer,
+    else the dense layers'."""
+    if moe_layer:
+        return cfg.moe.n_shared * cfg.moe.d_ff_expert
+    if cfg.moe is not None:
+        return cfg.moe.dense_d_ff or cfg.d_ff
+    return cfg.d_ff
+
+
 def _layer_init(generator, cfg: LMConfig, moe_layer: bool, device) -> dict:
     dt = _dtype(cfg)
     p = {"ln1": norm_init(cfg.d_model, cfg.norm, dt, device),
@@ -50,22 +72,12 @@ def _layer_init(generator, cfg: LMConfig, moe_layer: bool, device) -> dict:
                                            device)
         if cfg.moe.n_shared:
             p["shared"] = mlp_init(generator, cfg.d_model,
-                                   cfg.moe.n_shared * cfg.moe.d_ff_expert,
-                                   cfg.d_model, cfg.glu, dt, device)
+                                   _ffn_width(cfg, True), cfg.d_model,
+                                   cfg.glu, dt, device)
     else:
-        d_ff = cfg.d_ff
-        if cfg.moe is not None:
-            d_ff = cfg.moe.dense_d_ff or cfg.d_ff
-        p["mlp"] = mlp_init(generator, cfg.d_model, d_ff, cfg.d_model,
-                            cfg.glu, dt, device)
+        p["mlp"] = mlp_init(generator, cfg.d_model, _ffn_width(cfg, False),
+                            cfg.d_model, cfg.glu, dt, device)
     return p
-
-
-def _stack(trees: list):
-    """A list of equal parameter trees → one tree of stacked tensors."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def _layer(stacked, i: int):
@@ -75,58 +87,135 @@ def _layer(stacked, i: int):
     return stacked[i]
 
 
-def init(generator: torch.Generator, cfg: LMConfig, device=None) -> dict:
-    """Random parameters drawn from ``generator`` (which must live on
-    ``device``), in the reference's layout."""
+def part_generator(seed: int, *path, device=None) -> torch.Generator:
+    """A generator on ``device`` (the host's for ``meta``, which draws
+    nothing) seeded from ``seed`` and a part's path (names and layer
+    indices), the same in every process."""
+    dev = default_device(device)
+    h = hashlib.sha256(repr((int(seed),) + path).encode()).digest()
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev) \
+        .manual_seed(int.from_bytes(h[:8], "little") >> 1)
+
+
+def stack_layers(draw_layer, n: int):
+    """The trees ``draw_layer(0..n-1)`` stacked leaf by leaf into tensors
+    allocated once: one layer's tree is alive at a time beside the
+    stack."""
+    layer = draw_layer(0)
+    out = tree_lib.tree_map(lambda t: t.new_empty((n, *t.shape)), layer)
+    for i in range(n):
+        if i:
+            layer = draw_layer(i)
+        tree_lib.tree_map(lambda o, t: o[i].copy_(t), out, layer)
+        del layer
+    return out
+
+
+def init(generator: torch.Generator, cfg: LMConfig, device=None,
+         mesh=None) -> dict:
+    """Random parameters in the reference's layout, drawn part by part:
+    the embedding, the head, the MTP block and each layer of each stack
+    from its own generator (:func:`part_generator`, seeded from
+    ``generator``'s initial seed, the part's path and the layer). With
+    ``mesh=None`` every part is kept whole; on a live ``mesh`` only the
+    rank's part of each layer is kept (``lm_param_specs``; the embedding a
+    ``runtime.RowShard``), so no rank ever holds a whole stacked leaf, and
+    every rank holds its part of the values drawn whole."""
+    from repro_torch.launch.sharding import (P, local_part, lm_param_specs,
+                                             shard_params)
     dev = default_device(device)
     dt = _dtype(cfg)
+    seed = generator.initial_seed()
+
+    def gen(*path):
+        return part_generator(seed, *path, device=dev)
+
+    specs = (None if mesh is None else lm_param_specs(
+        init(generator, cfg, device=torch.device("meta")), cfg, mesh))
+
+    def keep(tree, name):
+        """The rank's part, copied out of the whole drawn part (a view
+        would keep the whole alive)."""
+        if specs is None:
+            return tree
+        if name == "embed":              # the lookup takes a RowShard
+            shard = shard_params(tree, specs[name], mesh)["table"]
+            if isinstance(shard, runtime.RowShard):
+                shard.local = shard.local.clone()
+            return {"table": shard}
+        return tree_lib.tree_map(
+            lambda t, sp: local_part(t, sp, mesh).clone(), tree, specs[name])
+
+    def stack(name, moe_layer, n):
+        def draw(i):
+            layer = _layer_init(gen(name, i), cfg, moe_layer, dev)
+            if specs is None:
+                return layer
+            return tree_lib.tree_map(
+                lambda t, sp: local_part(t, P(*sp[1:]), mesh), layer,
+                specs[name])
+        return stack_layers(draw, n)
+
     n_dense = cfg.moe.n_dense_layers if cfg.moe else 0
-    n_scan = cfg.n_layers - n_dense
     params: dict = {
-        "embed": {"table": randn_scaled(generator, (cfg.vocab, cfg.d_model),
-                                        0.02, dev).to(dt)},
+        "embed": keep({"table": randn_scaled(gen("embed"), (cfg.vocab,
+                                                            cfg.d_model),
+                                             0.02, dev).to(dt)}, "embed"),
         "final_norm": norm_init(cfg.d_model, cfg.norm, dt, dev),
     }
     if n_dense:
-        params["dense_layers"] = _stack([
-            _layer_init(generator, cfg, False, dev) for _ in range(n_dense)])
-    params["layers"] = _stack([
-        _layer_init(generator, cfg, cfg.moe is not None, dev)
-        for _ in range(n_scan)])
+        params["dense_layers"] = stack("dense_layers", False, n_dense)
+    params["layers"] = stack("layers", cfg.moe is not None,
+                             cfg.n_layers - n_dense)
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": randn_scaled(
-            generator, (cfg.d_model, cfg.vocab), 1.0 / np.sqrt(cfg.d_model),
-            dev).to(dt)}
+        params["lm_head"] = keep({"w": randn_scaled(
+            gen("lm_head"), (cfg.d_model, cfg.vocab),
+            1.0 / np.sqrt(cfg.d_model), dev).to(dt)}, "lm_head")
     if cfg.mtp:
-        params["mtp"] = {
-            "proj": randn_scaled(generator, (2 * cfg.d_model, cfg.d_model),
+        g = gen("mtp")
+        params["mtp"] = keep({
+            "proj": randn_scaled(g, (2 * cfg.d_model, cfg.d_model),
                                  1.0 / np.sqrt(2 * cfg.d_model), dev).to(dt),
             "norm_h": norm_init(cfg.d_model, cfg.norm, dt, dev),
             "norm_e": norm_init(cfg.d_model, cfg.norm, dt, dev),
-            "block": _layer_init(generator, cfg, cfg.moe is not None, dev),
-        }
+            "block": _layer_init(g, cfg, cfg.moe is not None, dev),
+        }, "mtp")
     return params
 
 
 # ----------------------------------------------------------------- blocks
 
-def _ffn_aux(p, x, cfg: LMConfig, moe_layer: bool):
-    """The block's feed-forward and its MoE load-balance aux (0 if dense)."""
+def _ffn_aux(p, x, cfg: LMConfig, moe_layer: bool, batch_axes=None):
+    """The block's feed-forward and its MoE load-balance aux (0 if dense).
+    On a mesh the dense FFN and the shared experts are tensor-parallel
+    over ``model`` where their d_ff divides it; ``batch_axes`` says the
+    MoE how ``x``'s tokens lie (``moe.moe_apply``)."""
+    split = runtime.splits(_ffn_width(cfg, moe_layer), "model")
     if moe_layer:
-        ff, aux = moe_lib.moe_apply(p["moe"], x, cfg.moe, cfg.act)
+        ff, aux = moe_lib.moe_apply(p["moe"], x, cfg.moe, cfg.act,
+                                    batch_axes=batch_axes)
         if "shared" in p:
-            ff = ff + mlp_apply(p["shared"], x, cfg.act, cfg.glu)
+            ff = ff + mlp_apply(p["shared"], x, cfg.act, cfg.glu, split)
         return ff, aux
-    return (mlp_apply(p["mlp"], x, cfg.act, cfg.glu),
+    return (mlp_apply(p["mlp"], x, cfg.act, cfg.glu, split),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def _ffn(p, x, cfg: LMConfig, moe_layer: bool):
-    return _ffn_aux(p, x, cfg, moe_layer)[0]
+def _ffn(p, x, cfg: LMConfig, moe_layer: bool, batch_axes=None):
+    return _ffn_aux(p, x, cfg, moe_layer, batch_axes)[0]
 
 
 def _block(p, x, positions, cfg: LMConfig, moe_layer: bool):
-    """Pre-norm transformer block. Returns (x, aux_loss)."""
+    """Pre-norm transformer block. Returns (x, aux_loss).
+
+    The reference pins the residual's layout here with ``runtime.shard``
+    (``transformer.py:93-98,111-114``): whole over ``model``, or, where
+    ``cfg.shard_carry`` (deepseek-v3 only), split over ``model`` so that
+    the layer inputs its remat saves take d/16 a device. A sharding
+    constraint changes a layout, never a value. The port keeps the
+    residual whole on every ``model`` rank, so there is no layout to pin:
+    the split carry saves memory only under GSPMD's remat of a training
+    step, and training on a mesh is not ported yet (ROADMAP A8)."""
     h, _ = attn.attn_forward(
         p["attn"], norm_apply(x, p["ln1"], cfg.norm, cfg.norm_eps),
         positions, cfg)
@@ -137,19 +226,51 @@ def _block(p, x, positions, cfg: LMConfig, moe_layer: bool):
 
 
 def _block_decode(p, x, positions, cfg: LMConfig, moe_layer: bool, cache,
-                  cache_len):
+                  cache_len, seq=None, batch_axes=None):
     h, new_cache = attn.attn_forward(
         p["attn"], norm_apply(x, p["ln1"], cfg.norm, cfg.norm_eps),
-        positions, cfg, cache=cache, cache_len=cache_len)
+        positions, cfg, cache=cache, cache_len=cache_len, seq=seq)
     x = x + h
     ff_in = norm_apply(x, p["ln2"], cfg.norm, cfg.norm_eps)
-    return x + _ffn(p, ff_in, cfg, moe_layer), new_cache
+    return x + _ffn(p, ff_in, cfg, moe_layer, batch_axes), new_cache
 
 
 def _head_w(params, cfg: LMConfig):
+    """The head (d, V); on a mesh the rank's vocab columns: the tied head
+    reads the embedding's local rows transposed."""
     if cfg.tie_embeddings:
-        return params["embed"]["table"].T
+        table = params["embed"]["table"]
+        return (table.local if isinstance(table, runtime.RowShard)
+                else table).T
     return params["lm_head"]["w"]
+
+
+def _logits(params, x, cfg: LMConfig):
+    """Last-position logits (B, V) in float32. A vocab-split head (spec
+    ``P(None, "model")``) gives the rank's columns, gathered over
+    ``model`` into the reference's ``batched_spec(mesh, (B, V))``."""
+    logits = (x[:, -1] @ _head_w(params, cfg)).float()
+    if logits.shape[-1] != cfg.vocab:
+        logits = runtime.all_gather(logits.T, "model").T.contiguous()
+    return logits
+
+
+def _seq_axes(batch_axes) -> tuple:
+    """The mesh axes ``kv_cache_specs`` splits the cache's sequence over:
+    ``model`` where the batch is split over the data axes, every axis
+    where it is whole (``batch_axes=()``)."""
+    whole = batch_axes is not None and not runtime.mesh_axes(batch_axes)
+    return runtime.mesh_axes(("pod", "data", "model") if whole else "model")
+
+
+def _seq_shard(rows: int, batch_axes) -> Optional[attn.SeqShard]:
+    """The rank's shard of a cache of ``rows`` rows a rank (None without
+    a mesh)."""
+    if runtime.current_mesh() is None:
+        return None
+    axes = _seq_axes(batch_axes)
+    return attn.SeqShard(axes, runtime.shard_index(axes) * rows, rows,
+                         rows * runtime.axes_size(axes))
 
 
 def hidden_states(params, tokens, cfg: LMConfig):
@@ -267,7 +388,8 @@ def _split_cache(cache: KVCache, cfg: LMConfig):
     return dense, scanned, n_dense
 
 
-def decode_step(params, cache: KVCache, tokens, cfg: LMConfig):
+def decode_step(params, cache: KVCache, tokens, cfg: LMConfig, *,
+                batch_axes=None):
     """One decode step: tokens (B,1) + cache → (logits (B,V) float32, cache
     with length + 1).
 
@@ -275,38 +397,58 @@ def decode_step(params, cache: KVCache, tokens, cfg: LMConfig):
     written into ``cache.a`` / ``cache.b`` in place (no copy of the whole
     cache per step): the returned cache shares those tensors, and the one
     passed in sees the writes. The length stays on the device, so a step
-    never waits on the host."""
+    never waits on the host.
+
+    On a mesh ``cache`` is the rank's (its rows of the sequence, its
+    block of the batch) and ``tokens`` its block of the batch over the
+    data axes, or the batch whole with ``batch_axes=()`` (then the
+    sequence is split over every axis, ``kv_cache_specs``' batch-1 case);
+    the length is the global one."""
     B = tokens.shape[0]
     x = sharded_lookup(params["embed"]["table"], tokens)
     positions = cache.length.expand(B, 1)
+    seq = _seq_shard(cache.a.shape[2], batch_axes)
     (da, db), (sa, sb), n_dense = _split_cache(cache, cfg)
     for i in range(n_dense):
         x, _ = _block_decode(_layer(params["dense_layers"], i), x, positions,
-                             cfg, False, (da[i], db[i]), cache.length)
+                             cfg, False, (da[i], db[i]), cache.length, seq,
+                             batch_axes)
     moe_layer = cfg.moe is not None
     for i in range(sa.shape[0]):
         x, _ = _block_decode(_layer(params["layers"], i), x, positions, cfg,
-                             moe_layer, (sa[i], sb[i]), cache.length)
+                             moe_layer, (sa[i], sb[i]), cache.length, seq,
+                             batch_axes)
     x = norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    logits = (x[:, -1] @ _head_w(params, cfg)).float()
-    return logits, cache._replace(length=cache.length + 1)
+    return _logits(params, x, cfg), cache._replace(length=cache.length + 1)
 
 
-def prefill(params, tokens, cfg: LMConfig, smax: int):
+def prefill(params, tokens, cfg: LMConfig, smax: int, *, batch_axes=None):
     """Prefill: tokens (B,S) → (last-position logits (B,V) float32, KVCache
-    padded to smax)."""
+    padded to smax). On a mesh (``batch_axes`` as in :func:`decode_step`)
+    the cache comes back as the rank's part: its rows of the smax
+    positions, every kv head."""
     B, S = tokens.shape
-    dev = params["embed"]["table"].device
     x = sharded_lookup(params["embed"]["table"], tokens)
+    dev = x.device
     positions = torch.arange(S, device=dev).expand(B, S)
     n_dense = cfg.moe.n_dense_layers if cfg.moe else 0
-    pad = smax - S
+    seq = None
+    if runtime.current_mesh() is not None:
+        n = runtime.axes_size(_seq_axes(batch_axes))
+        if smax % n:
+            raise ValueError(f"a cache of {smax} rows does not split over "
+                             f"{n} sequence shards")
+        seq = _seq_shard(smax // n, batch_axes)
 
     def pad_kv(t):
+        if seq is not None:              # already the rank's rows
+            return t
         return torch.nn.functional.pad(
-            t, (0, 0) * (t.dim() - 2) + (0, pad))
+            t, (0, 0) * (t.dim() - 2) + (0, smax - S))
 
-    new_a, new_b = [], []
+    # the stacks are allocated at the first layer and filled layer by
+    # layer (no second copy of the cache for a stack of per-layer pieces)
+    cache_a = cache_b = None
     n_scan = params["layers"]["ln1"]["scale"].shape[0]
     for i in range(n_dense + n_scan):
         dense = i < n_dense
@@ -314,13 +456,53 @@ def prefill(params, tokens, cfg: LMConfig, smax: int):
                    i if dense else i - n_dense)
         h, kv = attn.attn_forward(
             p["attn"], norm_apply(x, p["ln1"], cfg.norm, cfg.norm_eps),
-            positions, cfg)
+            positions, cfg, seq=seq)
         x = x + h
         ff_in = norm_apply(x, p["ln2"], cfg.norm, cfg.norm_eps)
-        x = x + _ffn(p, ff_in, cfg, moe_layer=not dense and cfg.moe is not None)
-        new_a.append(pad_kv(kv[0]))
-        new_b.append(pad_kv(kv[1]))
+        x = x + _ffn(p, ff_in, cfg, not dense and cfg.moe is not None,
+                     batch_axes)
+        ka, kb = pad_kv(kv[0]), pad_kv(kv[1])
+        if cache_a is None:
+            L = n_dense + n_scan
+            cache_a = ka.new_empty((L, *ka.shape))
+            cache_b = kb.new_empty((L, *kb.shape))
+        cache_a[i].copy_(ka)
+        cache_b[i].copy_(kb)
+        del kv, ka, kb
     x = norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    logits = (x[:, -1] @ _head_w(params, cfg)).float()
-    return logits, KVCache(a=torch.stack(new_a), b=torch.stack(new_b),
-                           length=torch.tensor(S, dtype=torch.int32, device=dev))
+    return _logits(params, x, cfg), KVCache(
+        a=cache_a, b=cache_b,
+        length=torch.tensor(S, dtype=torch.int32, device=dev))
+
+
+def teacher_forced(params, tokens, cfg: LMConfig, smax: int, n_prompt: int,
+                   *, batch_axes=None):
+    """A serving run as one call: prefill ``tokens[:, :n_prompt]`` into a
+    cache of ``smax`` rows, then one :func:`decode_step` for each further
+    token (teacher forced) → (the logits of the prefill and of every step
+    (n_steps + 1, B, V) float32, a KVCache whose a / b hold the first
+    ``tokens.shape[1]`` rows, the ones the run wrote, whole over the
+    sequence). On a mesh (``batch_axes`` as in :func:`decode_step`) those
+    rows are gathered from the ranks that own them (every other rank adds
+    zeros), so the run's cache can be checked without gathering all of
+    it."""
+    T = tokens.shape[1]
+    logits, cache = prefill(params, tokens[:, :n_prompt], cfg, smax,
+                            batch_axes=batch_axes)
+    out = [logits]
+    for t in range(n_prompt, T):
+        step, cache = decode_step(params, cache, tokens[:, t:t + 1], cfg,
+                                  batch_axes=batch_axes)
+        out.append(step)
+    seq = _seq_shard(cache.a.shape[2], batch_axes)
+
+    def written(t):
+        if seq is None:
+            return t[:, :, :T].clone()
+        rows = t.new_zeros((t.shape[0], t.shape[1], T, *t.shape[3:]))
+        hi = min(seq.r0 + seq.rows, T)
+        if hi > seq.r0:
+            rows[:, :, seq.r0:hi] = t[:, :, :hi - seq.r0]
+        return runtime.all_reduce(rows, seq.axes)
+    return torch.stack(out), cache._replace(a=written(cache.a),
+                                            b=written(cache.b))

@@ -17,9 +17,11 @@ reference's ``shard`` lets GSPMD pick a layout, the port's :func:`shard`
 takes the rank's block of a tensor the rank holds whole.
 
 Each collective counts its calls and bytes by kind on the mesh
-(``mesh.counts``, read by ``launch/op_analysis.py``). Every kind goes to
-the backend directly, CUDA tensors too: gloo moves all four on CUDA
-tensors in the card's torch (PERF.md §6).
+(``mesh.counts``, read by ``launch/op_analysis.py``; a max reduction
+counts under ``all_reduce``). Every kind goes to the backend directly,
+CUDA tensors too: gloo moves all four kinds, and the max reduction, on
+CUDA tensors in the card's torch (``launch/mesh.py::collective_support``,
+PERF.md §6).
 """
 from __future__ import annotations
 
@@ -81,6 +83,13 @@ def pad_to_multiple(n: int, m: int) -> int:
 
 def divides(n: int, name: str) -> bool:
     return n % axis_size(name) == 0
+
+
+def splits(n: int, name: str = "model") -> bool:
+    """True when a dim of ``n`` is split over mesh axis ``name`` by the
+    spec rules (``launch/sharding.py``): the axis is larger than 1 and
+    divides ``n``; a dim it does not divide stays whole (replicated)."""
+    return axis_size(name) > 1 and n % axis_size(name) == 0
 
 
 # ------------------------------------------------------------ coordinates
@@ -245,15 +254,17 @@ def reduce_scatter(x: torch.Tensor, axes) -> torch.Tensor:
     return _collective("reduce_scatter", x, axes, op)
 
 
-def all_reduce(x: torch.Tensor, axes) -> torch.Tensor:
-    """The sum over ``axes`` of ``x`` (``lax.psum``); ``x`` itself may be
+def all_reduce(x: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+    """The sum (``lax.psum``) or, with ``op="max"``, the elementwise
+    maximum (``lax.pmax``) over ``axes`` of ``x``; ``x`` itself may be
     overwritten with it."""
     import torch.distributed as dist
+    reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
-    def op(t, group):
-        dist.all_reduce(t, group=group)
+    def run(t, group):
+        dist.all_reduce(t, op=reduce_op, group=group)
         return t
-    return _collective("all_reduce", x, axes, op)
+    return _collective("all_reduce", x, axes, run)
 
 
 def all_to_all(x: torch.Tensor, axes) -> torch.Tensor:

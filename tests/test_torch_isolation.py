@@ -533,6 +533,28 @@ def test_flash_decode_wrapper_reads_the_length_on_the_device(fake_card, rng):
         decode_ops.flash_decode(q3, k3, v3, DeviceLength(4))
 
 
+def test_flash_decode_wrapper_hands_the_lse_buffer(fake_card, rng):
+    """``return_lse`` allocates a float32 (B,H,G) lse and hands the kernel
+    its address after the scale; the default call hands null there and
+    returns the output alone. Either way one launch."""
+    calls, _status = fake_card
+    B, S, H, G, D = 2, 700, 3, 4, 32
+    q, kc, vc = _rng_tensors(rng, (B, H, G, D), (B, S, H, D), (B, S, H, D))
+    before = K.launch_counts()["flash_decode"]
+    out, lse = decode_ops.flash_decode(q, kc, vc, DeviceLength(0),
+                                       return_lse=True)
+    (name, args), = calls
+    assert isinstance(lse, FakeCuda) and lse.dtype == torch.float32
+    assert tuple(lse.shape) == (B, H, G) and args[14] == lse.data_ptr()
+    assert args[5] == out.data_ptr()
+    calls.clear()
+    plain = decode_ops.flash_decode(q, kc, vc, DeviceLength(650))
+    (name, args), = calls
+    assert isinstance(plain, FakeCuda) and args[14] is None
+    assert len(args) == len(K.SIGNATURES[name])      # the stream last
+    assert K.launch_counts()["flash_decode"] == before + 2
+
+
 def _record_allocations(monkeypatch):
     """The shapes of everything the wrapper allocates on the card."""
     shapes, empty = [], torch.empty
@@ -1283,6 +1305,43 @@ def test_mesh_paths_run_with_jax_and_reference_blocked():
                          capture_output=True, text=True, timeout=170)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "MESH-ISOLATED" in out.stdout
+
+
+def test_lm_mesh_paths_run_with_jax_and_reference_blocked():
+    """A fresh interpreter in which ``import jax`` and ``import repro``
+    fail imports the LM's mesh paths (``models.moe``, ``models.attention``,
+    ``models.transformer``) and runs an LM cell on two gloo ranks (reduced
+    smollm-135m x long_500k: B6 with its lse on each rank's half of the
+    sequence); after the cell the ranks have imported neither ``jax`` nor
+    ``repro``."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.models.attention
+        import repro_torch.models.moe
+        import repro_torch.models.transformer
+        from repro_torch.launch.mesh import CellDraw, Job, run_jobs
+        if __name__ == "__main__":
+            cell = Job(params=CellDraw("smollm-135m", "long_500k",
+                                       reduced=True))
+            ranks = run_jobs([cell, Job("repro_torch.launch.mesh:imported")],
+                             (1, 2), timeout=150)
+            for rank in ranks:
+                logits, = rank[0]["out"]
+                assert logits.shape == (1, 512), logits.shape
+                assert rank[1]["out"] == [], rank[1]["out"]
+            loaded = sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                            and sys.modules[m] is not None)
+            assert not loaded, loaded
+            print("LM-MESH-ISOLATED")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)),
+                         capture_output=True, text=True, timeout=170)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LM-MESH-ISOLATED" in out.stdout
 
 
 def test_build_takes_turns_across_processes(tmp_path):

@@ -339,3 +339,66 @@ def test_flash_decode_plain_version_takes_a_scale(rng):
     _check(flash_decode(q, k, v, 7, scale=0.5),
            [jax_decode_attention(qj[:, None], kj, vj, 7, scale=0.5)[:, 0]],
            TOL_EDGE)
+
+
+def _lse64(q, k, L, scale=None):
+    """The log-sum-exp of each row's scaled scores over the first L rows,
+    in float64, from the definition."""
+    q, k = q.double().numpy(), k.double().numpy()
+    scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
+    s = np.einsum("bhgd,bshd->bhgs", q, k)[..., :L] * scale
+    m = s.max(-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("L", [1, 40, 96])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_lse_matches_float64(L, dtype, rng):
+    """``return_lse`` gives the output of the default call and the float32
+    (B,H,G) log-sum-exp over the valid prefix, within 2e-5 of a float64
+    one (relative; bf16 inputs as the kernel reads them)."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32).to(dt)
+               for s in ((2, 3, 2, 16), (2, 96, 3, 16), (2, 96, 3, 16)))
+    out, lse = flash_decode(q, k, v, torch.tensor(L, dtype=torch.int32),
+                            return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 3, 2)
+    torch.testing.assert_close(out, flash_decode(q, k, v, L), rtol=0, atol=0)
+    np.testing.assert_allclose(lse.numpy(), _lse64(q.float(), k.float(), L),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_decode_empty_prefix_gives_zero_and_empty_lse(rng):
+    """A shard with no valid row (cache_len = 0): out 0 (never the mean of
+    V, never NaN) and lse -1e30, the kernel's definition."""
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+               for s in ((2, 2, 3, 16), (2, 8, 2, 16), (2, 8, 2, 16)))
+    out, lse = flash_decode_ref(q, k, v, 0, return_lse=True)
+    assert not out.any() and not out.isnan().any()
+    assert (lse == -1e30).all()
+    assert not flash_decode(q, k, v, torch.tensor(0, dtype=torch.int32)).any()
+
+
+@pytest.mark.parametrize("L", [30, 64, 70])
+def test_two_halves_combined_by_lse_equal_the_whole(L, rng):
+    """The mesh's rule (``attention.combine_shards``: M = max lse, w =
+    exp(lse - M), sum w·out / sum w) over the two 64-row halves of a
+    128-row cache equals one call over the whole at 2e-5, also where the
+    second half holds no valid row (L <= 64); without a mesh the rule is
+    the identity."""
+    B, S, H, G, D = 2, 128, 2, 3, 16
+    q, k, v = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+               for s in ((B, H, G, D), (B, S, H, D), (B, S, H, D)))
+    want = flash_decode(q, k, v, L)
+    parts = [flash_decode(q, k[:, i:i + 64].contiguous(),
+                          v[:, i:i + 64].contiguous(),
+                          torch.tensor(min(max(L - i, 0), 64),
+                                       dtype=torch.int32), return_lse=True)
+             for i in (0, 64)]
+    lse = torch.stack([p[1] for p in parts])
+    w = torch.exp(lse - lse.max(0).values)[..., None]
+    got = sum(wi * p[0] for wi, p in zip(w, parts)) / w.sum(0)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    from repro_torch.models.attention import combine_shards
+    for out, l in parts[:1]:           # one shard: the identity
+        torch.testing.assert_close(combine_shards(out, l, ("model",)), out)

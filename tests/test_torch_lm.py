@@ -26,8 +26,10 @@ from repro.models import attention as jax_attn
 from repro.models import layers as jax_layers
 from repro.models import moe as jax_moe
 from repro.models import transformer as jax_tf
+from repro_torch import runtime
 from repro_torch.convert import kv_cache_from_numpy, params_from_numpy
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import abstract_mesh
 from repro_torch.models import attention, layers, moe, transformer
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -174,8 +176,12 @@ def test_moe_matches_reference(capacity_factor, rng):
     want, want_aux = jax_moe.moe_apply(ref, xj, cfg, "silu")
     _close(got, want)
     _close(aux, want_aux)
-    with pytest.raises(NotImplementedError, match="A8"):
-        moe.moe_apply(port, xt, cfg, "silu", mesh=object())
+    # under an installed mesh whose model axis is 1 the experts do not
+    # split: the single-device path, as the reference's ``ep`` test says
+    with runtime.use_mesh(abstract_mesh((2, 1), ("data", "model"))):
+        got_mesh, aux_mesh = moe.moe_apply(port, xt, cfg, "silu")
+    torch.testing.assert_close(got_mesh, got, rtol=0, atol=0)
+    torch.testing.assert_close(aux_mesh, aux, rtol=0, atol=0)
 
 
 # ------------------------------------------------------ prefill + decode

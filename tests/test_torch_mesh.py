@@ -682,7 +682,7 @@ def test_run_cell_on_a_mesh_checks_each_rank_s_kernels(tmp_path):
     assert "kernel_checks" not in written and '"output"' not in written
 
 
-@pytest.mark.parametrize("arch_id,shape_name", [("smollm-135m", "decode_32k"),
+@pytest.mark.parametrize("arch_id,shape_name", [("smollm-135m", "train_4k"),
                                                 ("schnet", "molecule"),
                                                 ("din", "train_batch")])
 def test_cells_not_yet_on_a_mesh_raise_naming_a8(arch_id, shape_name,
@@ -693,19 +693,35 @@ def test_cells_not_yet_on_a_mesh_raise_naming_a8(arch_id, shape_name,
 
 
 def test_moe_refuses_an_installed_model_axis():
-    """The expert-parallel MoE is not ported (ROADMAP A8): under a mesh
-    whose ``model`` axis is larger than 1 ``moe_apply`` raises, as it
-    does given a ``mesh``; a (2, 1) mesh keeps the single-device path."""
-    import dataclasses
+    """The expert-parallel MoE is ported: on an installed mesh with a
+    ``model`` axis it no longer refuses but splits its experts by
+    ``moe_param_specs``, which equal the reference's (and the MoE leaves
+    of ``lm_param_specs``) on abstract meshes, d_ff split over ``data`` or
+    not; a (2, 1) mesh keeps the single-device path."""
+    from repro.models import moe as jax_moe
     from repro_torch import runtime
     from repro_torch.models import moe
-    cfg = dataclasses.replace(_reduced(registry, "deepseek-v2-lite-16b").moe)
-    p = moe.moe_expert_init(torch.Generator().manual_seed(0), 16, cfg,
+    for f_sharded in (True, False):
+        got = moe.moe_param_specs(None, f_sharded)
+        want = jax_moe.moe_param_specs(None, f_sharded)
+        assert {k: tuple(v) for k, v in got.items()} == \
+            {k: tuple(v) for k, v in want.items()}
+    cfg = registry.get("deepseek-v2-lite-16b").config
+    for shape, f_sharded in (((2, 4), True), ((16, 16), True),
+                             ((3, 2), False)):
+        mesh = abstract_mesh(shape, BIG)
+        specs_ = sharding.lm_param_specs(
+            specs.build_cell("deepseek-v2-lite-16b", "decode_32k").args[0],
+            cfg, mesh)["layers"]["moe"]
+        want = moe.moe_param_specs(None, cfg.moe.d_ff_expert % shape[0] == 0)
+        assert f_sharded == (cfg.moe.d_ff_expert % shape[0] == 0)
+        assert {k: tuple(v)[1:] for k, v in specs_.items()} == \
+            {k: tuple(v) for k, v in want.items()}
+    p = moe.moe_expert_init(torch.Generator().manual_seed(0), 16,
+                            _reduced(registry, "deepseek-v2-lite-16b").moe,
                             "float32", device="cpu")
     x = torch.randn(5, 16, generator=torch.Generator().manual_seed(1))
+    cfg = _reduced(registry, "deepseek-v2-lite-16b").moe
     want, _ = moe.moe_apply(p, x, cfg)
-    with runtime.use_mesh(abstract_mesh((2, 2), BIG)):
-        with pytest.raises(NotImplementedError, match="A8"):
-            moe.moe_apply(p, x, cfg)
     with runtime.use_mesh(abstract_mesh((2, 1), BIG)):
         torch.testing.assert_close(moe.moe_apply(p, x, cfg)[0], want)
