@@ -103,8 +103,9 @@ Phases, each printing its lines; any failure exits nonzero:
      prefill_32k's B=32, S=32,768: the token-sharded MoE); (d) qwen3-8b
      prefill of 64 tokens then 4 teacher-forced decode steps in a cache
      of 32,768 rows at B=4 (cut from decode_32k's B=128: head TP, B6 in
-     bf16 with sequence shards left empty); (e) (b) and (f) (d) cut to
-     6 and 4 layers in float32. Each is held against the same draws run
+     bf16 with sequence shards left empty); (e) (b) and (f) (d) in
+     float32. (c) and (e) run 2 layers, (d) 4 and (f) 1 (cut since
+     phase 13 came). Each is held against the same draws run
      whole by one process first (``--lm-whole``, a process of its own):
      float32 logits and cache rows within TOL_LM ((c)'s rows with the
      recorded routing explaining each row off); (d)'s bf16 logits
@@ -113,11 +114,34 @@ Phases, each printing its lines; any failure exits nonzero:
      ties trade experts; (e) holds its layers); every rank's B6 calls
      replayed against the plain version; each rank's ms per call, peak
      memory, launches and collectives by kind;
- 13. the kernel table as one JSON line (launches from phase 6, and from
+ 13. training on the same 2x2 mesh, each item against the same draws
+     run whole first (``--train-whole``, a process of its own; the LM's
+     losses are phase 9's run): (a) smollm-135m at published widths,
+     S=4096, 8 sequences (cut from 256), the first step's loss and every
+     gradient leaf (gathered) within TOL_LM leaf-scaled, then
+     ``launch/train.py --mesh 2x2`` for 2 steps in 2 micro-batches with a
+     checkpoint every step (cut from 6 and 3 for the call's time; losses
+     within TOL_LM of phase 9's first 2), the checkpoint file equal to
+     the mesh's parameters and a resume on one card (the mesh's
+     checkpoint restored bit for bit); (b) DIN at published widths and
+     vocabularies, B=4,096, and (c) DIEN, MIND and two-tower at phase 4's
+     widths (tables cut to 2^16 rows), B=1,024: loss and dense gradients
+     within TOL_MODEL leaf-scaled, each table's rows with a gradient the
+     same rows and within TOL_MODEL, B2 / B3 / B4 launched on every rank
+     and every rank's calls replayed against their plain versions; (d)
+     SchNet at published widths on three shapes, loss and gradients
+     within TOL_MODEL, 5 AdamW steps; (e) ``run_cell`` on the mesh for
+     smollm-135m x train_4k (must not fit a rank's share), din x
+     train_batch (B2 and one grouped B3 a step on every rank, replayed),
+     SchNet's minibatch_lg and ogb_products (must not fit), 1 timed step
+     a cell (SchNet's other two shapes cut: (d) holds them);
+ 14. the kernel table as one JSON line (launches from phase 6, and from
      phase 7 for flash_decode; ``backward_ms`` from phase 9;
      ``mesh_launches`` from phase 11 (a) and (b), and for flash_decode
-     from phase 12 (a), (d) and (f), over all ranks; ``lse_ms``, B6 with
-     ``return_lse``, from phase 3), the card line, and the result.
+     from phase 12 (a), (d) and (f), over all ranks;
+     ``mesh_train_launches`` from phase 13 (b), (c) and (e); ``lse_ms``,
+     B6 with ``return_lse``, from phase 3), the card line, and the
+     result.
 
 Needs a CUDA device; exits nonzero without one, and without the
 repository's ``src/repro_torch`` beside this script.
@@ -1939,6 +1963,7 @@ def lm_train_run():
           f"{fig['save_s']}, final save (blocking) {fig['final_save_s']} s; "
           f"max_memory_allocated {peak} GiB; launches {counts}")
     check(all(math.isfinite(x) for x in fig["losses"]), "non-finite LM loss")
+    losses = list(fig["losses"])
     check(fig["end_step"] == LM_TRAIN_STEPS and
           fig["latest"].endswith(f"gen_{LM_TRAIN_STEPS}"),
           f"unexpected newest checkpoint {fig['latest']}")
@@ -2001,6 +2026,7 @@ def lm_train_run():
     del p_gpu, p_cpu, out, gg, g_cpu, ng, nc
     gc.collect()
     torch.cuda.empty_cache()
+    return losses
 
 
 def _rec_batch(cfg, n, seed, dev):
@@ -2771,14 +2797,16 @@ LM_MESH_CELLS = (("smollm-135m", "long_500k", ("flash_decode",)),
 #: (bf16 routing flips make a bf16 MoE run incomparable, see (b)); (d)
 #: decode_32k's B=128 to 4; (e) long_500k's 27 layers to 6 in float32;
 #: (f) (d) at 4 layers in float32
+#: (depths cut when phase 13 came, to keep the call's time: (c) and (e)
+#: 6 → 2 layers (one dense, one MoE), (d) 36 → 4, (f) 4 → 1)
 LM_CALLS = (
-    ("c", "deepseek-v2-lite-16b", 6, "float32", 4, 4096, 4096, 0,
+    ("c", "deepseek-v2-lite-16b", 2, "float32", 4, 4096, 4096, 0,
      "prefill B=4 S=4096, the token-sharded MoE"),
-    ("e", "deepseek-v2-lite-16b", 6, "float32", 1, 524288, 9, 3,
+    ("e", "deepseek-v2-lite-16b", 2, "float32", 1, 524288, 9, 3,
      "prefill 9 + 3 decode steps in a 524,288-row cache, B=1"),
-    ("d", "qwen3-8b", None, None, 4, 32768, 64, 4,
+    ("d", "qwen3-8b", 4, None, 4, 32768, 64, 4,
      "prefill 64 + 4 decode steps, B=4, bf16 B6 with G=4"),
-    ("f", "qwen3-8b", 4, "float32", 4, 32768, 64, 4,
+    ("f", "qwen3-8b", 1, "float32", 4, 32768, 64, 4,
      "prefill 64 + 4 decode steps, B=4, f32 B6 with G=4"))
 LM_SEED = 12
 #: the items whose MoE routing is recorded (:func:`routed_teacher_forced`)
@@ -2837,8 +2865,8 @@ def routed_teacher_forced(params, tokens, cfg, smax, n_prompt, **kw):
     from repro_torch.models import moe, transformer
     route, seen = moe._route, []
 
-    def spy(x, w, k):
-        gate, idx, aux = route(x, w, k)
+    def spy(x, w, k, *rest):
+        gate, idx, aux = route(x, w, k, *rest)
         top = torch.softmax(x.float() @ w, -1).topk(k + 1, -1).values
         seen.append((idx.sort(-1).values, top[:, k - 1] - top[:, k]))
         return gate, idx, aux
@@ -3228,6 +3256,485 @@ def lm_mesh_run(card: str) -> int:
     return b6
 
 
+# ----------------------------------------------------------------- phase 13
+
+#: phase 13's recsys gradient checks: (model, module, the config's cut,
+#: batch): DIN at published widths and vocabularies, the others at phase
+#: 4's widths with tables cut to 2^16 rows
+REC13_VOCAB_LOG2 = 16
+REC13_SEED = 13
+SCHNET13_SEED = 13
+#: (a)'s launcher on the mesh: steps and checkpoint interval (cut from
+#: phase 9's 6 and 3 to keep the call's time: a mesh step takes ~16 s)
+LM_MESH13_STEPS, LM_MESH13_EVERY = 2, 1
+#: (e)'s timed steps a cell (after one warm-up step)
+CELL13_STEPS = 1
+#: (e): the cells run on the mesh, with the kernels each rank must launch
+#: (SchNet's molecule and full_graph_sm cut: (d) holds both on the mesh)
+CELL13 = (("smollm-135m", "train_4k", ()),
+          ("din", "train_batch", ("embedding_bag", "din_attention")),
+          ("schnet", "minibatch_lg", ()), ("schnet", "ogb_products", ()))
+#: (b)/(c): each model's kernel launches per rank in one loss and gradient
+REC13_LAUNCHES = {"din": {"embedding_bag": 1, "din_attention": 1},
+                  "dien": {"embedding_bag": 1, "augru": 1},
+                  "mind": {"embedding_bag": 1},
+                  "two-tower-retrieval": {"embedding_bag": 2}}
+_T13 = []
+
+
+def say13(msg: str):
+    """A line of phase 13, with the seconds since the phase began."""
+    if not _T13:
+        _T13.append(time.perf_counter())
+    print(f"{msg} [{time.perf_counter() - _T13[0]:.1f} s into [13]]",
+          flush=True)
+
+
+def _rec13_cases():
+    """(name, module, cfg, batch): phase 13's recsys gradient cases."""
+    from repro_torch.configs.other_archs import DIEN, DIN, MIND, TWO_TOWER
+    cut = 1 << REC13_VOCAB_LOG2
+    return (("din", "din", DIN, REC_GRAD_BATCH),
+            ("dien", "dien", _vocab(DIEN, cut), REC_MODEL_BATCH),
+            ("mind", "mind", _vocab(MIND, cut), REC_MODEL_BATCH),
+            ("two-tower-retrieval", "towers", _vocab(TWO_TOWER, cut),
+             REC_MODEL_BATCH))
+
+
+def _rec13_batch(cfg, n):
+    import numpy as np
+    from repro_torch.data import synthetic
+    return synthetic.recsys_batch(np.random.default_rng(REC13_SEED), cfg, n)
+
+
+def _lm13_first_batch():
+    """The first batch of ``launch/train.py``'s pipeline (seed 0) at phase
+    9's cut: the batch of the whole run's first step."""
+    import numpy as np
+    from repro_torch.configs.lm_archs import SMOLLM_135M as cfg
+    from repro_torch.data import synthetic
+    return synthetic.lm_batch(np.random.default_rng(0), cfg, LM_TRAIN_BATCH,
+                              LM_TRAIN_SEQ)["tokens"]
+
+
+def _table_rows(grads: dict, start: dict) -> dict:
+    """{table: (global row ids, rows)} of the rows of each table gradient
+    that are not all zero (``start``: each table's first global row)."""
+    import torch
+    out = {}
+    for name, g in grads.items():
+        nz = torch.nonzero(g.abs().amax(-1) > 0)[:, 0]
+        out[name] = ((nz + start.get(name, 0)).cpu().numpy(),
+                     g[nz].float().cpu().numpy())
+    return out
+
+
+def rec_grads13(params, batch, cfg, module, pspecs):
+    """A rank of phase 13 (b)/(c): the recsys ``loss_fn``'s loss and
+    gradient on the rank's rows and batch block, summed by the rule for
+    gradients (``reduce_grads``): the dense leaves (rank 0 only) and each
+    split table's rows with a gradient, by global row id (every rank its
+    own)."""
+    from repro_torch import runtime
+    from repro_torch.train.train_step import reduce_grads, value_and_grad
+    mod = importlib.import_module(module)
+    loss, g = value_and_grad(lambda p, b: mod.loss_fn(p, b, cfg), params,
+                             batch)
+    g = reduce_grads(g, params, pspecs)
+    mesh = runtime.current_mesh()
+    tables = params["tables"]
+    start = {k: t.start for k, t in tables.items()
+             if isinstance(t, runtime.RowShard)}
+    # a table held whole has its whole gradient on every rank: rank 0's
+    rows = _table_rows({k: (v.local if isinstance(v, runtime.RowShard)
+                            else v if mesh.rank == 0 else v[:0])
+                        for k, v in g["tables"].items()}, start)
+    dense = {k: v for k, v in g.items() if k != "tables"}
+    return {"loss": float(loss), "rows": rows,
+            "dense": dense if mesh.rank == 0 else None}
+
+
+def train_whole_run(out_dir: str) -> int:
+    """Phase 13's whole runs, by a process of its own before the ranks
+    take the card (``python3 chip_smoke.py --train-whole DIR``): on one
+    card, smollm-135m's first-step loss and gradient at phase 9's cut;
+    each recsys model's loss and gradient (dense leaves, and the table
+    rows with a gradient) on the seeded draw the ranks make; SchNet's loss
+    and gradient on each shape's seeded draw, then SCHNET_STEPS AdamW
+    steps. Writes DIR/*.npz."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import registry
+    from repro_torch.configs.lm_archs import SMOLLM_135M
+    from repro_torch.launch import specs
+    from repro_torch.models import schnet, transformer
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import build_train_step, value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+
+    def leaves(tree):
+        return {str(i): t.detach().float().cpu().numpy()
+                for i, t in enumerate(tree_lib.leaves(tree))}
+    cfg = SMOLLM_135M
+    p = transformer.init(torch.Generator(dev).manual_seed(0), cfg, dev)
+    loss, g = value_and_grad(lambda q, t: transformer.lm_loss(q, t, cfg), p,
+                             torch.as_tensor(_lm13_first_batch(), device=dev))
+    np.savez(os.path.join(out_dir, "lm.npz"), loss=float(loss), **leaves(g))
+    del p, g
+    torch.cuda.empty_cache()
+    times = {"lm": time.perf_counter() - t0}
+
+    for name, module, rcfg, n in _rec13_cases():
+        t1 = time.perf_counter()
+        mod = importlib.import_module(f"repro_torch.models.recsys.{module}")
+        p = mod.init(torch.Generator(dev).manual_seed(REC13_SEED), rcfg, dev)
+        loss, g = value_and_grad(lambda q, b: mod.loss_fn(q, b, rcfg), p,
+                                 _to(_rec13_batch(rcfg, n), dev))
+        rows = _table_rows(g["tables"], {})
+        out = {"loss": float(loss)}
+        for k, (ids, vals) in rows.items():
+            out[f"rows/{k}/ids"], out[f"rows/{k}/vals"] = ids, vals
+        for path, t in tree_lib.flatten_with_paths(
+                {k: v for k, v in g.items() if k != "tables"}):
+            out["dense/" + tree_lib.path_name(path)] = \
+                t.float().cpu().numpy()
+        np.savez(os.path.join(out_dir, f"{name}.npz"), **out)
+        del p, g
+        torch.cuda.empty_cache()
+        times[name] = time.perf_counter() - t1
+
+    for shape in SCHNET_SHAPES:
+        t1 = time.perf_counter()
+        cell = specs.build_cell("schnet", shape, device=dev)
+        p, _, batch = cell.materialize(
+            dev, torch.Generator(dev).manual_seed(SCHNET13_SEED))
+        n_graphs = batch["targets"].shape[0]
+        gcfg = registry.get("schnet").config
+
+        def loss_fn(q, b):
+            return schnet.batch_loss(q, b, gcfg, n_graphs=n_graphs)
+        loss, g = value_and_grad(loss_fn, p, batch)
+        step, init = build_train_step(loss_fn, optimizer.adamw())
+        new, state = p, init(p)
+        for _ in range(SCHNET_STEPS):
+            new, state, _l = step(new, state, batch)
+        out = {"loss": float(loss)}
+        for pre, tree in (("grad", g), ("param0", p), ("param", new)):
+            out.update({f"{pre}/{k}": v for k, v in leaves(tree).items()})
+        for k, v in batch["inputs"].items():
+            out[f"in/{k}"] = v.cpu().numpy()
+        out["targets"] = batch["targets"].cpu().numpy()
+        np.savez(os.path.join(out_dir, f"schnet_{shape}.npz"), **out)
+        del p, g, new, state, batch
+        torch.cuda.empty_cache()
+        times[f"schnet_{shape}"] = time.perf_counter() - t1
+    print(json.dumps({"seconds": times}), flush=True)
+    return 0
+
+
+def _numbered(d: dict, pre: str) -> list:
+    n = sum(1 for k in d if k.startswith(pre + "/"))
+    return [d[f"{pre}/{i}"] for i in range(n)]
+
+
+def _held13(label, got, want, tol) -> float:
+    """Leaf by leaf (lists in JAX's order), each at rtol=atol=tol with the
+    absolute part scaled by max(1, max|want|) of the leaf (the rule of
+    ``tests/test_torch_train.py``); prints the worst leaf."""
+    import torch
+    check(len(got) == len(want), f"{label}: {len(got)} leaves vs "
+          f"{len(want)}")
+    worst, worst_used = 0.0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = torch.as_tensor(g).float(), torch.as_tensor(w).float()
+        check(g.shape == w.shape, f"{label} leaf {i}: shape {tuple(g.shape)} "
+              f"vs {tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{label} leaf {i}: non-finite")
+        s = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+        err, used, ok = verdict(g / s, w / s, tol)
+        check(ok, f"{label} leaf {i}: differs from the whole run by "
+              f"{err * s} (tol {tol:g} x {s:g})")
+        worst, worst_used = max(worst, err * s), max(worst_used, used)
+    say13(f"[13] {label}: {len(got)} leaves, max_abs_diff vs the whole run "
+          f"{worst:.3e} (rtol=atol={tol:g}, leaf-scaled; allowance used "
+          f"{worst_used:.3f}) ok")
+    return worst
+
+
+def _coll_line(rows: dict) -> str:
+    """Collectives by kind (forward, ``/bwd``, ``/recompute``) with calls
+    and output bytes."""
+    from repro_torch.launch import op_analysis
+    by = op_analysis.collectives_by_kind(rows)
+    return "; ".join(f"{k} x{v['calls']} {v['bytes']} B"
+                     for k, v in sorted(by.items()))
+
+
+def train_mesh_run(card: str, lm_losses) -> dict:
+    """Phase 13: training on the 2x2 (data, model) mesh of 4 gloo ranks
+    sharing the one card. Whole runs first, by a process of their own
+    (:func:`train_whole_run`; the LM's losses are phase 9's run of the
+    same draws). One launch: (a) smollm-135m's first-step loss and every
+    gradient leaf at published widths, S=4096, 8 sequences; (b) DIN at
+    published widths and vocabularies, B=4,096; (c) DIEN, MIND and
+    two-tower at phase 4's widths (tables 2^16), B=1,024; (d) SchNet at
+    published widths on three shapes, loss, gradients and 5 ZeRO-free
+    AdamW steps. Then ``launch/train.py --mesh 2x2`` for smollm-135m
+    (LM_MESH13_STEPS steps, a checkpoint every LM_MESH13_EVERY, then a
+    resume) and (e) ``run_cell`` on the mesh. Returns the kernels' launches over (b), (c) and (e)'s DIN
+    cell, all ranks."""
+    import argparse
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import registry
+    from repro_torch.configs.lm_archs import SMOLLM_135M
+    from repro_torch.launch import dryrun, sharding
+    from repro_torch.launch.mesh import Job, ModelDraw, abstract_mesh, run_jobs
+    from repro_torch.launch.sharding import P
+    from repro_torch.launch.train import train
+    from repro_torch.models import schnet, transformer
+    from repro_torch.train import checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--train-whole", tmp], capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0, "the whole runs failed:\n"
+              + (proc.stdout + proc.stderr)[-4000:])
+        whole = {f[:-4]: dict(np.load(os.path.join(tmp, f)))
+                 for f in os.listdir(tmp) if f.endswith(".npz")}
+        say13(f"[13] whole runs on one card by one process ({card}): "
+              f"{time.perf_counter() - t0:.1f} s; "
+              + proc.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    am = abstract_mesh(MESH_SHAPE, MESH_AXES)
+    cfg = SMOLLM_135M
+    meta = transformer.init(torch.Generator(), cfg,
+                            device=torch.device("meta"))
+    pspecs = sharding.lm_param_specs(meta, cfg, am)
+    jobs = {"lm": Job(
+        "repro_torch.train.train_step:steps_on_mesh",
+        ModelDraw("repro_torch.models.transformer", cfg, 0), None,
+        ([_lm13_first_batch()],), ([P("data", None)],),
+        {"loss": "repro_torch.models.transformer:lm_loss", "cfg": cfg,
+         "pspecs": pspecs, "zspecs": sharding.zero_specs(meta, pspecs, am),
+         "steps": False, "every_rank": False})}
+    for name, module, rcfg, n in _rec13_cases():
+        path = f"repro_torch.models.recsys.{module}"
+        rmeta = importlib.import_module(path).init(
+            torch.Generator(), rcfg, device=torch.device("meta"))
+        batch = _rec13_batch(rcfg, n)
+        bspec = tree_lib.tree_map(
+            lambda a: sharding.batched_spec(am, np.shape(a)), batch)
+        jobs[name] = Job("chip_smoke:rec_grads13",
+                         ModelDraw(path, rcfg, REC13_SEED), None,
+                         (batch,), (bspec,),
+                         {"cfg": rcfg, "module": path,
+                          "pspecs": sharding.recsys_param_specs(rmeta, rcfg,
+                                                                am)},
+                         check_kernels=True)
+    gcfg = registry.get("schnet").config
+    for shape in SCHNET_SHAPES:
+        w = whole[f"schnet_{shape}"]
+        tmpl = schnet.init(torch.Generator(), gcfg,
+                           w["in/node_feat"].shape[1] if "in/node_feat" in w
+                           else None, device=torch.device("meta"))
+        params = tree_lib.unflatten(tmpl, _numbered(w, "param0"))
+        batch = {"inputs": {k[3:]: v for k, v in w.items()
+                            if k.startswith("in/")}, "targets": w["targets"]}
+        gspecs = sharding.gnn_param_specs(tmpl, gcfg, am)
+        jobs[f"schnet/{shape}"] = Job(
+            "repro_torch.train.train_step:steps_on_mesh", params, gspecs,
+            ([batch] * SCHNET_STEPS,), (None,),
+            {"loss": "repro_torch.models.schnet:batch_loss", "cfg": gcfg,
+             "pspecs": gspecs, "zspecs": gspecs, "batch_axes": (),
+             "loss_kwargs": {"n_graphs": len(w["targets"])},
+             "every_rank": False})
+    t0 = time.perf_counter()
+    ranks = run_jobs(list(jobs.values()), MESH_SHAPE, MESH_AXES,
+                     device="cuda", timeout=900)
+    out = {k: [r[i] for r in ranks] for i, k in enumerate(jobs)}
+    say13(f"[13a-d] the ranks' launch: {time.perf_counter() - t0:.1f} s")
+
+    # (a) the LM's first step
+    lm = out["lm"]
+    r0 = lm[0]["out"]
+    for r, rank in enumerate(lm):
+        compare(f"[13a] rank {r} step-1 loss",
+                torch.tensor([rank["out"]["loss"]]),
+                torch.tensor([float(whole["lm"]["loss"])]), TOL_LM)
+    _held13(f"{cfg.name} step-1 gradient (gathered)",
+            tree_lib.leaves(r0["grads"]),
+            [whole["lm"][str(i)] for i in range(len(tree_lib.leaves(
+                r0["grads"])))], TOL_LM)
+    say13(f"[13a] one loss and gradient on the mesh, rank collectives "
+          f"(forward, backward /bwd, remat /recompute; the gradient's "
+          f"gather included): {_coll_line(lm[0]['collectives'])}")
+
+    # (b), (c): recsys gradients; B2 / B3 / B4 on every rank, replayed
+    launches: dict = {}
+    for name, module, rcfg, n in _rec13_cases():
+        ranks_ = out[name]
+        w = whole[name]
+        for r, rank in enumerate(ranks_):
+            compare(f"[13] {name} rank {r} loss",
+                    torch.tensor([rank["out"]["loss"]]),
+                    torch.tensor([float(w["loss"])]), TOL_MODEL)
+            check(rank["launches"] == REC13_LAUNCHES[name],
+                  f"{name} rank {r}: launches {rank['launches']}, expected "
+                  f"{REC13_LAUNCHES[name]}")
+            for k, v in rank["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        dense = ranks_[0]["out"]["dense"]
+        names = ["dense/" + tree_lib.path_name(p)
+                 for p, _ in tree_lib.flatten_with_paths(dense)]
+        _held13(f"{name} B={n} dense gradient", tree_lib.leaves(dense),
+                [w[k] for k in names], TOL_MODEL)
+        # the table rows: each row's gradient is summed on its owner
+        worst = 0.0
+        for table in sorted({k.split("/")[1] for k in w
+                             if k.startswith("rows/")}):
+            ids = np.concatenate([rk["out"]["rows"][table][0]
+                                  for rk in ranks_])
+            vals = np.concatenate([rk["out"]["rows"][table][1]
+                                   for rk in ranks_])
+            order = np.argsort(ids, kind="stable")
+            want_ids = w[f"rows/{table}/ids"]
+            check(np.array_equal(ids[order], want_ids),
+                  f"{name} {table}: rows with a gradient differ "
+                  f"({len(ids)} vs {len(want_ids)})")
+            diff = float(np.abs(vals[order] - w[f"rows/{table}/vals"]).max(
+                initial=0.0))
+            worst = max(worst, diff)
+        say13(f"[13] {name} table rows with a gradient: max_abs_diff vs the "
+              f"whole run {worst:.3e} ({'bit for bit' if worst == 0 else 'not bit for bit'})")
+        check(worst <= TOL_MODEL, f"{name}: table-row gradient off by {worst}")
+        mesh_kernel_checks(name, [rk["kernel_checks"] for rk in ranks_],
+                           "[13]", per_call=False)
+        _rank_lines13(name, ranks_)
+
+    # (d) SchNet
+    for shape in SCHNET_SHAPES:
+        w = whole[f"schnet_{shape}"]
+        got = out[f"schnet/{shape}"][0]["out"]
+        for r, rank in enumerate(out[f"schnet/{shape}"]):
+            # leaf-scaled as phase 10 holds SchNet's loss card vs CPU: at
+            # minibatch_lg the loss is ~3e8 and float32 sums in another
+            # order (the shards' partials, CUDA's atomic index_add) part
+            # by ~2e-5 of it
+            _held13(f"schnet {shape} rank {r} loss",
+                    [torch.tensor([rank["out"]["loss"]])],
+                    [torch.tensor([float(w["loss"])])], TOL_MODEL)
+        _held13(f"schnet {shape} gradient", tree_lib.leaves(got["grads"]),
+                _numbered(w, "grad"), TOL_MODEL)
+        _held13(f"schnet {shape} params after {SCHNET_STEPS} AdamW steps",
+                tree_lib.leaves(got["params"]), _numbered(w, "param"),
+                TOL_LM)
+        _rank_lines13(f"schnet {shape}", out[f"schnet/{shape}"])
+    del out, ranks, whole
+
+    # (a) the launcher on the mesh, then a resume
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_train_mesh_")
+    try:
+        def args(steps, mesh="2x2"):
+            return argparse.Namespace(
+                arch=cfg.name, shape="train_4k", steps=steps, mesh=mesh,
+                multi_pod=False, reduced=False, ckpt_dir=ckpt_dir,
+                ckpt_every=LM_MESH13_EVERY, batch=LM_TRAIN_BATCH,
+                n_micro=LM_TRAIN_MICRO)
+        t0 = time.perf_counter()
+        fig = train(args(LM_MESH13_STEPS), device="cuda")
+        say13(f"[13a] launch/train.py --mesh 2x2: {LM_MESH13_STEPS} steps, a "
+              f"checkpoint every {LM_MESH13_EVERY}, in "
+              f"{time.perf_counter() - t0:.1f} s; losses {fig['losses']}")
+        compare("[13a] the mesh run's losses vs phase 9's whole run",
+                torch.tensor(fig["losses"]),
+                torch.tensor(lm_losses[:LM_MESH13_STEPS]), TOL_LM)
+        for r, rk in enumerate(fig["ranks"]):
+            say13(f"[13a] rank {r}: {rk['ms_per_step']:.1f} ms/step over "
+                  f"steps 2..{LM_MESH13_STEPS} (each {rk['step_s']} s), peak "
+                  f"{rk['max_allocated_bytes'] / 2**30:.2f} GiB")
+        say13(f"[13a] slowest rank {max(r['ms_per_step'] for r in fig['ranks']):.1f} "
+              f"ms/step (4 ranks sharing one card over gloo; phase 9's "
+              f"whole run is the one-card figure)")
+        saved, _ = checkpoint.restore(fig["latest"], fig["params"])
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(saved), tree_lib.leaves(fig["params"])))
+        check(same, "the saved checkpoint differs from the mesh's params")
+        del saved
+        # the resume on one card: the mesh's checkpoint restored by one
+        # device (a mesh resume is held bit for bit on the CPU,
+        # tests/test_torch_mesh_train.py)
+        again = train(args(LM_RESUME_STEPS, mesh=None), device="cuda")
+        check(again["start_step"] == LM_MESH13_STEPS,
+              f"resume started at {again['start_step']}")
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(
+            tree_lib.leaves(again["restored"]), tree_lib.leaves(fig["params"])))
+        check(same, "the mesh's checkpoint restored on one card differs "
+              "from the mesh's parameters")
+        say13(f"[13a] resume on one card: restore {again['restore_s']} s, "
+              f"the mesh's checkpoint restored bit for bit; resumed loss "
+              f"{again['losses']}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the training cells on the mesh
+    for arch, shape, kernels in CELL13:
+        rec = dryrun.run_cell(arch, shape, device="cuda", mesh=MESH_SHAPE,
+                              check_kernels=bool(kernels),
+                              steps=CELL13_STEPS, warmup=1)
+        mem = rec.get("memory", {})
+        say13(f"[13e] {arch} x {shape} on {rec['mesh']}@1xH100 ({card}): ok "
+              f"{rec['ok']}, fits a rank's share {mem.get('fits_per_rank')} "
+              f"(estimate {mem.get('estimate_bytes_per_rank')} bytes), "
+              f"{rec.get('t_total_s')} s; {rec.get('error', '')}")
+        if not mem.get("fits_per_rank"):
+            check(arch == "smollm-135m" or shape == "ogb_products",
+                  f"{arch} x {shape} does not fit a rank's share")
+            continue
+        check(rec["ok"], f"{arch} x {shape} on the mesh: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')}")
+        check(bool(np.isfinite(rec["output"][0])), f"{arch} x {shape}: loss")
+        if kernels:
+            checked = mesh_kernel_checks(f"{arch} x {shape}",
+                                         rec["kernel_checks"], "[13]",
+                                         per_call=False)
+            check(checked == set(kernels), f"{arch} x {shape}: kernels "
+                  f"checked {sorted(checked)}")
+        for r in rec["ranks"]:
+            for name in kernels:
+                n = r["launches_per_step"].get(name, 0)
+                check(n == 1, f"{arch} x {shape} rank {r['rank']}: {name} "
+                      f"launched {n} times a step, expected 1")
+                launches[name] = launches.get(name, 0) + n
+            coll = "; ".join(f"{k} x{v['calls']} {v['bytes']} B"
+                             for k, v in sorted(
+                                 r["collectives_per_step"].items()))
+            say13(f"[13e] {arch} x {shape} rank {r['rank']}: "
+                  f"{r['step_ms']:.2f} ms a step, peak "
+                  f"{r['max_allocated_bytes'] / 2**30:.2f} GiB, loss "
+                  f"{float(rec['output'][0]):.6f}, collectives {coll}")
+    return launches
+
+
+def _rank_lines13(label, ranks_):
+    for r, rank in enumerate(ranks_):
+        say13(f"[13] {label} rank {r}: launches {rank['launches']}, "
+              f"collectives {_coll_line(rank['collectives'])}")
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3290,7 +3797,7 @@ def main() -> int:
         print(f"[7] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         durability_run()
         print(f"[8] done at {time.perf_counter() - t_run:.1f} s", flush=True)
-        lm_train_run()
+        lm_losses = lm_train_run()
         backward = rec_train_run()
         print(f"[9] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         gnn_run()
@@ -3307,6 +3814,10 @@ def main() -> int:
         print(f"[12] done at {time.perf_counter() - t_run:.1f} s; B6 "
               f"launches over (a), (d) and (f), all ranks: {lm_b6}",
               flush=True)
+        train_launches = train_mesh_run(card, lm_losses)
+        print(f"[13] done at {time.perf_counter() - t_run:.1f} s; kernel "
+              f"launches over (b), (c) and (e), all ranks: "
+              f"{train_launches}", flush=True)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3322,6 +3833,7 @@ def main() -> int:
                       "library_ms": r["library_ms"],
                       "backward_ms": backward.get(name),
                       "mesh_launches": mesh_launches.get(name, 0),
+                      "mesh_train_launches": train_launches.get(name, 0),
                       **({"lse_ms": r["lse_ms"]} if "lse_ms" in r else {})})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
@@ -3334,6 +3846,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--lm-whole"]:      # phase 12's whole runs
         sys.exit(lm_whole_run(sys.argv[2]))
+    if sys.argv[1:2] == ["--train-whole"]:   # phase 13's whole runs
+        sys.exit(train_whole_run(sys.argv[2]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

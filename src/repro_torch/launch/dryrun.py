@@ -8,7 +8,7 @@ to stop at, so a cell that fits the card is run:
   * before anything is allocated, the cell's argument bytes plus its
     ``meta["model_bytes_per_device"]`` are set against the card's memory
     (``fits_h100``); a cell that cannot fit is recorded ``ok: false`` with
-    its estimate and not launched (it waits for a device mesh, ROADMAP A8);
+    its estimate and not launched (a mesh of more cards is its place);
   * otherwise its arguments are drawn on the card (``Cell.materialize``),
     then come warm-up steps, N steps timed with CUDA events, one step
     counted by ``launch/op_analysis.py`` (flops, bytes, the kernels'
@@ -19,15 +19,17 @@ to stop at, so a cell that fits the card is run:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all      # subprocesses
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch din --shape serve_p99 --mesh 2x2
 
-With ``mesh`` (a recsys or LM serving cell on a mesh; the GNN and
-training cells wait for ROADMAP A8) the cell runs as one rank per mesh
-device
-(``launch/mesh.py::run_jobs``): the fit check is per rank (its part of
-the arguments against its share of the card), each rank draws its part
-of the arguments and records its ms per step (CUDA events), its
-``max_memory_allocated``, its kernels' launches and its collectives by
-kind with their bytes; the record keeps every rank's and the slowest
-rank's step. Ranks that share one card (NCCL refuses two ranks on one
+With ``mesh`` (any cell: the serving cells, the training cells with
+``carry=2``, each call the next ZeRO-2 step, and the GNN cells, the
+graph whole on every rank and its edges split) the cell runs as one rank
+per mesh device (``launch/mesh.py::run_jobs``): the fit check is per
+rank (its part of the arguments against its share of the card), each
+rank draws its part of the arguments and records its ms per step (CUDA
+events), its ``max_memory_allocated``, its kernels' launches and its
+collectives by kind with their bytes (a training step's backward
+collectives as ``kind/bwd``, a checkpointed block's recomputed ones as
+``kind/recompute``); the record keeps every rank's and the slowest
+rank's step. The roofline stays a one-device reading. Ranks that share one card (NCCL refuses two ranks on one
 device) run over gloo: their times are several processes on one card,
 not a multi-card figure, and the record's name says so.
 
@@ -152,7 +154,7 @@ def run_cell(arch_id: str, shape_name: str, out_dir: str = DEFAULT_OUT,
         if not rec["memory"]["fits_h100"]:
             rec["error"] = (f"does not fit one card: {estimate / 1e9:.1f} GB "
                             f"estimated against {capacity / 1e9:.1f} GB "
-                            f"(waits for a device mesh, ROADMAP A8)")
+                            f"(a mesh of more cards is its place)")
         else:
             _run(cell, rec, dev, steps, warmup)
             rec["ok"] = True
@@ -180,16 +182,8 @@ def _run_mesh_cell(arch_id, shape_name, out_dir, dev, steps, warmup,
                    reduced, mesh, check_kernels) -> dict:
     dims, axes = (mesh_lib.parse_mesh(mesh) if isinstance(mesh, str) else
                   (tuple(mesh), ("pod", "data", "model")[-len(mesh):]))
-    if registry.get(arch_id).family == "gnn":
-        raise NotImplementedError(
-            f"{arch_id} on a device mesh is not ported yet (ROADMAP A8: the "
-            f"GNN cells on a mesh come with training on a mesh)")
     cell = build_cell(arch_id, shape_name, device=dev, reduced=reduced,
                       mesh=mesh_lib.abstract_mesh(dims, axes))
-    if cell.draw_local is None:
-        raise NotImplementedError(
-            f"{arch_id} x {shape_name} on a device mesh is not ported yet "
-            f"(ROADMAP A8: training on a mesh)")
     n = cell.mesh.size
     shared = dev.type == "cuda" and n > torch.cuda.device_count()
     where = (f"{1 if shared else n}xH100" if dev.type == "cuda"

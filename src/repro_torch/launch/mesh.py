@@ -258,7 +258,9 @@ class CellDraw:
     live mesh and draws its part of the arguments (``Cell.materialize``
     with a generator seeded ``seed``); the call is ``cell.fn(*args)``,
     its output (the leading ``cell.mesh_outputs`` of it, where the cell
-    says) gathered by the cell's ``out_specs``."""
+    says) gathered by the cell's ``out_specs``. A training cell's call is
+    its next step (``cell.carry``: the new params and optimizer state fed
+    back) and returns the loss."""
     arch: str
     shape: str
     reduced: bool = False
@@ -271,6 +273,17 @@ class CellDraw:
         args = cell.materialize(
             dev, torch.Generator(device=dev).manual_seed(self.seed),
             mesh=mesh)
+        if cell.carry:
+            # a train step: each call is the next step (its params and
+            # optimizer state fed back); the call returns the rest (the
+            # loss), replicated
+            state = {"args": args}
+
+            def step():
+                out = cell.fn(*state["args"])
+                state["args"] = cell.next_args(state["args"], out)
+                return tuple(out[cell.carry:])
+            return step, tuple(cell.out_specs[cell.carry:])
         n = cell.mesh_outputs
         if n is None:
             return (lambda: cell.fn(*args)), cell.out_specs

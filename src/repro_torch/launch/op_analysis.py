@@ -51,9 +51,12 @@ TOP_OPS = 12
 
 def collective_traffic(kind: str, out_bytes: int, g: int) -> float:
     """Bytes one device moves for collectives of ``kind`` over groups of
-    ``g`` whose outputs total ``out_bytes`` (the ring model)."""
+    ``g`` whose outputs total ``out_bytes`` (the ring model); a
+    backward's (``kind/bwd``) and a recompute's (``kind/recompute``) by
+    their collective's."""
     if g <= 1:
         return 0.0
+    kind = kind.split("/")[0]
     if kind == "all_reduce":
         return 2.0 * out_bytes * (g - 1) / g
     if kind == "reduce_scatter":

@@ -308,14 +308,19 @@ def _row_split(spec) -> tuple:
 
 
 def shard_params(params, pspecs, mesh):
-    """The rank's parameters: a leaf whose spec splits its rows only
-    becomes a ``runtime.RowShard`` (its local rows, the global row count,
-    the axes); every other leaf its :func:`local_part`."""
+    """The rank's parameters: a table (a 2-D leaf) whose spec splits its
+    rows only becomes a ``runtime.RowShard`` (its local rows, the global
+    row count, the axes), which the lookups read, unless it is a weight
+    of an unstacked transformer block (the LM's MTP ``block``: its
+    row-parallel ``wo`` / ``w2`` split dim 0 only and feed products);
+    every other leaf its :func:`local_part`."""
     if params is None:
         return None
+    tables = iter("block" not in _names(path)
+                  for path, _ in tree_lib.flatten_with_paths(params))
 
     def one(leaf, spec):
-        axes = _row_split(spec)
+        axes = _row_split(spec) if next(tables) and leaf.dim() == 2 else ()
         if axes and flat_index(mesh, axes)[1] > 1:
             return runtime.RowShard(local_part(leaf, spec, mesh),
                                     leaf.shape[0], axes)
@@ -336,9 +341,9 @@ def local_tree(tree, specs, mesh):
 
 
 def gather_tree(tree, specs, mesh):
-    """:func:`gather_full` of every leaf of ``tree`` by ``specs``."""
-    if isinstance(tree, runtime.RowShard):
-        return gather_full(tree, specs, mesh)
+    """:func:`gather_full` of every leaf of ``tree`` by ``specs`` (a
+    ``RowShard``'s rows gathered into the whole table)."""
+    tree = tree_lib.strip_shards(tree)
     return tree_lib.tree_map(
         lambda leaf, spec: gather_full(leaf, spec, mesh)
         if isinstance(spec, P) else leaf, tree, specs)

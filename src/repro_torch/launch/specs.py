@@ -12,12 +12,15 @@ parameters from the port's ``init``s with an explicit generator, token
 ids, recsys ids by the port's copy of ``data/synthetic.py``, graphs by
 ``synthetic.molecule_batch`` / ``random_graph`` or
 ``sampler.sample_fanout``. Given a live mesh it draws the rank's part of
-the same values: the recsys serving cells' tables as this rank's rows
-only (``tables_init``), the batch whole and then its ``local_part``; the
-LM serving cells' parameters and decode cache part by part and layer by
-layer, each part from its own seeded generator
-(``transformer.init``, :func:`draw_lm_cache`), keeping the
-rank's slice of each layer. The ``meta`` dict carries the reference's
+the same values: the recsys cells' tables as this rank's rows only
+(``tables_init``), the batch whole and then its ``local_part``; the LM
+cells' parameters and decode cache part by part and layer by layer, each
+part from its own seeded generator (``transformer.init``,
+:func:`draw_lm_cache`), keeping the rank's slice of each layer; an
+LM training cell's optimizer state as the rank's ZeRO-2 shards (its step
+is ``build_train_step(..., grad_shardings=zero_specs)``; the recsys and
+GNN steps, as the reference's, have no ZeRO split); a GNN cell's
+parameters and graph whole (its forward splits the edges). The ``meta`` dict carries the reference's
 keys and formulas.
 """
 from __future__ import annotations
@@ -62,8 +65,9 @@ class Cell:
     in_specs: tuple = ()            # trees of sharding.P, like .args
     out_specs: Any = None
     mesh: Any = None                # the mesh the specs are for
-    #: (device, generator, rng, live mesh) → the rank's part of the args;
-    #: None where the cell does not run on a mesh yet
+    #: (device, generator, rng, live mesh) → the rank's part of the args
+    #: (drawn inside the installed mesh: a train step's ``opt_init``
+    #: draws the rank's ZeRO shards)
     draw_local: Optional[Callable] = None
     #: the layout the rank's arguments take on a live mesh, where it is
     #: not ``in_specs`` (the retrieval cells: the port's ranking calls
@@ -86,11 +90,6 @@ class Cell:
         rng = np.random.default_rng(g.initial_seed())
         if mesh is None:
             return self.draw(dev, g, rng)
-        if self.draw_local is None:
-            raise NotImplementedError(
-                f"{self.arch_id} x {self.shape_name} on a device mesh is not "
-                f"ported yet (ROADMAP A8): only the serving cells run on a "
-                f"mesh")
         return self.draw_local(dev, g, rng, mesh)
 
     def next_args(self, args: tuple, out) -> tuple:
@@ -237,26 +236,36 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
 
     if shape.kind == "train":
         n_micro = _lm_micro(cfg, B, mesh)
+        # ZeRO-2: grad accumulator + optimizer state pick up an extra
+        # `data` sharding (ZeRO-3 with fsdp_params: the params too). A
+        # rank on a live mesh holds its parameters by the TP specs and
+        # trains with the ZeRO-2 step (fsdp_params included: the same
+        # values, the params not sharded over data)
+        zspecs = shr.zero_specs(params, pspecs, mesh)
         step, opt_init = build_train_step(
             lambda p, toks: transformer.lm_loss(p, toks, cfg),
-            opt_lib.for_family("lm", cfg.param_count()), n_micro=n_micro)
+            opt_lib.for_family("lm", cfg.param_count()), n_micro=n_micro,
+            grad_shardings=zspecs, param_specs=pspecs)
         meta["n_micro"] = n_micro
-        # ZeRO-2: grad accumulator + optimizer state pick up an extra
-        # `data` sharding (ZeRO-3 with fsdp_params: the params too)
-        zspecs = shr.zero_specs(params, pspecs, mesh)
-        if getattr(cfg, "fsdp_params", False):
-            pspecs = zspecs
+        tspec = shr.batched_spec(mesh, (B, S))
+        in_pspecs = zspecs if getattr(cfg, "fsdp_params", False) else pspecs
         opt_state = opt_init(params)
         ospecs = shr.opt_state_specs(opt_state, params, zspecs)
 
         def draw(dev, g, rng):
             p = draw_params(dev, g)
             return p, opt_init(p), draw_tokens(rng, dev, S)
+
+        def draw_local(dev, g, rng, live):
+            p = draw_params(dev, g, live)
+            return (p, opt_init(p),
+                    shr.local_part(draw_tokens(rng, dev, S), tspec, live))
         return Cell(arch.arch_id, shape.name, step,
                     (params, opt_state, _ids(B, S)), draw, carry=2,
                     meta=meta, device=device,
-                    in_specs=(pspecs, ospecs, shr.batched_spec(mesh, (B, S))),
-                    out_specs=(pspecs, ospecs, P()), mesh=mesh)
+                    in_specs=(in_pspecs, ospecs, tspec),
+                    out_specs=(in_pspecs, ospecs, P()), mesh=mesh,
+                    draw_local=draw_local)
 
     # the serving cells: parameters (and a decode cache) drawn part by
     # part and layer by layer, whole or, on a live mesh, the rank's slice
@@ -374,11 +383,14 @@ def build_gnn_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
                      "graph_ids": np.zeros(N, np.int32)},
                     rng.normal(0, 1, 1).astype(np.float32))
 
-    step, opt_init = build_train_step(
-        lambda p, b: schnet.loss_fn(p, b["inputs"], b["targets"], cfg,
-                                    n_graphs=n_graphs), opt_lib.adamw())
     params = schnet.init(torch.Generator(), cfg, d_feat_in, device=META)
     pspecs = shr.param_specs(params, cfg, mesh)
+    # the graph is whole on every rank (the forward splits the edges):
+    # no gradient is summed over the data axes; no ZeRO split (the
+    # reference's GNN step has none)
+    step, opt_init = build_train_step(
+        lambda p, b: schnet.batch_loss(p, b, cfg, n_graphs=n_graphs),
+        opt_lib.adamw(), param_specs=pspecs, batch_axes=())
     opt_state = opt_init(params)
     ospecs = shr.opt_state_specs(opt_state, params, pspecs)
     in_spec = {k: (shr.edge_spec(mesh, v.dim()) if k in ("edges", "edge_dist")
@@ -392,17 +404,22 @@ def build_gnn_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
             "param_dtype": "float32",
             "params": n_params(params)}
 
-    def draw(dev, g, rng):
+    def draw(dev, g, rng, live=None):
         p = schnet.init(g, cfg, d_feat_in, device=dev)
         inputs_np, targets_np = draw_batch(rng)
         batch = {"inputs": _tensors(inputs_np, dev),
                  "targets": _tensors(targets_np, dev)}
         return p, opt_init(p), batch
+    # on a live mesh every rank draws the graph whole and the forward
+    # takes its block of the edges (``schnet.py``'s mesh sites)
+    whole = tree_lib.tree_map(lambda t: P(*(None,) * t.dim()),
+                              {"inputs": inputs, "targets": targets})
     return Cell(arch.arch_id, shape.name, step,
                 (params, opt_state, {"inputs": inputs, "targets": targets}),
                 draw, carry=2, meta=meta, device=device,
                 in_specs=(pspecs, ospecs, bspec),
-                out_specs=(pspecs, ospecs, P()), mesh=mesh)
+                out_specs=(pspecs, ospecs, P()), mesh=mesh, draw_local=draw,
+                local_specs=(pspecs, ospecs, whole))
 
 
 # --------------------------------------------------------------- recsys
@@ -474,8 +491,10 @@ def build_rec_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
         batch = _rec_batch_abstract(cfg, B, with_label=train)
         bspec = _rec_batch_specs(batch, mesh)
         if train:
+            # no ZeRO split (the reference's recsys step has none)
             step, opt_init = build_train_step(
-                lambda p, b: mod.loss_fn(p, b, cfg), opt_lib.for_family("recsys"))
+                lambda p, b: mod.loss_fn(p, b, cfg), opt_lib.for_family("recsys"),
+                param_specs=pspecs)
             opt_state = opt_init(params)
             meta = {"model_flops": 6.0 * n_dense * B, "params": n_dense + n_table,
                     "model_bytes_per_device": 3 * rec_bytes(B),
@@ -484,12 +503,18 @@ def build_rec_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
             def draw(dev, g, rng):
                 p = draw_params(dev, g)
                 return p, opt_init(p), draw_batch(rng, dev)
+
+            def draw_local(dev, g, rng, live):
+                p = mod.init(g, cfg, device=dev, mesh=live)
+                return (p, opt_init(p),
+                        shr.local_tree(draw_batch(rng, dev), bspec, live))
             ospecs = shr.opt_state_specs(opt_state, params, pspecs)
             return Cell(arch.arch_id, shape.name, step,
                         (params, opt_state, batch), draw, carry=2,
                         meta=meta, device=device,
                         in_specs=(pspecs, ospecs, bspec),
-                        out_specs=(pspecs, ospecs, P()), mesh=mesh)
+                        out_specs=(pspecs, ospecs, P()), mesh=mesh,
+                        draw_local=draw_local)
         meta = {"model_flops": 2.0 * n_dense * B, "params": n_dense + n_table,
                 "model_bytes_per_device": rec_bytes(B),
                 "param_dtype": "float32"}

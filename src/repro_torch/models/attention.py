@@ -31,6 +31,12 @@ here:
     returns its cache rows in ``kv_cache_specs``' layout (every kv head,
     the rank's sequence rows; kv heads split over ``model`` are gathered
     first);
+  * training runs the prefill's forward under autograd: where the heads
+    split, the block's input and every replicated leaf a rank uses only
+    for its heads (the norms' scales, ``wk`` / ``wv`` where they do not
+    split; MLA's latents) enter the split through ``runtime.enter``, so
+    their gradients are summed over ``model``; the row-parallel ``wo``'s
+    all_reduce is the exit (its backward is the identity);
   * decode over a sequence-sharded cache is a distributed softmax
     (reference ``attention.py:109-133``): the new token's K/V row goes to
     the rank that owns its position (a masked write on the device), every
@@ -297,9 +303,31 @@ def gqa_init(generator: torch.Generator, cfg, dtype, device=None) -> dict:
     return p
 
 
-def _gqa_qkv(p, x, positions, cfg):
+def _entered(p, hs: HeadSplit) -> tuple:
+    """(the GQA block's weights, how its input enters them) where the
+    rank attends for its heads only: every replicated leaf a rank uses in
+    part (``wk`` / ``wv`` where they do not split, the norms' scales)
+    passes ``runtime.enter`` over ``model``, so its gradient is summed
+    there, and so does the input (column-parallel ``wq`` / ``wk`` /
+    ``wv``)."""
+    if not hs.q_split:
+        return p, lambda x: x
+    out = dict(p)
+    names = ("q_norm", "k_norm") + (() if hs.kv_split else ("wk", "wv"))
+    for name in names:
+        if name in p:
+            out[name] = (runtime.enter(p[name], "model")
+                         if isinstance(p[name], torch.Tensor) else
+                         {"scale": runtime.enter(p[name]["scale"], "model")})
+    return out, lambda x: runtime.enter(x, "model")
+
+
+def _gqa_qkv(p, x, positions, cfg, hs: Optional[HeadSplit] = None):
     """q (B,S,n,D) for the rank's n query heads, k and v (B,S,Hk,D) for
     the kv heads its ``wk`` / ``wv`` hold (all of them without a mesh)."""
+    if hs is not None:
+        p, enter = _entered(p, hs)
+        x = enter(x)
     B, S, _ = x.shape
     D = cfg.d_head
     q = (x @ p["wq"]).reshape(B, S, -1, D)
@@ -372,7 +400,7 @@ def gqa_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
     B, S, _ = x.shape
     D = cfg.d_head
     hs = head_split(cfg)
-    q, k, v = _gqa_qkv(p, x, positions, cfg)
+    q, k, v = _gqa_qkv(p, x, positions, cfg, hs)
     if cache is None:
         kg, vg = _group_kv(k, v, hs)
         o = chunked_attention(q.reshape(B, S, hs.groups, hs.group, D), kg, vg,
@@ -425,16 +453,17 @@ def mla_init(generator: torch.Generator, cfg, dtype, device=None) -> dict:
     return p
 
 
-def _mla_q(p, x, positions, cfg):
-    """(q_nope, q_rope) (B,S,n,d_nope / d_rope) for the rank's n heads."""
+def _mla_q(p, x, positions, cfg, enter=lambda t: t):
+    """(q_nope, q_rope) (B,S,n,d_nope / d_rope) for the rank's n heads;
+    ``enter`` takes the input of the per-head ``wq_b`` / ``wq``."""
     m = cfg.mla
     B, S, _ = x.shape
     dq = m.d_nope + m.d_rope
     if m.q_lora:
         ql = rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"], cfg.norm_eps)
-        q = (ql @ p["wq_b"]).reshape(B, S, -1, dq)
+        q = (enter(ql) @ p["wq_b"]).reshape(B, S, -1, dq)
     else:
-        q = (x @ p["wq"]).reshape(B, S, -1, dq)
+        q = (enter(x) @ p["wq"]).reshape(B, S, -1, dq)
     q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -491,15 +520,20 @@ def mla_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
     k_rope = apply_rope(kv[..., None, m.kv_lora:], positions,
                         cfg.rope_theta)[:, :, 0]
 
-    q_nope, q_rope = _mla_q(p, x, positions, cfg)           # (B,S,H,d_nope/d_rope)
+    # the latents are replicated over ``model`` and feed the rank's heads
+    # (the per-head weights split with them): they enter the split
+    enter = ((lambda t: runtime.enter(t, "model")) if hs.q_split
+             else (lambda t: t))
+    q_nope, q_rope = _mla_q(p, x, positions, cfg, enter)  # (B,S,H,d_nope/d_rope)
 
     if cache is None:
         # prefill: expand per-head k, v from the latent
-        k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, m.d_nope)
-        v = (c_kv @ p["wv_b"]).reshape(B, S, H, m.v_dim)
+        c_in = enter(c_kv)
+        k_nope = (c_in @ p["wk_b"]).reshape(B, S, H, m.d_nope)
+        v = (c_in @ p["wv_b"]).reshape(B, S, H, m.v_dim)
         q = torch.cat([q_nope, q_rope], -1)[:, :, :, None]  # (B,S,H,1,dq)
-        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, m.d_rope)],
-                      -1)
+        k = torch.cat([k_nope, enter(k_rope)[:, :, None].expand(
+            B, S, H, m.d_rope)], -1)
         o = chunked_attention(q, k, v, causal=True,
                               chunk=min(cfg.attn_chunk, S), scale=scale)
         o = o[:, :, :, 0]                                   # (B,S,H,v_dim)

@@ -148,7 +148,10 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str, glu: bool,
     """The FFN. ``split``: on a mesh, ``w1`` / ``w3`` hold the rank's
     columns of d_ff and ``w2`` its rows (column- then row-parallel, the
     reference's ``launch/sharding.py:67-72``), so the output is summed over
-    ``model`` (:func:`row_parallel`)."""
+    ``model`` (:func:`row_parallel`) and ``x`` enters the split
+    (``runtime.enter``: its gradient is summed over ``model``)."""
+    if split:
+        x = runtime.enter(x, "model")
     h = activation(x @ p["w1"], act)
     if glu:
         h = h * (x @ p["w3"])

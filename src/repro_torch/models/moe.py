@@ -26,7 +26,17 @@ rank, branch for branch:
     all_reduce over (``data``, ``model``) where d_ff is split, else over
     ``model``.
 
-The load-balance aux is averaged over every mesh axis.
+The load-balance aux is averaged over every mesh axis. That is each
+data shard's ``E·Σ(me·ce)`` averaged, not the aux of the whole batch, so
+a training loss on a mesh differs from the one-device loss by design, as
+the reference's does (``moe.py:57-62,208``).
+
+In training (autograd recording; ``runtime``'s rule for gradients) the
+tokens and gates enter the expert split over ``model`` (over ``data``
+too where the replicated branch splits d_ff), their gathers over
+``data`` sum the ranks' partial cotangents, and the probabilities the
+aux reads enter ``model``, so each model rank's copy of the aux counts
+once.
 """
 from __future__ import annotations
 
@@ -62,14 +72,16 @@ def _capacity(tokens: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def _route(x, router_w, top_k: int):
+def _route(x, router_w, top_k: int, aux_probs=lambda probs: probs):
+    """(gates, expert ids, load-balance aux); ``aux_probs`` takes the
+    probabilities the aux reads."""
     logits = x.float() @ router_w
     probs = torch.softmax(logits, dim=-1)
     gate, idx = ordered_topk(probs, top_k)                        # (T, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     # load-balance aux (Switch-style), for a training loss
     T, E = logits.shape
-    me = probs.mean(0)
+    me = aux_probs(probs).mean(0)
     ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * top_k)
     aux = E * torch.sum(me * ce)
     return gate, idx, aux
@@ -170,17 +182,30 @@ def _moe_on_mesh(p, xt, cfg, act, batch_axes):
     while (T_row // n_ch) * d > CHUNK_ELEMS and T_row % (n_ch * 2) == 0 \
             and (T_row // (n_ch * 2)) % n_data == 0:
         n_ch *= 2
-    gate, idx, aux = _route(xt, p["router"], cfg.top_k)
+    # training: the aux is replicated over ``model`` and averaged over
+    # every axis, so each model rank's copy counts once in the sum over
+    # them: the probabilities it reads enter ``model``
+    gate, idx, aux = _route(xt, p["router"], cfg.top_k,
+                            lambda pr: runtime.enter(pr, "model"))
     e0 = runtime.axis_index("model") * E_loc
     w = (p["w1"], p["w3"], p["w2"])
+    # the tokens and gates (replicated over ``model``) feed the rank's
+    # experts only, and, gathered over ``data``, its f-slice only: their
+    # gradients are summed over ``model`` (enter) and over ``data`` (the
+    # gathers' partial backward)
+    enter_axes = ("model",) if tok_sharded or not f_sharded \
+        else ("data", "model")
+    xt, gate = runtime.enter(xt, enter_axes), runtime.enter(gate, enter_axes)
+
+    def gather(t):
+        return runtime.all_gather(t, "data", partial=True)
     if tok_sharded and n_ch > 1:
         T_l = xt.shape[0] // n_ch
         outc = []
         for c in range(n_ch):
             at = slice(c * T_l, (c + 1) * T_l)
             outc.append(_dispatch_compute_combine(
-                runtime.all_gather(xt[at], "data"),
-                runtime.all_gather(gate[at], "data"),
+                gather(xt[at]), gather(gate[at]),
                 runtime.all_gather(idx[at], "data"), *w, e0=e0,
                 C=_capacity(T_row // n_ch, cfg), act=act))
         # each chunk's gather is shard-major within the chunk: restore the
@@ -189,8 +214,8 @@ def _moe_on_mesh(p, xt, cfg, act, batch_axes):
             .transpose(0, 1).reshape(T_row, d)
     elif tok_sharded:
         out_full = _dispatch_compute_combine(
-            runtime.all_gather(xt, "data"), runtime.all_gather(gate, "data"),
-            runtime.all_gather(idx, "data"), *w, e0=e0, C=C, act=act)
+            gather(xt), gather(gate), runtime.all_gather(idx, "data"), *w,
+            e0=e0, C=C, act=act)
     else:
         out_full = _dispatch_compute_combine(xt, gate, idx, *w, e0=e0, C=C,
                                              act=act)

@@ -1,10 +1,18 @@
-"""Shared recsys substrate: hashed feature fields → embedding tables."""
+"""Shared recsys substrate: hashed feature fields → embedding tables, and
+the losses.
+
+On a mesh a loss is the global batch's mean on every rank: each rank's
+batch is its block over the data axes (``runtime.batch_axes()``), and
+:func:`batch_mean` / :func:`batch_sum` sum over them (``runtime``'s rule
+for gradients); the in-batch softmax scores each rank's users against
+every rank's items.
+"""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 from repro_torch.runtime import RowShard
 from repro_torch.configs.base import FeatureField, RecsysConfig
 from repro_torch.sparse.sharded import sharded_embedding_bag_group
@@ -87,23 +95,64 @@ def embed_fields(tables: dict, fields: tuple[FeatureField, ...],
                                        blocks=(len(fields),))[0]
 
 
+def _split() -> bool:
+    """True on a mesh whose batch is split (its data axes > 1 rank)."""
+    return (runtime.current_mesh() is not None
+            and runtime.axes_size(runtime.batch_axes()) > 1)
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the global batch (on a mesh, over the data
+    axes' blocks too)."""
+    s = x.sum()
+    return runtime.all_reduce(s, runtime.batch_axes()) if _split() else s
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the global batch (equal blocks a rank)."""
+    if not _split():
+        return torch.mean(x)
+    return batch_sum(x) / (x.numel() * runtime.axes_size(runtime.batch_axes()))
+
+
+def batch_roll(x: torch.Tensor) -> torch.Tensor:
+    """``torch.roll(x, 1, dims=0)`` over the global batch: on a mesh the
+    first row comes from the previous block's last row (one all_gather
+    of a row; its gradient reaches that block's rank)."""
+    if not _split():
+        return torch.roll(x, 1, dims=0)
+    axes = runtime.batch_axes()
+    last = runtime.all_gather(x[-1:], axes, partial=True)
+    prev = (runtime.shard_index(axes) - 1) % runtime.axes_size(axes)
+    return torch.cat([last[prev:prev + 1], x[:-1]])
+
+
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     ls = F.logsigmoid(logits)
-    return -torch.mean(labels * ls + (1 - labels) * (ls - logits))
+    return -batch_mean(labels * ls + (1 - labels) * (ls - logits))
 
 
 def sampled_softmax_loss(user_vecs: torch.Tensor, item_vecs: torch.Tensor,
                          log_q: torch.Tensor | None = None,
                          temperature: float = 0.05) -> torch.Tensor:
     """In-batch sampled softmax with logQ correction [Yi et al., RecSys'19].
-    user/item (B, D) row-aligned positives."""
+    user/item (B, D) row-aligned positives. On a mesh each rank's users
+    meet the whole batch's items (gathered over the data axes; their
+    gradients summed back to each item's rank)."""
+    offset = 0
+    if _split():
+        axes = runtime.batch_axes()
+        offset = runtime.shard_index(axes) * user_vecs.shape[0]
+        item_vecs = runtime.all_gather(item_vecs, axes, partial=True)
+        if log_q is not None:
+            log_q = runtime.all_gather(log_q, axes)
     logits = (user_vecs @ item_vecs.T) / temperature       # (B, B)
     if log_q is not None:
         logits = logits - log_q[None, :]
-    labels = torch.arange(user_vecs.shape[0], device=logits.device)
+    labels = offset + torch.arange(user_vecs.shape[0], device=logits.device)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[:, None])[:, 0]
-    return torch.mean(lse - gold)
+    return batch_mean(lse - gold)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:

@@ -20,7 +20,8 @@ from repro_torch import default_device, runtime
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels.augru import augru
 from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
-from repro_torch.models.recsys.common import (bce_loss, field_lookups,
+from repro_torch.models.recsys.common import (batch_roll, batch_sum,
+                                              bce_loss, field_lookups,
                                               hist_lookup, masked_hist,
                                               tables_init)
 from repro_torch.sparse.sharded import (BIG_AXES, sharded_embedding_bag_group,
@@ -129,10 +130,10 @@ def logits_fn(params, batch: dict, cfg: RecsysConfig, return_aux=False):
     # auxiliary loss: state_t should predict behavior t+1 (vs shuffled negative)
     pred = states[:, :-1] @ params["aux_w"]                   # (B,T-1,D)
     pos = torch.sum(pred * hist[:, 1:], -1)
-    neg = torch.sum(pred * torch.roll(hist[:, 1:], 1, dims=0), -1)
+    neg = torch.sum(pred * batch_roll(hist[:, 1:]), -1)
     m = mask[:, 1:]
     aux = -(F.logsigmoid(pos) + F.logsigmoid(-neg)) * m
-    aux = aux.sum() / torch.clamp(m.sum(), min=1.0)
+    aux = batch_sum(aux) / torch.clamp(batch_sum(m), min=1.0)
     return logits, aux
 
 

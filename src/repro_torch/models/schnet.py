@@ -20,6 +20,19 @@ and ``index_add_`` would raise (CPU) or assert on the device.
 Parameters keep the reference's layout: ``interactions`` is one dict of
 leaves stacked on a leading axis of length ``n_interactions`` (the
 reference's ``jax.vmap`` of the per-interaction init).
+
+On a device mesh (``runtime.current_mesh()``) the reference's two
+sharding sites (``schnet.py:79,109-110``) are written out by rank: the
+edge list and its distances split over ("data", "model") (every rank
+holds the graph whole and takes its block, the tail padded with
+sentinel edges), each rank computes the filter ``w`` and the messages of
+its edges, and the partial node sums are summed over ("data", "model")
+(one all_reduce an interaction, where XLA's partitioner inserts one).
+The node-wise layers and the readout stay replicated. In training the
+filter weights and the node features the edges gather enter the edge
+split (``runtime.enter``), so their gradients are summed over it; the
+graph is not a batch split over ranks, so the train step sums no
+gradient over the data axes (``batch_axes=()``).
 """
 from __future__ import annotations
 
@@ -28,11 +41,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 from repro_torch.configs.base import GNNConfig
 from repro_torch.models.layers import dense_apply, dense_init
 
 _LOG2 = math.log(2.0)
+#: the mesh axes the edges split over (the reference's ``P(("data",
+#: "model"))``)
+EDGE_AXES = ("data", "model")
 
 
 def shifted_softplus(x):
@@ -122,17 +138,45 @@ def init(generator_or_seed, cfg: GNNConfig, d_feat_in: Optional[int] = None,
     return params
 
 
+def _split_edges() -> bool:
+    return runtime.current_mesh() is not None and \
+        runtime.axes_size(EDGE_AXES) > 1
+
+
+def _edge_block(edges, dist, n_nodes: int):
+    """The rank's block of the edge list and distances split over
+    ``EDGE_AXES``, the whole padded to a multiple of the ranks with
+    sentinel edges (src = dst = N, distance 0)."""
+    E = edges.shape[0]
+    pad = runtime.pad_to_multiple(E, runtime.axes_size(EDGE_AXES)) - E
+    if pad:
+        edges = torch.cat([edges, torch.full((pad, 2), n_nodes,
+                                             dtype=edges.dtype,
+                                             device=edges.device)])
+        dist = torch.cat([dist, dist.new_zeros((pad,))])
+    start, per = runtime.block(E + pad, EDGE_AXES)
+    return edges[start:start + per], dist[start:start + per]
+
+
 def _interaction(p, x, edges, edge_dist, n_nodes, cfg: GNNConfig):
-    """One cfconv + atom-wise update. x (N+1, h) with sentinel row N."""
+    """One cfconv + atom-wise update. x (N+1, h) with sentinel row N. On
+    a mesh ``edges`` / ``edge_dist`` are the rank's block
+    (:func:`_edge_block`)."""
+    split = _split_edges()
+    filt = {k: {n: runtime.enter(t, EDGE_AXES) for n, t in p[k].items()}
+            for k in ("filt1", "filt2")} if split else p
     src, dst = edges[:, 0], edges[:, 1]
     rbf = gaussian_rbf(edge_dist, cfg.n_rbf, cfg.cutoff)            # (E, r)
-    w = shifted_softplus(dense_apply(p["filt1"], rbf))
-    w = dense_apply(p["filt2"], w)                                   # (E, h)
-    w = w * cosine_cutoff(edge_dist, cfg.cutoff)[:, None]
-    # (the reference shards w over the mesh here: ROADMAP A8)
+    w = shifted_softplus(dense_apply(filt["filt1"], rbf))
+    w = dense_apply(filt["filt2"], w)                                # (E, h)
+    w = w * cosine_cutoff(edge_dist, cfg.cutoff)[:, None]           # rank's edges
     xin = dense_apply(p["w_in"], x)
+    if split:
+        xin = runtime.enter(xin, EDGE_AXES)
     msg = take_clip(xin, src) * w                                    # (E, h)
     agg = segment_sum(msg, dst, n_nodes + 1)
+    if split:                      # the ranks' partial node sums
+        agg = runtime.all_reduce(agg, EDGE_AXES)
     v = dense_apply(p["w_out1"], agg)
     v = shifted_softplus(v)
     v = dense_apply(p["w_out2"], v)
@@ -158,7 +202,8 @@ def forward(params, inputs: dict, cfg: GNNConfig, n_graphs: int = 1):
         pos = inputs["positions"]
         d = take_clip(pos, edges[:, 0]) - take_clip(pos, edges[:, 1])
         dist = torch.sqrt(torch.sum(d * d, -1) + 1e-12)
-    # (the reference shards edges and dist over the mesh here: ROADMAP A8)
+    if _split_edges():
+        edges, dist = _edge_block(edges, dist, n_nodes)
     x = torch.cat([x, torch.zeros((1, x.shape[1]), dtype=x.dtype,
                                   device=x.device)])                 # sentinel
 
@@ -182,3 +227,10 @@ def loss_fn(params, inputs: dict, targets, cfg: GNNConfig,
             n_graphs: int = 1):
     pred = forward(params, inputs, cfg, n_graphs=n_graphs)
     return torch.mean((pred - targets) ** 2)
+
+
+def batch_loss(params, batch: dict, cfg: GNNConfig, n_graphs: int = 1):
+    """:func:`loss_fn` of a batch {"inputs", "targets"}: the train step's
+    ``loss_fn(params, batch)`` form."""
+    return loss_fn(params, batch["inputs"], batch["targets"], cfg,
+                   n_graphs=n_graphs)

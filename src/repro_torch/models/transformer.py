@@ -27,6 +27,9 @@ heads and FFN widths over ``model`` where they divide, the experts over
 batch (its block over the data axes, or the batch whole with
 ``batch_axes=()``). The residual stream stays whole on every ``model``
 rank; the logits of the vocab-split head are gathered over ``model``.
+Training on a mesh runs :func:`hidden_states` under autograd and
+:func:`lm_loss` over the vocab-split head (:func:`chunked_xent`), the
+gradients by ``runtime``'s rule.
 """
 from __future__ import annotations
 
@@ -213,9 +216,10 @@ def _block(p, x, positions, cfg: LMConfig, moe_layer: bool):
     ``cfg.shard_carry`` (deepseek-v3 only), split over ``model`` so that
     the layer inputs its remat saves take d/16 a device. A sharding
     constraint changes a layout, never a value. The port keeps the
-    residual whole on every ``model`` rank, so there is no layout to pin:
-    the split carry saves memory only under GSPMD's remat of a training
-    step, and training on a mesh is not ported yet (ROADMAP A8)."""
+    residual whole on every ``model`` rank, so there is no layout to pin
+    (training on a mesh included): the split carry saves memory only
+    under GSPMD's remat of a training step, where the saved layer inputs
+    take d/16 a device; here each rank keeps them whole."""
     h, _ = attn.attn_forward(
         p["attn"], norm_apply(x, p["ln1"], cfg.norm, cfg.norm_eps),
         positions, cfg)
@@ -300,10 +304,21 @@ def hidden_states(params, tokens, cfg: LMConfig):
     return x, aux_total
 
 
-def chunked_xent(x, head_w, labels, mask, chunk: int = 512):
+def chunked_xent(x, head_w, labels, mask, chunk: int = 512, *,
+                 vocab: Optional[int] = None):
     """Cross-entropy without materializing (B,S,V): a loop over S chunks,
     each chunk's logits in float32. Mean over the positions ``mask``
-    keeps."""
+    keeps.
+
+    On a mesh: ``head_w`` holding the rank's columns of a ``vocab``-wide
+    head (split over ``model``) takes the reference's vocab-split form
+    (``transformer.py:170-204``): a detached local max and its max over
+    ``model``, the sum of exp(logits - max) and the gold logit (a masked
+    sum over the rank's columns, not a gather over a split vocab) each
+    summed over ``model``, and ``x`` entering the split. ``x`` is the
+    rank's block of a batch split over the mesh's data axes: the sums of
+    the loss and the count are summed over them, so every rank holds the
+    global mean."""
     B, S, d = x.shape
     n = -(-S // chunk)
     pad = n * chunk - S
@@ -311,30 +326,50 @@ def chunked_xent(x, head_w, labels, mask, chunk: int = 512):
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
+    split = (runtime.current_mesh() is not None and vocab is not None
+             and head_w.shape[-1] != vocab)
+    if split:
+        x = runtime.enter(x, "model")
+        v0 = runtime.axis_index("model") * head_w.shape[-1]
+        cols = v0 + torch.arange(head_w.shape[-1], device=x.device)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
         at = slice(i * chunk, (i + 1) * chunk)
         xi, li, mi = x[:, at], labels[:, at], mask[:, at]
         logits = (xi @ head_w).float()                       # (B,c,V)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        if split:
+            m = runtime.all_reduce(logits.detach().amax(-1), "model",
+                                   op="max")
+            lse = m + torch.log(runtime.all_reduce(
+                torch.exp(logits - m[..., None]).sum(-1), "model"))
+            gold = runtime.all_reduce(torch.where(
+                cols == li[..., None], logits, 0.0).sum(-1), "model")
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
         nll = (lse - gold) * mi
         tot = tot + nll.sum()
         cnt = cnt + mi.sum()
+    if runtime.current_mesh() is not None:
+        tot, cnt = runtime.all_reduce(torch.stack([tot, cnt]),
+                                      runtime.batch_axes())
     return tot / torch.clamp(cnt, min=1.0)
 
 
 def lm_loss(params, tokens, cfg: LMConfig, aux_weight: float = 1e-3):
     """Next-token loss (+MTP loss for deepseek-v3, + aux_weight x the MoE
-    load-balance aux). tokens (B,S)."""
+    load-balance aux). tokens (B,S). On a mesh ``tokens`` are the rank's
+    block of the batch split over the mesh's data axes and the loss is
+    the global batch's mean on every rank (:func:`chunked_xent`); the MoE
+    aux is the mesh's (``moe.py``)."""
     x, aux = hidden_states(params, tokens, cfg)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1] * 0], dim=1)
     ones = torch.ones(tokens[:, 1:].shape, dtype=torch.float32,
                       device=tokens.device)
     mask = F.pad(ones, (0, 1))
     head_w = _head_w(params, cfg)
-    loss = chunked_xent(x, head_w, labels, mask)
+    loss = chunked_xent(x, head_w, labels, mask, vocab=cfg.vocab)
     if cfg.mtp and "mtp" in params:
         # MTP depth 1: combine h_t with the embedding of token t+1, one
         # extra block, predict token t+2 (deepseek-v3 §2.2)
@@ -351,7 +386,8 @@ def lm_loss(params, tokens, cfg: LMConfig, aux_weight: float = 1e-3):
                       moe_layer=cfg.moe is not None)
         labels2 = torch.roll(tokens, -2, dims=1)
         mask2 = F.pad(ones[:, 1:], (0, 2))
-        loss = loss + 0.3 * chunked_xent(h, head_w, labels2, mask2)
+        loss = loss + 0.3 * chunked_xent(h, head_w, labels2, mask2,
+                                         vocab=cfg.vocab)
     return loss + aux_weight * aux
 
 

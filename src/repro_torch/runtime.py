@@ -18,7 +18,40 @@ takes the rank's block of a tensor the rank holds whole.
 
 Each collective counts its calls and bytes by kind on the mesh
 (``mesh.counts``, read by ``launch/op_analysis.py``; a max reduction
-counts under ``all_reduce``). Every kind goes to the backend directly,
+counts under ``all_reduce``): a backward's collectives as ``kind/bwd``,
+and a forward collective that autograd issues again while it recomputes
+a checkpointed block as ``kind/recompute``, so a training step's bytes
+hold all three.
+
+The rule for gradients. Training on a mesh, every rank computes the same
+global loss (the mean over the whole global batch, replicated on every
+rank), so a value replicated over some axes carries the same cotangent
+on each of their ranks. Under that rule the collectives are
+``torch.autograd.Function``s with these adjoints:
+
+  ====================================  ==================================
+  forward                               backward
+  ====================================  ==================================
+  all_reduce (sum) of partials          identity
+  all_gather of blocks → replicated     the rank's own block, no exchange
+  all_gather(partial=True): the whole   reduce_scatter (the ranks'
+  feeds work each rank does in part     partial cotangents summed)
+  reduce_scatter of partials → blocks   all_gather
+  all_to_all                            all_to_all (its own inverse)
+  all_reduce (max)                      none: detached values only
+  enter(x, axes): identity              all_reduce (sum) over ``axes``
+  ====================================  ==================================
+
+:func:`enter` (Megatron's "f") goes where a value replicated over
+``axes`` feeds work split over them (column-parallel weights, a rank's
+experts, a rank's edges), and on a replicated parameter a rank uses only
+in part: each rank's cotangent there is a partial, and the sum makes it
+whole. A parameter's gradient is then partial over the batch axes its
+spec does not name (each rank saw its block of the batch) and whole over
+every other axis; ``train/train_step.py`` sums it over those batch axes,
+or reduce-scatters it into its ZeRO shard. ``torch.distributed.nn``'s
+collectives follow another rule (a sum of the cotangents in every
+backward) and bypass the counts; the port does not use them. Every kind goes to the backend directly,
 CUDA tensors too: gloo moves all four kinds, and the max reduction, on
 CUDA tensors in the card's torch (``launch/mesh.py::collective_support``,
 PERF.md §6).
@@ -212,72 +245,207 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _collective(kind: str, x: torch.Tensor, axes, op) -> torch.Tensor:
-    """``op(x, group)`` over the group of ``axes``, counted."""
-    mesh = current_mesh()
-    axes = mesh_axes(axes)
+def _phase_kind(kind: str, backward: bool) -> str:
+    """The counted kind of a collective: ``kind`` in the forward,
+    ``kind + "/bwd"`` in a backward's adjoint, ``kind + "/recompute"``
+    for a forward collective that autograd's backward issues again (a
+    block under ``torch.utils.checkpoint``)."""
+    if backward:
+        return kind + "/bwd"
+    if torch._C._current_graph_task_id() != -1:
+        return kind + "/recompute"
+    return kind
+
+
+def _collective(kind: str, x: torch.Tensor, axes, op, mesh=None,
+                backward: bool = False) -> torch.Tensor:
+    """``op(x, group)`` over the group of ``axes`` on ``mesh`` (the
+    current one if None), counted."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None:
+        return x.contiguous()
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    axes = tuple(a for a in mesh.axis_names if a in names)
     g = math.prod(mesh.shape[a] for a in axes) if axes else 1
     x = x.contiguous()
     if g == 1:
         return x
     out = op(x, mesh.group(axes))
-    mesh.counts.add(kind, g, _nbytes(out))
+    mesh.counts.add(_phase_kind(kind, backward), g, _nbytes(out))
     return out
 
 
-def all_gather(x: torch.Tensor, axes) -> torch.Tensor:
-    """The ranks' ``x`` over ``axes`` concatenated along dim 0 in flat-index
-    order (``lax.all_gather(..., tiled=True)``)."""
+def _gather_op(t, group):
     import torch.distributed as dist
+    out = t.new_empty((dist.get_world_size(group) * t.shape[0],
+                       *t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out
 
-    def op(t, group):
-        out = t.new_empty((dist.get_world_size(group) * t.shape[0],
-                           *t.shape[1:]))
-        dist.all_gather_into_tensor(out, t, group=group)
-        return out
-    return _collective("all_gather", x, axes, op)
+
+def _scatter_op(t, group):
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    if t.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim 0 of {tuple(t.shape)} "
+                         f"does not split over {n} ranks")
+    out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
+    dist.reduce_scatter_tensor(out, t, group=group)
+    return out
+
+
+def _reduce_op(reduce_op):
+    def run(t, group):
+        import torch.distributed as dist
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, reduce_op), group=group)
+        return t
+    return run
+
+
+def _to_all_op(t, group):
+    import torch.distributed as dist
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+def _block_of(mesh, axes, n: int, g: torch.Tensor) -> torch.Tensor:
+    """The rank's block of ``n`` rows of ``g`` (dim 0) over ``axes``."""
+    idx = 0
+    for a in mesh.axis_names:
+        if a in axes:
+            idx = idx * mesh.shape[a] + mesh.coords[a]
+    return g.narrow(0, idx * n, n)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, partial):
+        ctx.mesh, ctx.axes, ctx.partial, ctx.n = (current_mesh(), axes,
+                                                  partial, x.shape[0])
+        return _collective("all_gather", x, axes, _gather_op)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return _collective("reduce_scatter", g, ctx.axes, _scatter_op,
+                               ctx.mesh, True), None, None
+        return _block_of(ctx.mesh, ctx.axes, ctx.n, g), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.mesh, ctx.axes = current_mesh(), axes
+        return _collective("reduce_scatter", x, axes, _scatter_op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective("all_gather", g, ctx.axes, _gather_op, ctx.mesh,
+                           True), None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        return _collective("all_reduce", x.clone(), axes, _reduce_op("SUM"))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.mesh, ctx.axes = current_mesh(), axes
+        return _collective("all_to_all", x, axes, _to_all_op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective("all_to_all", g, ctx.axes, _to_all_op, ctx.mesh,
+                           True), None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.mesh, ctx.axes = current_mesh(), axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _collective("all_reduce", g.clone(), ctx.axes,
+                           _reduce_op("SUM"), ctx.mesh, True), None
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    """True where autograd records an op on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _live(axes) -> bool:
+    return current_mesh() is not None and axes_size(axes) > 1
+
+
+def all_gather(x: torch.Tensor, axes, partial: bool = False) -> torch.Tensor:
+    """The ranks' ``x`` over ``axes`` concatenated along dim 0 in flat-index
+    order (``lax.all_gather(..., tiled=True)``). Its backward takes the
+    rank's own block of the cotangent; with ``partial``, where the
+    gathered whole feeds work each rank does only in part (the MoE's
+    dispatch to the rank's experts, the in-batch softmax against every
+    rank's items), it sums the ranks' cotangents into each block (a
+    reduce_scatter)."""
+    if _recorded(x) and _live(axes):
+        return _AllGather.apply(x, axes, partial)
+    return _collective("all_gather", x, axes, _gather_op)
 
 
 def reduce_scatter(x: torch.Tensor, axes) -> torch.Tensor:
     """The sum over ``axes`` of ``x``, of which each rank keeps its block of
-    dim 0 (``lax.psum_scatter(..., tiled=True)``); dim 0 must divide."""
-    import torch.distributed as dist
-
-    def op(t, group):
-        n = dist.get_world_size(group)
-        if t.shape[0] % n:
-            raise ValueError(f"reduce_scatter: dim 0 of {tuple(t.shape)} "
-                             f"does not split over {n} ranks")
-        out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
-        dist.reduce_scatter_tensor(out, t, group=group)
-        return out
-    return _collective("reduce_scatter", x, axes, op)
+    dim 0 (``lax.psum_scatter(..., tiled=True)``); dim 0 must divide. Its
+    backward all-gathers the blocks' cotangents."""
+    if _recorded(x) and _live(axes):
+        return _ReduceScatter.apply(x, axes)
+    return _collective("reduce_scatter", x, axes, _scatter_op)
 
 
 def all_reduce(x: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
     """The sum (``lax.psum``) or, with ``op="max"``, the elementwise
     maximum (``lax.pmax``) over ``axes`` of ``x``; ``x`` itself may be
-    overwritten with it."""
-    import torch.distributed as dist
-    reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-
-    def run(t, group):
-        dist.all_reduce(t, op=reduce_op, group=group)
-        return t
-    return _collective("all_reduce", x, axes, run)
+    overwritten with it where autograd does not record the call. The
+    sum's backward is the identity (its output is replicated); the max
+    takes no gradient and refuses a tensor autograd records."""
+    if op == "max":
+        if _recorded(x) and _live(axes):
+            raise ValueError("all_reduce(max) has no gradient: reduce a "
+                             "detached tensor")
+        return _collective("all_reduce", x, axes, _reduce_op("MAX"))
+    if op != "sum":
+        raise ValueError(f"all_reduce op {op!r}")
+    if _recorded(x) and _live(axes):
+        return _AllReduce.apply(x, axes)
+    return _collective("all_reduce", x, axes, _reduce_op("SUM"))
 
 
 def all_to_all(x: torch.Tensor, axes) -> torch.Tensor:
     """Dim 0 of ``x`` split into one equal chunk per rank over ``axes``,
     chunk j sent to rank j, the chunks received concatenated in rank
-    order (``lax.all_to_all(..., 0, 0, tiled=True)``)."""
-    import torch.distributed as dist
+    order (``lax.all_to_all(..., 0, 0, tiled=True)``). Its backward is
+    the same exchange of the cotangents."""
+    if _recorded(x) and _live(axes):
+        return _AllToAll.apply(x, axes)
+    return _collective("all_to_all", x, axes, _to_all_op)
 
-    def op(t, group):
-        out = torch.empty_like(t)
-        dist.all_to_all_single(out, t, group=group)
-        return out
-    return _collective("all_to_all", x, axes, op)
+
+def enter(x: torch.Tensor, axes) -> torch.Tensor:
+    """``x`` itself, where a value replicated over ``axes`` enters work
+    split over them (column-parallel weights, a rank's experts, a rank's
+    edges); its backward sums the ranks' partial cotangents over
+    ``axes`` (one all_reduce). No mesh, or ``axes`` of one rank: ``x``."""
+    if _recorded(x) and _live(axes):
+        return _Enter.apply(x, axes)
+    return x
 
 
 def gather_rows(x: torch.Tensor, axes, n: Optional[int] = None):

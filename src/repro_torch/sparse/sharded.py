@@ -18,6 +18,16 @@ batch) — a batch held whole by every rank is such a block too, only
 gathered redundantly — or, with ``batch_axes=()``, ids every rank holds
 whole (the reference's batch that does not scatter: one all_reduce).
 The result comes back in the ids' layout.
+
+In training (autograd recording; ``runtime``'s rule for gradients) the
+collectives' adjoints give the backward: a bag's pooled partials are
+reduce-scattered (backward: an all_gather of the cotangents, so each
+rank holds those of every gathered id) and all-reduced (backward: the
+identity), and B3's gradient (the plain version's, ``kernels``'
+``_PlainGradient``) lands on the rank's own rows only, in the table's
+dtype; a table's local rows then hold its whole gradient (its ids were
+gathered over every rank). ``comm_dtype`` casts keep the forward's
+dtypes in the backward.
 """
 from __future__ import annotations
 
@@ -187,7 +197,13 @@ def _pooled_on_mesh(lookups, blocks, batch_axes, comm_dtype=None) -> list:
     for table, ids, w, combiner in gathered:
         local, ok = _owned(table, ids)
         wt = ok if w is None else ok * w.float()
-        bags.append((_whole(table), local, wt, "sum"))
+        t = _whole(table)
+        if not isinstance(table, runtime.RowShard):
+            # held whole, pooled by the first shard only: its gradient
+            # there is whole over the gathered ids, and enters the other
+            # axes (``runtime``'s rule for a replicated leaf used in part)
+            t = runtime.enter(t, rest)
+        bags.append((t, local, wt, "sum"))
         counts.append(wt.sum(-1) if combiner == "mean" else None)
     parts = embedding_bag_group(bags)
     dtype, D = parts[0].dtype, parts[0].shape[-1]

@@ -16,8 +16,14 @@
     continues.
   * emergency save on SIGTERM (preemption notice).
 
-Restoring onto a device mesh (the reference's resharding restore) waits
-for the port's mesh (ROADMAP A8): ``shardings`` raises.
+On a device mesh (``runtime.current_mesh()``) a save gathers every leaf
+whole from the ranks' parts by its spec (``sharding.gather_tree``; every
+rank takes part) and one rank, rank 0, writes the one-device format, so
+either package reads a mesh's checkpoint; ``restore(..., shardings=)``
+reads each leaf whole and keeps the rank's part by its spec (a
+``RowShard`` where ``like`` holds one), so a checkpoint written on any
+number of devices restores onto any mesh: the reference's resharding
+``device_put``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import runtime
 from repro_torch import tree as tree_lib
 
 BF16 = "bfloat16"
@@ -116,10 +123,9 @@ def restore(path: str, like: Any, shardings: Any = None,
             verify: bool = True) -> tuple[Any, int]:
     """like: tree prototype (for structure). Each leaf comes back as a
     tensor of the manifest's dtype on the device of ``like``'s leaf (on
-    the host where that leaf is no tensor)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a device mesh is not ported yet (ROADMAP A8)")
+    the host where that leaf is no tensor). ``shardings`` (a tree of
+    ``sharding.P`` like ``like``), on an installed mesh: each leaf
+    becomes the rank's part of it by its spec."""
     if not os.path.exists(os.path.join(path, "DONE")):
         raise FileNotFoundError(f"checkpoint {path} incomplete (no DONE)")
     with open(os.path.join(path, "manifest.json")) as f:
@@ -137,7 +143,14 @@ def restore(path: str, like: Any, shardings: Any = None,
         else:
             t = torch.from_numpy(np.array(arr))
         out.append(t.to(dev))
-    return tree_lib.unflatten(like, out), manifest["step"]
+    tree = tree_lib.unflatten(like, out)
+    mesh = runtime.current_mesh()
+    if shardings is not None and mesh is not None:
+        from repro_torch.launch.sharding import P, local_part
+        tree = tree_lib.tree_map(
+            lambda t, spec: local_part(t, spec, mesh).clone()
+            if isinstance(spec, P) else t, tree, shardings)
+    return tree, manifest["step"]
 
 
 class AsyncCheckpointer:
@@ -151,8 +164,18 @@ class AsyncCheckpointer:
         self.saved_steps: list[int] = []
 
     def save(self, tree: Any, step: int, meta: Optional[dict] = None,
-             block: bool = False):
+             block: bool = False, specs: Any = None):
+        """Snapshot ``tree`` to the host and write it on a thread as
+        ``gen_{step}``. On an installed mesh with ``specs`` (the leaves'
+        ``sharding.P``): every rank gathers the leaves whole (a
+        collective: each rank calls this), then rank 0 alone writes."""
         self.wait()
+        mesh = runtime.current_mesh()
+        if mesh is not None and specs is not None:
+            from repro_torch.launch.sharding import gather_tree
+            tree = gather_tree(tree, specs, mesh)
+            if mesh.rank != 0:
+                return
         host_tree = tree_lib.tree_map(
             lambda x: (x.detach().to("cpu", copy=True)
                        if isinstance(x, torch.Tensor) else np.array(x)), tree)

@@ -10,15 +10,47 @@ reference computes it (``torch.optim.AdamW`` follows another trajectory).
 
 A combined optimizer routes params by path: table leaves (2-D, huge vocab
 rows) → rowwise adagrad; everything else → adamw/adafactor.
+
+On a device mesh each rank updates its part of every leaf (a
+``RowShard``'s rows, a TP slice, a ZeRO shard) and ``update`` takes the
+leaves' specs (``specs=``, ``launch/sharding.P`` trees like ``params``).
+AdamW is elementwise and row-wise Adagrad row-local (a mean over the
+unsplit embedding dim), so neither reads them; Adafactor's means over a
+dim and its update-clipping RMS are global in the reference (GSPMD's
+arrays), so on a shard each is a sum over the rank's part, summed over
+the axes its spec splits that dim over, divided by the global count.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import runtime
 from repro_torch import tree as tree_lib
 from repro_torch.tree import tree_map
+
+
+def _dim_axes(spec, ndim: int) -> list:
+    """Per dim of a leaf, the mesh axes its spec splits it over (all ()
+    without a spec)."""
+    from repro_torch.launch.sharding import entry_axes
+    entries = list(spec or ()) + [None] * (ndim - len(spec or ()))
+    return [entry_axes(e) for e in entries[:ndim]]
+
+
+def _mean(x: torch.Tensor, dim: int, axes: tuple, keepdim=False):
+    """The mean over ``dim`` of the whole leaf whose part ``x`` is, the
+    dim split over ``axes``."""
+    if not runtime.mesh_axes(axes):
+        return x.mean(dim, keepdim=keepdim)
+    n = x.shape[dim] * runtime.axes_size(axes)
+    return runtime.all_reduce(x.sum(dim, keepdim=keepdim), axes) / n
+
+
+def _global_numel(x: torch.Tensor, axes: list) -> int:
+    return x.numel() * math.prod(runtime.axes_size(a) for a in axes)
 
 
 class OptState(NamedTuple):
@@ -50,7 +82,7 @@ def adamw(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.01):
         return OptState(_step0(params), {"m": tree_map(_zeros32, params),
                                          "v": tree_map(_zeros32, params)})
 
-    def update(grads, state, params):
+    def update(grads, state, params, specs=None):
         t = state.step + 1
         m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
                      state.inner["m"], grads)
@@ -92,18 +124,18 @@ def adafactor(lr=1e-2, eps=1e-30, clip=1.0, decay=0.8):
             return {"v": _zeros32(p)}
         return OptState(_step0(params), tree_map(st, params))
 
-    def update(grads, state, params):
+    def update(grads, state, params, specs=None):
         t = state.step + 1
         beta = 1.0 - (t.float() + 1.0) ** (-decay)
 
-        def upd_one(p, g, s):
+        def upd_one(p, g, s, axes):
             g = g.float()
             g2 = torch.square(g) + eps
             if factored(p):
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
+                vr = beta * s["vr"] + (1 - beta) * _mean(g2, -1, axes[-1])
+                vc = beta * s["vc"] + (1 - beta) * _mean(g2, -2, axes[-2])
                 denom = (vr[..., None] / torch.clamp(
-                    vr.mean(-1, keepdim=True), min=eps)[..., None]) \
+                    _mean(vr, -1, axes[-2], keepdim=True), min=eps)[..., None]) \
                     * vc[..., None, :]
                 u = g * torch.rsqrt(denom + eps)
                 new_s = {"vr": vr, "vc": vc}
@@ -112,21 +144,30 @@ def adafactor(lr=1e-2, eps=1e-30, clip=1.0, decay=0.8):
                 u = g * torch.rsqrt(v + eps)
                 new_s = {"v": v}
             # update clipping (RMS)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            split = tuple(a for ax in axes for a in ax)
+            if runtime.mesh_axes(split):
+                sq = runtime.all_reduce(torch.square(u).sum(), split)
+                rms = torch.sqrt(sq / _global_numel(u, axes) + eps)
+            else:
+                rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
             u = u / torch.clamp(rms / clip, min=1.0)
             return (p.float() - lr * u).to(p.dtype), new_s
 
-        def upd(p, g, s):
-            if (factored(p) and p.dim() >= 3
-                    and p.numel() > ADAFACTOR_CHUNK_ELEMS and p.shape[0] > 1):
-                outs = [upd_one(p[i], g[i], {k: x[i] for k, x in s.items()})
+        def upd(p, g, s, spec=None):
+            axes = _dim_axes(spec, p.dim())
+            if (factored(p) and p.dim() >= 3 and p.shape[0] > 1
+                    and _global_numel(p, axes) > ADAFACTOR_CHUNK_ELEMS):
+                outs = [upd_one(p[i], g[i], {k: x[i] for k, x in s.items()},
+                                axes[1:])
                         for i in range(p.shape[0])]
                 return (torch.stack([o[0] for o in outs]),
                         {k: torch.stack([o[1][k] for o in outs]) for k in s})
-            return upd_one(p, g, s)
+            return upd_one(p, g, s, axes)
 
         new_params, new_inner = _split_pairs(
-            params, tree_map(upd, params, grads, state.inner))
+            params, tree_map(upd, params, grads, state.inner)
+            if specs is None else
+            tree_map(upd, params, grads, state.inner, specs))
         return new_params, OptState(t, new_inner)
 
     return init, update
@@ -142,7 +183,7 @@ def rowwise_adagrad(lr=0.05, eps=1e-8):
             lambda p: torch.zeros(p.shape[:1], dtype=torch.float32,
                                   device=p.device), params))
 
-    def update(grads, state, params):
+    def update(grads, state, params, specs=None):
         def upd(p, g, a):
             g = g.float()
             a_new = a + torch.mean(torch.square(g), dim=-1)
@@ -174,11 +215,13 @@ def combined(dense_opt, table_opt):
         return OptState(_step0(params),
                         {"dense": d_init(dense), "tables": t_init(tables)})
 
-    def update(grads, state, params):
+    def update(grads, state, params, specs=None):
         dense, tables = split(params)
         gd, gt = split(grads)
-        nd, sd = d_update(gd, state.inner["dense"], dense)
-        nt, st = t_update(gt, state.inner["tables"], tables)
+        kw = {} if specs is None else {"specs": split(specs)[0]}
+        nd, sd = d_update(gd, state.inner["dense"], dense, **kw)
+        kw = {} if specs is None else {"specs": split(specs)[1]}
+        nt, st = t_update(gt, state.inner["tables"], tables, **kw)
         new = dict(nd)
         new.update(nt)
         return new, OptState(state.step + 1, {"dense": sd, "tables": st})

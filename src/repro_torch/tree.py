@@ -8,8 +8,22 @@ names a leaf by its path, ``"a/b/0/w"`` (a NamedTuple field as
 names with the reference's, so every walk here keeps that order, whatever
 order the dicts were built in (``torch.utils._pytree`` keeps insertion
 order instead).
+
+A ``runtime.RowShard`` (a rank's rows of a split table) is a node with
+one tensor child, its ``local`` rows, and its global row count and axes
+as static data: the walks reach the local rows as a leaf, and a map
+rebuilds the shard around what it returns there, so gradients,
+optimizer states and checkpoints of a split table keep their shape. The
+shard adds nothing to a leaf's path (its name is the whole table's).
 """
 from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.runtime import RowShard
+
+#: the key of a RowShard's one child: it extends no path
+_SAME = object()
 
 
 def _is_namedtuple(node) -> bool:
@@ -18,6 +32,8 @@ def _is_namedtuple(node) -> bool:
 
 def _children(node):
     """(keys, children) of an inner node in JAX's order; None for a leaf."""
+    if isinstance(node, RowShard):
+        return [_SAME], [node.local]
     if isinstance(node, dict):
         keys = sorted(node)
         return keys, [node[k] for k in keys]
@@ -31,6 +47,8 @@ def _children(node):
 def _rebuild(node, children):
     """``node``'s kind of container holding ``children`` (in JAX's order);
     a dict keeps ``node``'s own key order."""
+    if isinstance(node, RowShard):
+        return dataclasses.replace(node, local=children[0])
     if isinstance(node, dict):
         by_key = dict(zip(sorted(node), children))
         return {k: by_key[k] for k in node}
@@ -48,7 +66,8 @@ def flatten_with_paths(tree, prefix: tuple = ()) -> list:
         return [(prefix, tree)]
     out = []
     for key, child in zip(*kids):
-        out.extend(flatten_with_paths(child, prefix + (key,)))
+        out.extend(flatten_with_paths(
+            child, prefix if key is _SAME else prefix + (key,)))
     return out
 
 
@@ -87,6 +106,19 @@ def tree_map(fn, tree, *rest):
     kids = _children(tree)
     if kids is None:
         return fn(tree, *rest)
-    others = [_children(r)[1] for r in rest]
+    # a node of ``rest`` at a RowShard's place that is no shard itself (a
+    # spec) goes to the shard's rows whole
+    others = [[r] if isinstance(tree, RowShard) and not isinstance(
+        r, RowShard) else _children(r)[1] for r in rest]
     return _rebuild(tree, [tree_map(fn, child, *(o[i] for o in others))
                            for i, child in enumerate(kids[1])])
+
+
+def strip_shards(tree):
+    """``tree`` with every ``RowShard`` replaced by its local rows."""
+    if isinstance(tree, RowShard):
+        return tree.local
+    kids = _children(tree) if tree is not None else None
+    if kids is None:
+        return tree
+    return _rebuild(tree, [strip_shards(c) for c in kids[1]])

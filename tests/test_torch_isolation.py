@@ -1344,6 +1344,51 @@ def test_lm_mesh_paths_run_with_jax_and_reference_blocked():
     assert "LM-MESH-ISOLATED" in out.stdout
 
 
+def test_mesh_training_runs_with_jax_and_reference_blocked():
+    """A fresh interpreter in which ``import jax`` and ``import repro``
+    fail imports the modules of training on a mesh (the differentiable
+    collectives, the ZeRO-2 train step, the optimizers on shards,
+    checkpoints on a mesh, the launcher, the recsys losses, SchNet's edge
+    split) and runs a training cell on two gloo ranks (reduced schnet x
+    molecule, its edges split over ``model``); after the steps the ranks
+    have imported neither ``jax`` nor ``repro``."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.launch.train
+        import repro_torch.models.recsys.common
+        import repro_torch.models.schnet
+        import repro_torch.runtime
+        import repro_torch.train.checkpoint
+        import repro_torch.train.optimizer
+        import repro_torch.train.train_step
+        import repro_torch.tree
+        from repro_torch.launch.mesh import CellDraw, Job, run_jobs
+        if __name__ == "__main__":
+            cell = Job(params=CellDraw("schnet", "molecule", reduced=True),
+                       repeat=1)
+            ranks = run_jobs([cell, Job("repro_torch.launch.mesh:imported")],
+                             (1, 2), timeout=150)
+            for rank in ranks:
+                loss, = rank[0]["out"]
+                assert loss.shape == () and loss == loss, loss
+                assert any(k.endswith("/bwd") for k, _ in
+                           rank[0]["collectives"]), rank[0]["collectives"]
+                assert rank[1]["out"] == [], rank[1]["out"]
+            loaded = sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                            and sys.modules[m] is not None)
+            assert not loaded, loaded
+            print("TRAIN-MESH-ISOLATED")
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)),
+                         capture_output=True, text=True, timeout=170)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "TRAIN-MESH-ISOLATED" in out.stdout
+
+
 def test_build_takes_turns_across_processes(tmp_path):
     """Two processes that build the kernel library at once (the ranks of
     a mesh on one card) take turns on the build directory's file lock:

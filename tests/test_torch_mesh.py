@@ -682,16 +682,6 @@ def test_run_cell_on_a_mesh_checks_each_rank_s_kernels(tmp_path):
     assert "kernel_checks" not in written and '"output"' not in written
 
 
-@pytest.mark.parametrize("arch_id,shape_name", [("smollm-135m", "train_4k"),
-                                                ("schnet", "molecule"),
-                                                ("din", "train_batch")])
-def test_cells_not_yet_on_a_mesh_raise_naming_a8(arch_id, shape_name,
-                                                 tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
-        dryrun.run_cell(arch_id, shape_name, str(tmp_path), device="cpu",
-                        reduced=True, mesh=(2, 2))
-
-
 def test_moe_refuses_an_installed_model_axis():
     """The expert-parallel MoE is ported: on an installed mesh with a
     ``model`` axis it no longer refuses but splits its experts by

@@ -425,3 +425,80 @@ def test_rankings_refuse_more_places_than_candidates(rng):
     cands, q = _integer_cands(rng, 16, 8, rows=4)
     with pytest.raises(ValueError, match="must lie in"):
         candidate_scorer(torch.as_tensor(cands), torch.as_tensor(q), 17)
+
+
+# ------------------------------------------- the cross-rank merge (C-1's)
+
+#: the special values every merge case draws among ordinary ties: ±0,
+#: ±NaN (quiet, sign bit set and clear) and ±inf, as float32 bit patterns
+SPECIAL_F32 = np.array([0x00000000, 0x80000000, 0x7FC00000, 0xFFC00000,
+                        0x7F800000, 0xFF800000], np.uint32)
+SPECIAL_BF16 = np.array([0x0000, 0x8000, 0x7FC0, 0xFFC0, 0x7F80, 0xFF80],
+                        np.uint16)
+
+
+def _merge_draw(rng, n, dtype):
+    """n scores as bit patterns of ``dtype`` (float32 or bfloat16): a few
+    ordinary values repeated (ties), the special ones among them."""
+    if dtype == "float32":
+        plain = np.array([1.5, -2.0, 0.25, 3.0], np.float32).view(np.uint32)
+        pool = np.concatenate([SPECIAL_F32, plain])
+    else:
+        plain = np.array([0x3FC0, 0xC000, 0x3E80, 0x4040], np.uint16)
+        pool = np.concatenate([SPECIAL_BF16, plain])
+    return pool[rng.integers(0, len(pool), n)]
+
+
+def _as_jax(bits, dtype):
+    import ml_dtypes
+    if dtype == "float32":
+        return jnp.asarray(bits.view(np.float32))
+    return jnp.asarray(bits.view(ml_dtypes.bfloat16))
+
+
+def _as_torch(bits, dtype):
+    if dtype == "float32":
+        return torch.from_numpy(bits.view(np.int32).copy()).view(torch.float32)
+    return torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.view(torch.int32).numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_blocks", range(1, 9))
+def test_merge_over_blocks_equals_lax_top_k_on_special_values(dtype,
+                                                              n_blocks):
+    """``topk.merge_topk`` over a vector split into 1-8 blocks as
+    ``merge_over_mesh`` splits and pads it (``runtime.block``'s equal
+    blocks of the length padded to a multiple; each block's own
+    ``ordered_topk`` of its valid part, padded to k with index -1 and its
+    indices made global): index for index, and bit for bit in value, the
+    reference's ``lax.top_k`` of the whole vector, on ±0, ±NaN, ±inf and
+    ties, in float32 and in bfloat16 built from the same bits."""
+    from repro_torch.topk import merge_topk
+    rng = np.random.default_rng(100 + n_blocks)
+    for _ in range(12):
+        n = int(rng.integers(1, 61))
+        k = int(rng.integers(1, n + 1))
+        bits = _merge_draw(rng, n, dtype)
+        want_v, want_i = jax.lax.top_k(_as_jax(bits, dtype), k)
+        x = _as_torch(bits, dtype)
+        per = -(-n // n_blocks)
+        vals, idxs = [], []
+        for b in range(n_blocks):
+            start = b * per
+            valid = max(0, min(per, n - start))
+            v, i = ordered_topk(x[start:start + valid], min(k, valid))
+            pad = k - v.shape[-1]
+            vals.append(torch.nn.functional.pad(v, (0, pad)))
+            idxs.append(torch.nn.functional.pad(i + start, (0, pad),
+                                                value=-1))
+        got_v, got_i = merge_topk(torch.cat(vals), torch.cat(idxs), k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        want_bits = np.asarray(want_v).view(
+            np.uint32 if dtype == "float32" else np.uint16)
+        np.testing.assert_array_equal(_bits(got_v), want_bits)
