@@ -121,20 +121,22 @@ Phases, each printing its lines; any failure exits nonzero:
      gradient leaf (gathered) within TOL_LM leaf-scaled, then
      ``launch/train.py --mesh 2x2`` for 2 steps in 2 micro-batches with a
      checkpoint every step (cut from 6 and 3 for the call's time; losses
-     within TOL_LM of phase 9's first 2), the checkpoint file equal to
-     the mesh's parameters and a resume on one card (the mesh's
-     checkpoint restored bit for bit); (b) DIN at published widths and
+     within TOL_LM of phase 9's first 2), the mesh's checkpoint restored
+     by one device bit for bit, and a resume on the mesh (each rank's
+     part restored, the whole bit for bit); (b) DIN at published widths and
      vocabularies, B=4,096, and (c) DIEN, MIND and two-tower at phase 4's
      widths (tables cut to 2^16 rows), B=1,024: loss and dense gradients
      within TOL_MODEL leaf-scaled, each table's rows with a gradient the
      same rows and within TOL_MODEL, B2 / B3 / B4 launched on every rank
      and every rank's calls replayed against their plain versions; (d)
      SchNet at published widths on three shapes, loss and gradients
-     within TOL_MODEL, 5 AdamW steps; (e) ``run_cell`` on the mesh for
+     within TOL_MODEL, 5 AdamW steps (the parameters within TOL_LM, each
+     leaf's update within 1% of its largest), every rank's losses and
+     parameters the same bits; (e) ``run_cell`` on the mesh for
      smollm-135m x train_4k (must not fit a rank's share), din x
-     train_batch (B2 and one grouped B3 a step on every rank, replayed),
-     SchNet's minibatch_lg and ogb_products (must not fit), 1 timed step
-     a cell (SchNet's other two shapes cut: (d) holds them);
+     train_batch (B2 and one grouped B3 a step on every rank, replayed)
+     and SchNet's ogb_products (must not fit), 1 timed step a cell
+     (SchNet's other three shapes cut: (d) holds them);
  14. the kernel table as one JSON line (launches from phase 6, and from
      phase 7 for flash_decode; ``backward_ms`` from phase 9;
      ``mesh_launches`` from phase 11 (a) and (b), and for flash_decode
@@ -3270,10 +3272,11 @@ LM_MESH13_STEPS, LM_MESH13_EVERY = 2, 1
 #: (e)'s timed steps a cell (after one warm-up step)
 CELL13_STEPS = 1
 #: (e): the cells run on the mesh, with the kernels each rank must launch
-#: (SchNet's molecule and full_graph_sm cut: (d) holds both on the mesh)
+#: (SchNet's molecule, full_graph_sm and minibatch_lg cut: (d) holds them
+#: on the mesh)
 CELL13 = (("smollm-135m", "train_4k", ()),
           ("din", "train_batch", ("embedding_bag", "din_attention")),
-          ("schnet", "minibatch_lg", ()), ("schnet", "ogb_products", ()))
+          ("schnet", "ogb_products", ()))
 #: (b)/(c): each model's kernel launches per rank in one loss and gradient
 REC13_LAUNCHES = {"din": {"embedding_bag": 1, "din_attention": 1},
                   "dien": {"embedding_bag": 1, "augru": 1},
@@ -3332,9 +3335,9 @@ def _table_rows(grads: dict, start: dict) -> dict:
 def rec_grads13(params, batch, cfg, module, pspecs):
     """A rank of phase 13 (b)/(c): the recsys ``loss_fn``'s loss and
     gradient on the rank's rows and batch block, summed by the rule for
-    gradients (``reduce_grads``): the dense leaves (rank 0 only) and each
-    split table's rows with a gradient, by global row id (every rank its
-    own)."""
+    gradients (``reduce_grads``): the dense leaves, whole on every rank,
+    and each split table's rows with a gradient, by global row id (every
+    rank its own)."""
     from repro_torch import runtime
     from repro_torch.train.train_step import reduce_grads, value_and_grad
     mod = importlib.import_module(module)
@@ -3350,8 +3353,45 @@ def rec_grads13(params, batch, cfg, module, pspecs):
                             else v if mesh.rank == 0 else v[:0])
                         for k, v in g["tables"].items()}, start)
     dense = {k: v for k, v in g.items() if k != "tables"}
-    return {"loss": float(loss), "rows": rows,
-            "dense": dense if mesh.rank == 0 else None}
+    return {"loss": float(loss), "rows": rows, "dense": dense}
+
+
+def lm_grads13(params, tokens, cfg, pspecs):
+    """A rank of phase 13 (a): smollm-135m's loss and gradient on the
+    rank's parts and batch block, summed by the rule for gradients
+    (``reduce_grads``) and gathered whole (rank 0 keeps it)."""
+    from repro_torch import runtime
+    from repro_torch.launch import sharding
+    from repro_torch.models import transformer
+    from repro_torch.train.train_step import reduce_grads, value_and_grad
+    mesh = runtime.current_mesh()
+    loss, g = value_and_grad(lambda p, t: transformer.lm_loss(p, t, cfg),
+                             params, tokens)
+    g = sharding.gather_tree(reduce_grads(g, params, pspecs), pspecs, mesh)
+    return {"loss": float(loss), "grads": g if mesh.rank == 0 else None}
+
+
+def schnet_steps13(params, batch, cfg, n_graphs, pspecs):
+    """A rank of phase 13 (d): SchNet's loss and gradient with the edges
+    split over the mesh, then SCHNET_STEPS AdamW steps on the same batch
+    (the graph is no batch split: ``batch_axes=()``). Every rank returns
+    its own replicated parameters, which must be the same bits on every
+    rank."""
+    from repro_torch.models import schnet
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import build_train_step, value_and_grad
+
+    def loss_fn(p, b):
+        return schnet.batch_loss(p, b, cfg, n_graphs=n_graphs)
+    loss, grads = value_and_grad(loss_fn, params, batch)
+    step, init = build_train_step(loss_fn, optimizer.adamw(),
+                                  param_specs=pspecs, batch_axes=())
+    state, losses = init(params), []
+    for _ in range(SCHNET_STEPS):
+        params, state, l = step(params, state, batch)
+        losses.append(float(l))
+    return {"loss": float(loss), "grads": grads, "losses": losses,
+            "params": params}
 
 
 def train_whole_run(out_dir: str) -> int:
@@ -3466,6 +3506,30 @@ def _held13(label, got, want, tol) -> float:
     return worst
 
 
+def _update_held13(label, got, old, want, grads, frac=1e-2) -> float:
+    """The update ``got - old`` against the whole run's ``want - old``,
+    leaf by leaf, on the elements whose whole-run gradient is at least
+    1e-3 of the leaf's largest (AdamW moves them by about lr a step,
+    whatever their size): within ``frac`` of the leaf's largest update,
+    so that a step skipped, or applied on part of a leaf, fails."""
+    import torch
+    worst = 0.0
+    for i, (g, o, w, gr) in enumerate(zip(got, old, want, grads)):
+        g, o, w, gr = (torch.as_tensor(t).float() for t in (g, o, w, gr))
+        if not float(gr.abs().max()) > 0:
+            continue
+        big = gr.abs() >= 1e-3 * float(gr.abs().max())
+        du, dw = (g - o)[big], (w - o)[big]
+        room = frac * float(dw.abs().max())
+        err = float((du - dw).abs().max())
+        check(room > 0 and err <= room, f"{label} leaf {i}: update off by "
+              f"{err} (room {room})")
+        worst = max(worst, err / room)
+    say13(f"[13] {label}: every leaf's update within {frac:g} of its "
+          f"largest (allowance used {worst:.3f}) ok")
+    return worst
+
+
 def _coll_line(rows: dict) -> str:
     """Collectives by kind (forward, ``/bwd``, ``/recompute``) with calls
     and output bytes."""
@@ -3484,9 +3548,10 @@ def train_mesh_run(card: str, lm_losses) -> dict:
     published widths and vocabularies, B=4,096; (c) DIEN, MIND and
     two-tower at phase 4's widths (tables 2^16), B=1,024; (d) SchNet at
     published widths on three shapes, loss, gradients and 5 ZeRO-free
-    AdamW steps. Then ``launch/train.py --mesh 2x2`` for smollm-135m
-    (LM_MESH13_STEPS steps, a checkpoint every LM_MESH13_EVERY, then a
-    resume) and (e) ``run_cell`` on the mesh. Returns the kernels' launches over (b), (c) and (e)'s DIN
+    AdamW steps, every rank's losses and parameters the same bits. Then
+    ``launch/train.py --mesh 2x2`` for smollm-135m (LM_MESH13_STEPS
+    steps, a checkpoint every LM_MESH13_EVERY, then a resume on the
+    mesh) and (e) ``run_cell`` on the mesh. Returns the kernels' launches over (b), (c) and (e)'s DIN
     cell, all ranks."""
     import argparse
     import numpy as np
@@ -3523,12 +3588,10 @@ def train_mesh_run(card: str, lm_losses) -> dict:
                             device=torch.device("meta"))
     pspecs = sharding.lm_param_specs(meta, cfg, am)
     jobs = {"lm": Job(
-        "repro_torch.train.train_step:steps_on_mesh",
+        "chip_smoke:lm_grads13",
         ModelDraw("repro_torch.models.transformer", cfg, 0), None,
-        ([_lm13_first_batch()],), ([P("data", None)],),
-        {"loss": "repro_torch.models.transformer:lm_loss", "cfg": cfg,
-         "pspecs": pspecs, "zspecs": sharding.zero_specs(meta, pspecs, am),
-         "steps": False, "every_rank": False})}
+        (_lm13_first_batch(),), (P("data", None),),
+        {"cfg": cfg, "pspecs": pspecs})}
     for name, module, rcfg, n in _rec13_cases():
         path = f"repro_torch.models.recsys.{module}"
         rmeta = importlib.import_module(path).init(
@@ -3554,12 +3617,8 @@ def train_mesh_run(card: str, lm_losses) -> dict:
                             if k.startswith("in/")}, "targets": w["targets"]}
         gspecs = sharding.gnn_param_specs(tmpl, gcfg, am)
         jobs[f"schnet/{shape}"] = Job(
-            "repro_torch.train.train_step:steps_on_mesh", params, gspecs,
-            ([batch] * SCHNET_STEPS,), (None,),
-            {"loss": "repro_torch.models.schnet:batch_loss", "cfg": gcfg,
-             "pspecs": gspecs, "zspecs": gspecs, "batch_axes": (),
-             "loss_kwargs": {"n_graphs": len(w["targets"])},
-             "every_rank": False})
+            "chip_smoke:schnet_steps13", params, gspecs, (batch,), (None,),
+            {"cfg": gcfg, "n_graphs": len(w["targets"]), "pspecs": gspecs})
     t0 = time.perf_counter()
     ranks = run_jobs(list(jobs.values()), MESH_SHAPE, MESH_AXES,
                      device="cuda", timeout=900)
@@ -3596,6 +3655,14 @@ def train_mesh_run(card: str, lm_losses) -> dict:
             for k, v in rank["launches"].items():
                 launches[k] = launches.get(k, 0) + v
         dense = ranks_[0]["out"]["dense"]
+        # the replicated dense leaves' gradient: the same bits on every rank
+        for r, rank in enumerate(ranks_[1:], 1):
+            check(rank["out"]["loss"] == ranks_[0]["out"]["loss"] and all(
+                np.array_equal(a, b) for a, b in zip(
+                    tree_lib.leaves(rank["out"]["dense"]),
+                    tree_lib.leaves(dense))),
+                f"{name} rank {r}: loss or dense gradient differs from "
+                f"rank 0's")
         names = ["dense/" + tree_lib.path_name(p)
                  for p, _ in tree_lib.flatten_with_paths(dense)]
         _held13(f"{name} B={n} dense gradient", tree_lib.leaves(dense),
@@ -3616,6 +3683,8 @@ def train_mesh_run(card: str, lm_losses) -> dict:
             diff = float(np.abs(vals[order] - w[f"rows/{table}/vals"]).max(
                 initial=0.0))
             worst = max(worst, diff)
+        say13(f"[13] {name}: the 4 ranks' loss and dense gradient bit for "
+              f"bit the same")
         say13(f"[13] {name} table rows with a gradient: max_abs_diff vs the "
               f"whole run {worst:.3e} ({'bit for bit' if worst == 0 else 'not bit for bit'})")
         check(worst <= TOL_MODEL, f"{name}: table-row gradient off by {worst}")
@@ -3626,20 +3695,41 @@ def train_mesh_run(card: str, lm_losses) -> dict:
     # (d) SchNet
     for shape in SCHNET_SHAPES:
         w = whole[f"schnet_{shape}"]
-        got = out[f"schnet/{shape}"][0]["out"]
-        for r, rank in enumerate(out[f"schnet/{shape}"]):
-            # leaf-scaled as phase 10 holds SchNet's loss card vs CPU: at
-            # minibatch_lg the loss is ~3e8 and float32 sums in another
-            # order (the shards' partials, CUDA's atomic index_add) part
-            # by ~2e-5 of it
-            _held13(f"schnet {shape} rank {r} loss",
-                    [torch.tensor([rank["out"]["loss"]])],
-                    [torch.tensor([float(w["loss"])])], TOL_MODEL)
+        ranks_ = [rk["out"] for rk in out[f"schnet/{shape}"]]
+        got = ranks_[0]
+        # every rank computes the same loss and holds the same replicated
+        # parameters, bit for bit, after every step
+        for r, rank in enumerate(ranks_[1:], 1):
+            check([rank["loss"]] + rank["losses"]
+                  == [got["loss"]] + got["losses"],
+                  f"schnet {shape} rank {r}: losses {rank['losses']} vs "
+                  f"rank 0's {got['losses']}")
+            check(all(np.array_equal(a, b) for a, b in zip(
+                tree_lib.leaves(rank["params"]),
+                tree_lib.leaves(got["params"]))),
+                f"schnet {shape} rank {r}: parameters after "
+                f"{SCHNET_STEPS} steps differ from rank 0's")
+        say13(f"[13d] schnet {shape}: the 4 ranks' losses "
+              f"{[got['loss']] + got['losses']} and parameters after "
+              f"{SCHNET_STEPS} AdamW steps bit for bit the same")
+        # the loss leaf-scaled, as phase 10 holds SchNet's loss card vs
+        # CPU: at minibatch_lg it is ~3e8, a square of per-graph sums of
+        # ~1e5 atoms in float32, whose order differs from the run whole's
+        # (2.2e-5 of it, the same on every rank, on the H100)
+        _held13(f"schnet {shape} loss", [torch.tensor([got["loss"]])],
+                [torch.tensor([float(w["loss"])])], TOL_MODEL)
+        say13(f"[13d] schnet {shape} loss {got['loss']!r} vs the whole run's "
+              f"{float(w['loss'])!r}: off by "
+              f"{abs(got['loss'] - float(w['loss'])) / abs(float(w['loss'])):.3e}"
+              f" of it")
         _held13(f"schnet {shape} gradient", tree_lib.leaves(got["grads"]),
                 _numbered(w, "grad"), TOL_MODEL)
         _held13(f"schnet {shape} params after {SCHNET_STEPS} AdamW steps",
                 tree_lib.leaves(got["params"]), _numbered(w, "param"),
                 TOL_LM)
+        _update_held13(f"schnet {shape} update over {SCHNET_STEPS} steps",
+                       tree_lib.leaves(got["params"]), _numbered(w, "param0"),
+                       _numbered(w, "param"), _numbered(w, "grad"))
         _rank_lines13(f"schnet {shape}", out[f"schnet/{shape}"])
     del out, ranks, whole
 
@@ -3667,24 +3757,26 @@ def train_mesh_run(card: str, lm_losses) -> dict:
         say13(f"[13a] slowest rank {max(r['ms_per_step'] for r in fig['ranks']):.1f} "
               f"ms/step (4 ranks sharing one card over gloo; phase 9's "
               f"whole run is the one-card figure)")
+        # the mesh's checkpoint restored by one device
         saved, _ = checkpoint.restore(fig["latest"], fig["params"])
         same = all(torch.equal(a, b) for a, b in zip(
             tree_lib.leaves(saved), tree_lib.leaves(fig["params"])))
-        check(same, "the saved checkpoint differs from the mesh's params")
+        check(same, "the mesh's checkpoint restored by one device differs "
+              "from the mesh's params")
         del saved
-        # the resume on one card: the mesh's checkpoint restored by one
-        # device (a mesh resume is held bit for bit on the CPU,
-        # tests/test_torch_mesh_train.py)
-        again = train(args(LM_RESUME_STEPS, mesh=None), device="cuda")
+        # the resume on the mesh: each rank restores its part
+        # (``restore(..., shardings=)``) and trains on
+        t0 = time.perf_counter()
+        again = train(args(LM_RESUME_STEPS), device="cuda")
         check(again["start_step"] == LM_MESH13_STEPS,
               f"resume started at {again['start_step']}")
         same = all(torch.equal(a.cpu(), b) for a, b in zip(
             tree_lib.leaves(again["restored"]), tree_lib.leaves(fig["params"])))
-        check(same, "the mesh's checkpoint restored on one card differs "
-              "from the mesh's parameters")
-        say13(f"[13a] resume on one card: restore {again['restore_s']} s, "
-              f"the mesh's checkpoint restored bit for bit; resumed loss "
-              f"{again['losses']}")
+        check(same, "the parameters the mesh resumed from differ from the "
+              "mesh's parameters")
+        say13(f"[13a] resume on the mesh in {time.perf_counter() - t0:.1f} s: "
+              f"restore {again['restore_s']} s, the checkpoint restored bit "
+              f"for bit; resumed loss {again['losses']}")
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     gc.collect()

@@ -294,7 +294,7 @@ class CellDraw:
 class Job:
     """One SPMD call from whole inputs: ``fn`` ("module:function") called
     as ``fn(params, *args, **kwargs)`` with ``params`` split by ``pspecs``
-    (``sharding.shard_params``: row-split leaves become ``RowShard``s) or
+    (``sharding.shard_params``: split lookup tables become ``RowShard``s) or
     a :class:`ModelDraw` each rank draws, and ``args`` split by ``specs``
     (``sharding.local_tree``); or, with a :class:`CellDraw` as ``params``,
     the cell's call (``fn`` unused). The output is gathered whole by

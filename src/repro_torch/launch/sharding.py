@@ -17,8 +17,9 @@ The rules read only ``mesh.shape`` (an abstract mesh will do) and return
 the port's own :class:`P`. The reference's ``to_named`` has two
 counterparts on a live mesh: :func:`local_part` takes the rank's part of a
 whole tensor by its spec, :func:`gather_full` puts the whole back
-together; :func:`shard_params` makes row-split parameters
-``runtime.RowShard``s, which carry their global row count.
+together; :func:`shard_params` makes the lookup tables' row-split
+parameters (:class:`Table` specs) ``runtime.RowShard``s, which carry
+their global row count.
 """
 from __future__ import annotations
 
@@ -44,6 +45,12 @@ class P(tuple):
 
     def __repr__(self):
         return f"P{tuple.__repr__(self)}"
+
+
+class Table(P):
+    """The spec of a lookup table whose rows split (a recsys table, the
+    LM's embedding): :func:`shard_params` makes its leaf a
+    ``runtime.RowShard``, the form the sparse lookups read."""
 
 
 def _names(path) -> list[str]:
@@ -77,7 +84,7 @@ def _lm_leaf_spec(names: list[str], leaf, cfg: LMConfig, mesh) -> P:
         return P(*(pre + s))
 
     if "embed" in names:
-        return P("model", None) if _divides(cfg.vocab, mesh, "model") else P(None, None)
+        return Table("model", None) if _divides(cfg.vocab, mesh, "model") else P(None, None)
     if "lm_head" in names:
         return P(None, "model") if _divides(cfg.vocab, mesh, "model") else P(None, None)
     if name in ("scale", "bias"):          # norms (incl. q_norm/k_norm/kv_norm)
@@ -131,7 +138,7 @@ def table_axes(rows: int, mesh):
 def recsys_param_specs(params_shape: Any, cfg: RecsysConfig, mesh):
     def leaf_spec(names, leaf):
         if "tables" in names and leaf.ndim == 2 and table_axes(leaf.shape[0], mesh):
-            return P(("data", "model"), None)
+            return Table(("data", "model"), None)
         return P(*(None,) * leaf.ndim)
     return _map_with_names(leaf_spec, params_shape)
 
@@ -298,32 +305,19 @@ def gather_full(tensor, spec: P, mesh) -> torch.Tensor:
     return tensor.contiguous()
 
 
-def _row_split(spec) -> tuple:
-    """The axes of a spec that splits dim 0 only, else ()."""
-    if not isinstance(spec, P) or not spec or spec[0] is None:
-        return ()
-    if any(e is not None for e in spec[1:]):
-        return ()
-    return entry_axes(spec[0])
-
-
 def shard_params(params, pspecs, mesh):
-    """The rank's parameters: a table (a 2-D leaf) whose spec splits its
-    rows only becomes a ``runtime.RowShard`` (its local rows, the global
-    row count, the axes), which the lookups read, unless it is a weight
-    of an unstacked transformer block (the LM's MTP ``block``: its
-    row-parallel ``wo`` / ``w2`` split dim 0 only and feed products);
-    every other leaf its :func:`local_part`."""
+    """The rank's parameters: a :class:`Table` leaf whose rows split over
+    more than one rank becomes a ``runtime.RowShard`` (its local rows, the
+    global row count, the axes); every other leaf its :func:`local_part`."""
     if params is None:
         return None
-    tables = iter("block" not in _names(path)
-                  for path, _ in tree_lib.flatten_with_paths(params))
 
     def one(leaf, spec):
-        axes = _row_split(spec) if next(tables) and leaf.dim() == 2 else ()
-        if axes and flat_index(mesh, axes)[1] > 1:
-            return runtime.RowShard(local_part(leaf, spec, mesh),
-                                    leaf.shape[0], axes)
+        if isinstance(spec, Table):
+            axes = entry_axes(spec[0])
+            if flat_index(mesh, axes)[1] > 1:
+                return runtime.RowShard(local_part(leaf, spec, mesh),
+                                        leaf.shape[0], axes)
         return local_part(leaf, spec, mesh) if isinstance(spec, P) else leaf
     return tree_lib.tree_map(one, params, pspecs)
 

@@ -28,11 +28,19 @@ holds the graph whole and takes its block, the tail padded with
 sentinel edges), each rank computes the filter ``w`` and the messages of
 its edges, and the partial node sums are summed over ("data", "model")
 (one all_reduce an interaction, where XLA's partitioner inserts one).
-The node-wise layers and the readout stay replicated. In training the
-filter weights and the node features the edges gather enter the edge
-split (``runtime.enter``), so their gradients are summed over it; the
-graph is not a batch split over ranks, so the train step sums no
-gradient over the data axes (``batch_axes=()``).
+The node-wise layers stay replicated. In training the filter weights and
+the node features the edges gather enter the edge split
+(``runtime.enter``), so their gradients are summed over it; the graph is
+not a batch split over ranks, so the train step sums no gradient over the
+data axes (``batch_axes=()``).
+
+Every rank must then hold the same bits in every replicated value, or
+the ranks' losses part and the replicated parameters drift apart step by
+step. CUDA's ``index_add`` sums in no fixed order, so no rank sums a
+replicated whole with it: the readout's per-graph sums and the
+atom-type embedding's lookup (whose gradient is an ``index_add``) split
+their rows over the edge axes too, each rank's partial summed by one
+collective, whose result is the same on every rank.
 """
 from __future__ import annotations
 
@@ -158,6 +166,30 @@ def _edge_block(edges, dist, n_nodes: int):
     return edges[start:start + per], dist[start:start + per]
 
 
+def _take_rows(table, ids):
+    """``take_clip(table, ids)``, replicated. On a mesh each rank gathers
+    its block of ``ids`` from the table entering the edge split, and the
+    blocks are all-gathered: the table's gradient is each rank's partial
+    ``index_add``, summed by ``enter``'s all_reduce."""
+    if not _split_edges():
+        return take_clip(table, ids)
+    rows = take_clip(runtime.enter(table, EDGE_AXES),
+                     runtime.shard(ids, EDGE_AXES))
+    return runtime.gather_rows(rows, EDGE_AXES, ids.shape[0])
+
+
+def _readout(atom_e, graph_ids, n_graphs: int):
+    """``segment_sum(atom_e, graph_ids, n_graphs)``, replicated. On a mesh
+    each rank sums its block of the atoms (the padded tail adds zeros to
+    graph 0) and the partial sums are summed over the edge axes."""
+    if not _split_edges():
+        return segment_sum(atom_e, graph_ids, n_graphs)
+    part = segment_sum(runtime.shard(runtime.enter(atom_e, EDGE_AXES),
+                                     EDGE_AXES),
+                       runtime.shard(graph_ids, EDGE_AXES), n_graphs)
+    return runtime.all_reduce(part, EDGE_AXES)
+
+
 def _interaction(p, x, edges, edge_dist, n_nodes, cfg: GNNConfig):
     """One cfconv + atom-wise update. x (N+1, h) with sentinel row N. On
     a mesh ``edges`` / ``edge_dist`` are the rank's block
@@ -197,7 +229,7 @@ def forward(params, inputs: dict, cfg: GNNConfig, n_graphs: int = 1):
         dist = inputs["edge_dist"]
     else:
         z = inputs["atom_z"]
-        x = take_clip(params["embed"], z)
+        x = _take_rows(params["embed"], z)
         n_nodes = z.shape[0]
         pos = inputs["positions"]
         d = take_clip(pos, edges[:, 0]) - take_clip(pos, edges[:, 1])
@@ -220,7 +252,7 @@ def forward(params, inputs: dict, cfg: GNNConfig, n_graphs: int = 1):
     graph_ids = inputs.get("graph_ids")
     if graph_ids is None:
         return torch.sum(atom_e)[None]
-    return segment_sum(atom_e, graph_ids, n_graphs)
+    return _readout(atom_e, graph_ids, n_graphs)
 
 
 def loss_fn(params, inputs: dict, targets, cfg: GNNConfig,

@@ -176,57 +176,3 @@ def reduce_grads(grads, params, param_specs, batch_axes=None):
                     param_specs)
     return tree_map(lambda g, pl: pl.reduce(g), grads, plan)
 
-
-def _optimizer(name: str, kwargs: dict):
-    from repro_torch.train import optimizer
-    if name == "recsys":
-        return optimizer.for_family("recsys")
-    return getattr(optimizer, name)(**kwargs)
-
-
-def steps_on_mesh(params, batches, loss: str, cfg, pspecs, zspecs,
-                  opt=("adamw", {}), n_micro: int = 1, batch_axes=None,
-                  loss_kwargs=None, steps: bool = True,
-                  every_rank: bool = True) -> dict:
-    """A rank's run of training steps on the installed mesh, for the tests
-    and ``chip_smoke.py`` (a ``launch.mesh.Job``: ``params`` the rank's
-    parts by ``pspecs``, each of ``batches`` its block): the first
-    batch's loss and gradient (summed by :func:`reduce_grads`, gathered
-    whole), then one ZeRO-2 step (``zspecs``) per batch with ``opt``
-    ((factory name in ``train/optimizer.py``, its keywords), or
-    "recsys" for ``for_family("recsys")``; none without ``steps``);
-    returns {"loss", "grads", "losses", "params"} with the trees whole on
-    every rank (on rank 0 only, None elsewhere, without ``every_rank``).
-    ``loss`` is "module:function", called ``fn(params, batch, cfg,
-    **loss_kwargs)``."""
-    import importlib
-
-    from repro_torch.launch import sharding
-    module, name = loss.split(":")
-    fn = getattr(importlib.import_module(module), name)
-    kw = loss_kwargs or {}
-
-    def loss_fn(p, b):
-        return fn(p, b, cfg, **kw)
-    mesh = runtime.current_mesh()
-    keep = every_rank or mesh.rank == 0
-
-    def whole(tree):
-        tree = sharding.gather_tree(tree, pspecs, mesh)
-        return tree if keep else None
-    l0, g = value_and_grad(loss_fn, params, batches[0])
-    grads = whole(reduce_grads(g, params, pspecs, batch_axes))
-    del g
-    losses, new = [], None
-    if steps:
-        step, init = build_train_step(loss_fn, _optimizer(*opt),
-                                      n_micro=n_micro, grad_shardings=zspecs,
-                                      param_specs=pspecs,
-                                      batch_axes=batch_axes)
-        state = init(params)
-        for b in batches:
-            params, state, l = step(params, state, b)
-            losses.append(float(l))
-        new = whole(params)
-    return {"loss": float(l0), "grads": grads, "losses": losses,
-            "params": new}

@@ -207,19 +207,19 @@ def test_sharded_paths_refuse_a_mesh(rng):
     "model") for ``sharded_gather_a2a`` / ``sharded_embedding_bag_2d``,
     the ids the ranks' blocks."""
     from repro_torch.launch.mesh import Job, run_jobs
-    from repro_torch.launch.sharding import P
+    from repro_torch.launch.sharding import P, Table
     table = rng.normal(size=(32, 6)).astype(np.float32)
     ids = rng.integers(0, 32, (8, 3))
     w = rng.random((8, 3)).astype(np.float32)
     S, big = "repro_torch.sparse.sharded:", ("data", "model")
-    jobs = [Job(S + "sharded_lookup", table, P("model", None), (ids,),
+    jobs = [Job(S + "sharded_lookup", table, Table("model", None), (ids,),
                 (P("data", None),), out_specs=P("data", None, None)),
-            Job(S + "sharded_gather_a2a", table, P(big, None), (ids[:, 0],),
+            Job(S + "sharded_gather_a2a", table, Table(big, None), (ids[:, 0],),
                 (P(big),), out_specs=P(big, None)),
-            Job(S + "sharded_embedding_bag", table, P("model", None),
+            Job(S + "sharded_embedding_bag", table, Table("model", None),
                 (ids, w, "mean"), (P("data", None), P("data", None), None),
                 out_specs=P("data", None)),
-            Job(S + "sharded_embedding_bag_2d", table, P(big, None),
+            Job(S + "sharded_embedding_bag_2d", table, Table(big, None),
                 (ids, w, "mean"), (P("data", None), P("data", None), None),
                 out_specs=P("data", None))]
     tj, ij = jnp.asarray(table), jnp.asarray(ids.astype(np.int32))

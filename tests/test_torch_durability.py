@@ -254,13 +254,13 @@ def test_sharded_row_update_refuses_a_mesh(rng):
     them, none wraps into another shard's tail, and an id past the table
     is dropped."""
     from repro_torch.launch.mesh import Job, run_jobs
-    from repro_torch.launch.sharding import P
+    from repro_torch.launch.sharding import P, Table
     base = rng.standard_normal((32, DIM)).astype(np.float32)
     ids = np.array([0, 7, 8, 15, 16, 23, 24, 31, 40])
     rows = rng.standard_normal((ids.size, DIM)).astype(np.float32)
     want = np.asarray(jax_row_update(jax.numpy.asarray(base), ids, rows))
     job = Job("repro_torch.sparse.sharded:sharded_row_update", base,
-              P("model", None), (ids, rows), (None, None),
+              Table("model", None), (ids, rows), (None, None),
               out_specs=P("model", None))
     for rank in run_jobs([job], (1, 4), timeout=150):
         np.testing.assert_array_equal(rank[0]["out"], want)

@@ -215,7 +215,7 @@ def test_sharded_group_takes_single_ids_and_refuses_a_mesh(rng):
     the reference's ``embed_fields`` on one device, in one all_gather, one
     reduce_scatter and one all_reduce."""
     from repro_torch.launch.mesh import Job, run_jobs
-    from repro_torch.launch.sharding import P
+    from repro_torch.launch.sharding import P, Table
     table = torch.as_tensor(rng.normal(size=(10, 4)).astype(np.float32))
     ids = torch.as_tensor(rng.integers(0, 10, 6))
     got, = sharded.sharded_embedding_bag_group([(table, ids, None, "sum")])
@@ -232,7 +232,7 @@ def test_sharded_group_takes_single_ids_and_refuses_a_mesh(rng):
         {k: jnp.asarray(v.astype(np.int32)) for k, v in ids.items()}))
     big = ("data", "model")
     job = Job("repro_torch.models.recsys.common:embed_fields", tables,
-              {k: P(big, None) for k in tables},
+              {k: Table(big, None) for k in tables},
               (port_cfg.user_fields + port_cfg.item_fields, ids),
               (None, {k: P("data") if v.ndim == 1 else P("data", None)
                       for k, v in ids.items()}),

@@ -1280,11 +1280,11 @@ def test_mesh_paths_run_with_jax_and_reference_blocked():
         from repro_torch.models.recsys import din, dien, mind, towers
         from repro_torch.sparse import sharded
         from repro_torch.launch.mesh import Job, run_jobs, run_ranks
-        from repro_torch.launch.sharding import P
+        from repro_torch.launch.sharding import P, Table
         table = np.arange(32 * 4, dtype=np.float32).reshape(32, 4)
         ids = np.array([[0, 31], [8, 17]])
         job = Job("repro_torch.sparse.sharded:sharded_embedding_bag_2d",
-                  table, P(("data", "model"), None), (ids,),
+                  table, Table(("data", "model"), None), (ids,),
                   (P("data", None),), out_specs=P("data", None))
         ranks = run_jobs([job], (2, 1), timeout=120)
         assert all(np.array_equal(r[0]["out"], table[ids].sum(1))

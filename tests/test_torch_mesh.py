@@ -55,7 +55,7 @@ from repro_torch.configs import registry
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import dryrun, sharding, specs
 from repro_torch.launch.mesh import Job, abstract_mesh, run_jobs
-from repro_torch.launch.sharding import P
+from repro_torch.launch.sharding import P, Table
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC_MESHES = {"2x4": ((2, 4), ("data", "model")),
@@ -300,10 +300,10 @@ def ref_mesh_run(tmp_path_factory):
 def _sparse_jobs(data, g):
     """The sparse cases of one (data, model) mesh of ``g`` shards."""
     S = "repro_torch.sparse.sharded:"
-    table, rows_big = data["table"], P(BIG, None)
+    table, rows_big = data["table"], Table(BIG, None)
     over = data["over_2x2" if g == 4 else "over_2x4"]
     return {
-        "lookup": Job(S + "sharded_lookup", table, P("model", None),
+        "lookup": Job(S + "sharded_lookup", table, Table("model", None),
                       (data["ids2"],), (P("data", None),),
                       out_specs=P("data", None, None)),
         "a2a": Job(S + "sharded_gather_a2a", table, rows_big,
@@ -354,11 +354,11 @@ def mesh_1x4(ref_mesh_run):
     data, _ = ref_mesh_run
     S = "repro_torch.sparse.sharded:"
     jobs = {"row_update": Job(S + "sharded_row_update", data["base"],
-                              P("model", None),
+                              Table("model", None),
                               (data["up_ids"], data["up_rows"]), (None, None),
                               out_specs=P("model", None)),
             "lookup": Job(S + "sharded_lookup", data["table"],
-                          P("model", None), (data["ids2"],), (None,))}
+                          Table("model", None), (data["ids2"],), (None,))}
     ranks = run_jobs(list(jobs.values()), (1, 4), timeout=150)
     return {k: [r[i] for r in ranks] for i, k in enumerate(jobs)}
 

@@ -7,7 +7,7 @@ mesh serves every rank-side case):
     over ("data",), ("model",) and both axes of (2, 2) and (2, 4): every
     rank's gradient against the derivative of the same function run
     whole (every rank's part simulated in one process), exactly;
-  * the LM train step (``train_step.steps_on_mesh``: the first batch's
+  * the LM train step (the helper's ``steps_on_mesh``: the first batch's
     loss and gradient, summed by the rule for gradients and gathered, then
     one ZeRO-2 AdamW step, ``zero_specs`` at a minimum size of
     ``ZERO_MIN`` elements so that the reduced leaves do shard over
@@ -35,6 +35,11 @@ mesh serves every rank-side case):
     (2, 2), its edges split over both axes: loss and gradients against
     the reference's (2e-5, leaf-scaled), one ZeRO-2 AdamW step against
     one device;
+  * every rank's loss, gathered gradient and parameters after its steps
+    the same bits as every other rank's;
+  * the updates (new - old parameters) against one device's and the
+    reference's, where a hold of the parameters alone would pass a step
+    left out;
   * checkpoints: saved at (2, 2), restored on one device and at (2, 4);
     saved on one device, restored at (2, 2); saved at (2, 4), restored
     on one device: bit for bit;
@@ -163,6 +168,42 @@ def collective_grad(params, X, W, kind, axes):
     return {"loss": float(loss), "grad": grad}
 
 
+def steps_on_mesh(params, batches, loss, cfg, pspecs, zspecs,
+                  opt=("adamw", {}), n_micro=1, batch_axes=None,
+                  loss_kwargs=None):
+    """The first batch's loss and gradient (summed by ``reduce_grads``,
+    gathered whole), then one ZeRO-2 step (``zspecs``) per batch with
+    ``opt`` (a factory of ``train/optimizer.py`` and its keywords, or
+    "recsys" for ``for_family("recsys")``): {"loss", "grads", "losses",
+    "params"}, the trees whole on every rank. ``loss`` is
+    "module:function", called ``fn(params, batch, cfg, **loss_kwargs)``."""
+    import importlib
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import (build_train_step, reduce_grads,
+                                              value_and_grad)
+    module, name = loss.split(":")
+    fn = getattr(importlib.import_module(module), name)
+
+    def loss_fn(p, b):
+        return fn(p, b, cfg, **(loss_kwargs or {}))
+    mesh = runtime.current_mesh()
+    l0, g = value_and_grad(loss_fn, params, batches[0])
+    grads = sharding.gather_tree(reduce_grads(g, params, pspecs, batch_axes),
+                                 pspecs, mesh)
+    kind, kw = opt
+    o = (optimizer.for_family("recsys") if kind == "recsys"
+         else getattr(optimizer, kind)(**kw))
+    step, init = build_train_step(loss_fn, o, n_micro=n_micro,
+                                  grad_shardings=zspecs, param_specs=pspecs,
+                                  batch_axes=batch_axes)
+    state, losses = init(params), []
+    for b in batches:
+        params, state, l = step(params, state, b)
+        losses.append(float(l))
+    return {"loss": float(l0), "grads": grads, "losses": losses,
+            "params": sharding.gather_tree(params, pspecs, mesh)}
+
+
 def save_and_restore(params, pspecs, save_to=None, restore_from=None):
     """Save this rank's parameters (gathered; rank 0 writes) as gen_1 under
     ``save_to``; restore the newest generation under ``restore_from``
@@ -282,7 +323,7 @@ def _lm_case(arch_id, shape, opt=("adamw", {"lr": LR}), n_micro=1,
     pspecs = sharding.lm_param_specs(port, cfg, mesh)
     zspecs = sharding.zero_specs(port, pspecs, mesh, min_size=ZERO_MIN)
     batches = batches if batches is not None else [_tokens(arch_id)]
-    return Job("repro_torch.train.train_step:steps_on_mesh", weights, pspecs,
+    return Job("mesh_train_helper:steps_on_mesh", weights, pspecs,
                (batches,), ([P("data", None)] * len(batches),),
                {"loss": "repro_torch.models.transformer:lm_loss", "cfg": cfg,
                 "pspecs": pspecs, "zspecs": zspecs, "opt": opt,
@@ -307,7 +348,7 @@ def _rec_case(name):
     pspecs = sharding.recsys_param_specs(port, cfg, mesh)
     bspec = tree_lib.tree_map(
         lambda a: sharding.batched_spec(mesh, np.shape(a)), batch)
-    job = Job("repro_torch.train.train_step:steps_on_mesh", weights, pspecs,
+    job = Job("mesh_train_helper:steps_on_mesh", weights, pspecs,
               ([batch],), ([bspec],),
               {"loss": f"repro_torch.models.recsys.{RECSYS[name][1]}:loss_fn",
                "cfg": cfg, "pspecs": pspecs,
@@ -332,7 +373,7 @@ def _gnn_case(shape_name):
     port = params_from_numpy(weights, "cpu")
     mesh = abstract_mesh((2, 2), AXES)
     pspecs = sharding.gnn_param_specs(port, cfg, mesh)
-    job = Job("repro_torch.train.train_step:steps_on_mesh", weights, pspecs,
+    job = Job("mesh_train_helper:steps_on_mesh", weights, pspecs,
               ([batch],), (None,),
               {"loss": "repro_torch.models.schnet:batch_loss", "cfg": cfg,
                "pspecs": pspecs,
@@ -569,6 +610,32 @@ def _close(got, want, tol, leaf_scale=True, label=""):
                                    err_msg=f"{label} leaf {i}")
 
 
+def _update_close(got, old, want, grads, label="", frac=1e-2):
+    """The update ``got - old`` against ``want - old``, leaf by leaf, on
+    the elements whose gradient (``grads``) is at least 1e-3 of the
+    leaf's largest: within ``frac`` of the leaf's largest update there.
+    AdamW's first step moves each such element by about lr whatever its
+    gradient's size (a gradient near rounding may flip its sign, hence
+    the mask), so a step skipped, or applied on one ZeRO shard of a leaf,
+    fails here, where a hold of the parameters at TOL_LM (2e-3, twice
+    lr) passes."""
+    got, old, want, grads = ([a.astype(np.float32) for a in _leaves(t)]
+                             for t in (got, old, want, grads))
+    assert len(got) == len(old) == len(want) == len(grads)
+    held = 0
+    for i, (a, o, b, g) in enumerate(zip(got, old, want, grads)):
+        if not np.abs(g).max(initial=0) > 0:
+            continue
+        big = np.abs(g) >= 1e-3 * np.abs(g).max()
+        du, dw = (a - o)[big], (b - o)[big]
+        room = frac * float(np.abs(dw).max())
+        assert room > 0, f"{label} leaf {i}: the reference did not move"
+        np.testing.assert_allclose(du, dw, rtol=0, atol=room,
+                                   err_msg=f"{label} leaf {i} update")
+        held += 1
+    assert held, label
+
+
 def _ref_leaves(ref, key, what):
     n = sum(1 for k in ref if k.startswith(f"{key}/{what}/"))
     return [ref[f"{key}/{what}/{i}"] for i in range(n)]
@@ -624,6 +691,8 @@ def test_lm_mesh_step_equals_one_device(arch_id, mesh, mesh_runs):
         np.testing.assert_allclose(out["loss"], loss, **TOL_OPT)
         _close(out["grads"], grads, TOL_LM, label="grads")
         _close(out["params"], params, TOL_LM, label="params")
+        _update_close(out["params"], _lm_weights(arch_id), params, grads,
+                      label="params")
 
 
 @pytest.mark.parametrize("run", [r for r in REF_RUNS
@@ -643,6 +712,29 @@ def test_lm_mesh_step_equals_reference_mesh_step(run, mesh_runs, ref_runs):
                label="grads")
         _close(out["params"], _ref_leaves(ref_runs, key, "param"), TOL_LM,
                label="params")
+        _update_close(out["params"], _lm_weights(arch_id),
+                      _ref_leaves(ref_runs, key, "param"),
+                      _ref_leaves(ref_runs, key, "grad"), label="params")
+
+
+def test_update_hold_fails_a_skipped_or_one_shard_step():
+    """The update hold sees what a hold of the parameters at TOL_LM does
+    not: a step left out, and a step applied on the first half of each
+    leaf's dim 0 only (one data shard of a ZeRO-2 step), both fail it;
+    the one-device step itself passes."""
+    old = params_from_numpy(_lm_weights("smollm-135m"), "cpu")
+    _, grads, new, _ = _one_device_lm("smollm-135m", optimizer.adamw(lr=LR))
+    _update_close(new, old, new, grads)
+
+    def half(n, o):
+        out = o.clone()
+        if n.dim():
+            k = (n.shape[0] + 1) // 2
+            out[:k] = n[:k]
+        return out
+    for planted in (old, tree_lib.tree_map(half, new, old)):
+        with pytest.raises(AssertionError):
+            _update_close(planted, old, new, grads)
 
 
 def test_moe_mesh_step_without_aux_equals_one_device(mesh_runs):
@@ -708,11 +800,16 @@ def test_adafactor_on_a_mesh_equals_reference(mesh_runs, ref_runs):
     data) against the reference's Adafactor step on its mesh, and against
     the port's one-device Adafactor."""
     key = "qwen3-8b/2x4/adafactor"
-    _, _, params, _ = _one_device_lm("qwen3-8b", optimizer.adafactor())
+    _, grads, params, _ = _one_device_lm("qwen3-8b", optimizer.adafactor())
+    old = _lm_weights("qwen3-8b")
     for rank in mesh_runs["2x4"]["adafactor"]:
-        _close(rank["out"]["params"], _ref_leaves(ref_runs, key, "param"),
-               TOL_LM, label="params vs reference")
-        _close(rank["out"]["params"], params, TOL_LM, label="params")
+        got = rank["out"]["params"]
+        _close(got, _ref_leaves(ref_runs, key, "param"), TOL_LM,
+               label="params vs reference")
+        _close(got, params, TOL_LM, label="params")
+        _update_close(got, old, _ref_leaves(ref_runs, key, "param"), grads,
+                      label="update vs reference")
+        _update_close(got, old, params, grads, label="update")
 
 
 # ----------------------------------------------------------------- recsys
@@ -742,6 +839,7 @@ def test_recsys_mesh_step_equals_one_device(name, mesh_runs):
         np.testing.assert_allclose(out["loss"], float(loss), **TOL)
         _close(out["grads"], grads, TOL, label="grads")
         _close(out["params"], new, TOL_LM, label="params")
+        _update_close(out["params"], weights, new, grads, label="params")
     assert any(np.abs(g).max() > 0 for g in
                tree_lib.leaves(mesh_runs["2x2"][("rec", name)][0]["out"][
                    "grads"]["tables"]))
@@ -779,6 +877,33 @@ def test_schnet_edge_split_equals_reference(shape_name, mesh_runs):
         _close(out["grads"], [np.asarray(g) for g in
                               jax.tree.leaves(j_grads)], TOL, label="grads")
         _close(out["params"], new, TOL_LM, label="params")
+        _update_close(out["params"], weights, new, list(
+            jax.tree.leaves(j_grads)), label="params")
+
+
+#: every train-step job of the launches: (mesh, job key)
+RANK_RUNS = ([(m, ("lm", a)) for m in sorted(MESHES) for a in LM_ARCHS]
+             + [("2x2", ("rec", r)) for r in sorted(RECSYS)]
+             + [("2x2", ("gnn", g)) for g in GNN_SHAPES]
+             + [("2x2", "micro"), ("2x4", "moe_no_aux"), ("2x4", "adafactor")])
+
+
+@pytest.mark.parametrize("mesh,key", RANK_RUNS, ids=[
+    f"{m}-{k if isinstance(k, str) else '-'.join(k)}" for m, k in RANK_RUNS])
+def test_every_rank_ends_with_the_same_bits(mesh, key, mesh_runs):
+    """The rule for gradients made good: every rank computes the same
+    loss, gathers the same gradient and holds the same parameters after
+    its steps, bit for bit (its own replicated parts included). A value
+    a rank holds replicated but computes in another order than the
+    others (a sum by ``index_add``) would part the replicas step by
+    step."""
+    ranks = [r["out"] for r in mesh_runs[mesh][key]]
+    first = ranks[0]
+    for rank in ranks[1:]:
+        assert [rank["loss"]] + rank["losses"] == \
+            [first["loss"]] + first["losses"]
+        _bitwise(rank["grads"], first["grads"])
+        _bitwise(rank["params"], first["params"])
 
 
 # ------------------------------------------------------------ checkpoints
