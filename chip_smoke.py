@@ -137,7 +137,24 @@ Phases, each printing its lines; any failure exits nonzero:
      train_batch (B2 and one grouped B3 a step on every rank, replayed)
      and SchNet's ogb_products (must not fit), 1 timed step a cell
      (SchNet's other three shapes cut: (d) holds them);
- 14. the kernel table as one JSON line (launches from phase 6, and from
+ 14. the production-mesh dry run, in a process of its own started at the
+     call's start (CUDA hidden from it: the meta device needs no card)
+     and joined here: (a) ``launch/dryrun.py::dry_run_cell`` counts every
+     rank of the 2x2 cells that [11c], [12] and [13e] run live (din x
+     serve_p99, din x retrieval_cand, dien x serve_p99, smollm-135m and
+     deepseek-v2-lite-16b x long_500k, din x train_batch) on the meta
+     device, and each rank's dry count is held to its live record:
+     collectives by kind (calls, bytes), kernel calls, and flops and
+     bytes exactly outside the kernels whose dry cost is a bound (those
+     at least the live count, the excess printed), with the dry peak
+     against ``max_memory_allocated`` as a ratio; (b) ``python -m
+     repro_torch.launch.dryrun --production`` and ``--production
+     --multi-pod`` for din x serve_p99, schnet x molecule and
+     smollm-135m x decode_32k, each record ok, its argument bytes those
+     of ``arg_bytes_per_device``, with its GB a device, fit, flops,
+     collective traffic by kind and the roofline's modelled dominant
+     term;
+ 15. the kernel table as one JSON line (launches from phase 6, and from
      phase 7 for flash_decode; ``backward_ms`` from phase 9;
      ``mesh_launches`` from phase 11 (a) and (b), and for flash_decode
      from phase 12 (a), (d) and (f), over all ranks;
@@ -157,6 +174,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2731,6 +2749,7 @@ def mesh_cell_sweep(card: str):
     for arch, shape, kernels in MESH_SWEEP:
         rec = dryrun.run_cell(arch, shape, device="cuda", mesh=MESH_SHAPE,
                               check_kernels=True)
+        LIVE_RECORDS[(arch, shape)] = rec
         mem = rec.get("memory", {})
         say11(f"[11c] {arch} x {shape} on {rec['mesh']}@1xH100 (4 ranks "
               f"sharing one card over {rec['backend']}; {card}): ok "
@@ -3167,6 +3186,7 @@ def lm_mesh_run(card: str) -> int:
     for arch, shape, kernels in LM_MESH_CELLS:
         rec = dryrun.run_cell(arch, shape, device="cuda", mesh=MESH_SHAPE,
                               check_kernels=True)
+        LIVE_RECORDS[(arch, shape)] = rec
         mem = rec.get("memory", {})
         say12(f"[12] {arch} x {shape} on {rec['mesh']}@1xH100 (4 ranks "
               f"sharing one card over {rec['backend']}; {card}): ok "
@@ -3787,6 +3807,7 @@ def train_mesh_run(card: str, lm_losses) -> dict:
         rec = dryrun.run_cell(arch, shape, device="cuda", mesh=MESH_SHAPE,
                               check_kernels=bool(kernels),
                               steps=CELL13_STEPS, warmup=1)
+        LIVE_RECORDS[(arch, shape)] = rec
         mem = rec.get("memory", {})
         say13(f"[13e] {arch} x {shape} on {rec['mesh']}@1xH100 ({card}): ok "
               f"{rec['ok']}, fits a rank's share {mem.get('fits_per_rank')} "
@@ -3827,6 +3848,180 @@ def _rank_lines13(label, ranks_):
               f"collectives {_coll_line(rank['collectives'])}")
 
 
+# ----------------------------------------------------------------- phase 14
+
+#: (a): the 2x2 cells that [11c], [12] and [13e] run live on the card,
+#: counted again for all 4 ranks on the meta device (``dry_run_cell``)
+#: and held rank by rank to the live records
+DRY_MESH_CELLS = (("din", "serve_p99"), ("din", "retrieval_cand"),
+                  ("dien", "serve_p99"), ("smollm-135m", "long_500k"),
+                  ("deepseek-v2-lite-16b", "long_500k"),
+                  ("din", "train_batch"))
+#: (b): one cell a family by the CLI's ``--production`` and
+#: ``--production --multi-pod``
+DRY_PRODUCTION = (("din", "serve_p99"), ("schnet", "molecule"),
+                  ("smollm-135m", "decode_32k"))
+#: the live records of DRY_MESH_CELLS, kept by the phases that run them
+LIVE_RECORDS: dict = {}
+#: seconds [14] waits for its process at the end of the call
+DRY_JOIN_S = 300
+
+
+def dry_run(out_dir: str) -> int:
+    """Phase 14's meta-device work, in a process of its own that the call
+    starts first (CUDA hidden from it: it touches no card): (a)
+    ``dry_run_cell`` of every DRY_MESH_CELLS cell on the 2x2 mesh for
+    all 4 ranks, at published widths; (b) ``python -m
+    repro_torch.launch.dryrun --production [--multi-pod]`` for every
+    DRY_PRODUCTION cell. Records and ``times.json`` under ``out_dir``."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    sys.path.insert(0, src)
+    os.nice(10)                   # the phases on the card come first
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    times = {}
+    t0 = time.perf_counter()
+    for arch, shape in DRY_MESH_CELLS:
+        dryrun.dry_run_cell(arch, shape, out_dir=out_dir, mesh=MESH_SHAPE,
+                            ranks=range(4))
+    times["a"] = time.perf_counter() - t0
+    env = {**os.environ, "PYTHONPATH": src, "OMP_NUM_THREADS": "1"}
+    t0 = time.perf_counter()
+    for arch, shape in DRY_PRODUCTION:
+        for extra in ([], ["--multi-pod"]):
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--production", "--out", out_dir,
+                 *extra], capture_output=True, text=True, env=env,
+                timeout=600)
+            times[f"{arch}/{shape}{'/multi-pod' if extra else ''}"] = \
+                proc.returncode
+    times["b"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "times.json"), "w") as f:
+        json.dump(times, f)
+    return 0
+
+
+def start_dry(out_dir: str):
+    """:func:`dry_run` in a process of its own (``--dry``), its output to
+    a file in ``out_dir``."""
+    log = open(os.path.join(out_dir, "dry.log"), "w")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dry", out_dir],
+        stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def stop_dry(proc):
+    """Kill the dry process and the CLI runs it started (its session)."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _split_bounded(summary: dict, bounded) -> tuple:
+    """(flops, bytes) of a count outside the kernels in ``bounded``, and
+    those kernels' {name: (flops, bytes)}."""
+    kern = {k: (v["flops"], v["bytes"]) for k, v in
+            summary["kernels"].items() if k in bounded}
+    return (summary["flops_per_device"] - sum(f for f, _ in kern.values()),
+            summary["bytes_per_device"] - sum(b for _, b in kern.values()),
+            kern)
+
+
+def dry_check(proc, out_dir: str, card: str):
+    """Phase 14: join the dry process, then (a) hold every rank's dry count
+    of each DRY_MESH_CELLS cell to its live record: collectives by kind
+    (calls, bytes), kernel launches, flops and bytes exactly outside the
+    kernels whose dry cost is a bound (``bounded_kernel_counts``), those
+    at least the live count (the excess printed); the dry peak against
+    ``max_memory_allocated`` as a ratio; (b) every production record ok,
+    its argument bytes those of ``arg_bytes_per_device``, with its GB a
+    device, fit, flops and collective traffic by kind."""
+    from repro_torch.launch import roofline
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=DRY_JOIN_S)
+    except subprocess.TimeoutExpired:
+        stop_dry(proc)
+        rc = None
+    log = open(os.path.join(out_dir, "dry.log")).read()
+    check(rc == 0, f"the dry process exited {rc}:\n{log[-4000:]}")
+    times = json.load(open(os.path.join(out_dir, "times.json")))
+    print(f"[14] dry process (meta device, no card) joined after "
+          f"{time.perf_counter() - t0:.1f} s of waiting; (a) took "
+          f"{times['a']:.1f} s, (b) {times['b']:.1f} s", flush=True)
+
+    def load(arch, shape, mesh):
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{mesh}@meta.json")
+                  ) as f:
+            return json.load(f)
+
+    for arch, shape in DRY_MESH_CELLS:
+        dry = load(arch, shape, "2x2")
+        check(dry["ok"], f"[14a] {arch} x {shape} dry: {dry.get('error')}\n"
+              f"{dry.get('traceback', '')}")
+        live = LIVE_RECORDS[(arch, shape)]
+        bounded = set(dry["bounded_kernel_counts"])
+        for lr, dr in zip(live["ranks"], dry["ranks"]):
+            r, ops = lr["rank"], lr["ops"]
+            coll = {k: (v["calls"], v["bytes"])
+                    for k, v in dr["collectives_by_kind"].items()}
+            want = {k: (v["calls"], v["bytes"])
+                    for k, v in ops["collectives_by_kind"].items()}
+            check(coll == want, f"[14a] {arch} x {shape} rank {r}: dry "
+                  f"collectives {coll}, live {want}")
+            got = {k: v["launches"] for k, v in dr["kernels"].items()}
+            want = {k: v["launches"] for k, v in ops["kernels"].items()}
+            check(got == want, f"[14a] {arch} x {shape} rank {r}: dry "
+                  f"kernel calls {got}, live launches {want}")
+            df, db, dk = _split_bounded(dr, bounded)
+            lf, lb, lk = _split_bounded(ops, bounded)
+            check(df == lf and db == lb, f"[14a] {arch} x {shape} rank {r}: "
+                  f"outside the bounded kernels dry flops {df} bytes {db}, "
+                  f"live {lf} and {lb}")
+            excess = {}
+            for k, (f, b) in dk.items():
+                check(f >= lk[k][0] and b >= lk[k][1],
+                      f"[14a] {arch} x {shape} rank {r}: {k}'s bound "
+                      f"{(f, b)} below the live count {lk[k]}")
+                excess[k] = (f - lk[k][0], b - lk[k][1])
+            print(f"[14a] {arch} x {shape} rank {r}: dry = live ({card}): "
+                  f"{df:.6g} flops and {db:.6g} bytes outside the bounded "
+                  f"kernels, collectives (calls, bytes) {coll}, kernel calls "
+                  f"{got}; bounds' excess (flops, bytes) {excess}; dry peak "
+                  f"{dr['peak_bytes_per_device'] / 2**30:.3f} GiB / "
+                  f"max_memory_allocated "
+                  f"{lr['max_allocated_bytes'] / 2**30:.3f} GiB = "
+                  f"{dr['peak_bytes_per_device'] / lr['max_allocated_bytes']:.3f}"
+                  f"; dry count {dr['t_count_s']} s", flush=True)
+    for arch, shape in DRY_PRODUCTION:
+        for mesh in ("16x16", "2x16x16"):
+            rec = load(arch, shape, mesh)
+            check(rec["ok"], f"[14b] {arch} x {shape} on {mesh}: "
+                  f"{rec.get('error')}\n{rec.get('traceback', '')}")
+            mem = rec["memory"]
+            check(mem["argument_bytes_per_device"] ==
+                  rec["arg_bytes_per_device"],
+                  f"[14b] {arch} x {shape} on {mesh}: argument bytes "
+                  f"{mem['argument_bytes_per_device']} vs "
+                  f"arg_bytes_per_device {rec['arg_bytes_per_device']}")
+            row = roofline.analyze_row(rec)
+            coll = ", ".join(f"{k} {v['traffic_bytes']:.6g} B"
+                             for k, v in sorted(
+                                 rec["ops"]["collectives_by_kind"].items()))
+            print(f"[14b] {arch} x {shape} on {mesh} (counted on the meta "
+                  f"device, not timed): ranks {[x['rank'] for x in rec['ranks']]}, "
+                  f"{mem['peak_bytes_per_device'] / 1e9:.4g} GB a device, "
+                  f"fits_h100 {mem['fits_h100']}, "
+                  f"{rec['ops']['flops_per_device']:.6g} flops, collective "
+                  f"traffic {coll or 'none'}; modelled dominant "
+                  f"{row['dominant']}, modelled_frac "
+                  f"{row['modelled_frac']:.3f}; {rec['t_count_s']} s",
+                  flush=True)
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -3849,7 +4044,18 @@ def main() -> int:
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}, "
           f"capability {cap}", flush=True)
     check(cap == (9, 0), f"compute capability {cap}, expected (9, 0)")
+    # [14]'s meta-device work needs no card: it runs beside the rest
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    dry = start_dry(dry_dir)
+    try:
+        return _main(card, dry, dry_dir)
+    finally:
+        stop_dry(dry)
+        shutil.rmtree(dry_dir, ignore_errors=True)
 
+
+def _main(card: str, dry, dry_dir: str) -> int:
+    import torch
     from repro_torch import kernels as K
     t0 = time.perf_counter()
     lib = K.build()
@@ -3910,6 +4116,8 @@ def main() -> int:
         print(f"[13] done at {time.perf_counter() - t_run:.1f} s; kernel "
               f"launches over (b), (c) and (e), all ranks: "
               f"{train_launches}", flush=True)
+        dry_check(dry, dry_dir, card)
+        print(f"[14] done at {time.perf_counter() - t_run:.1f} s", flush=True)
     finally:
         tempfile.tempdir = None
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3940,6 +4148,8 @@ if __name__ == "__main__":
         sys.exit(lm_whole_run(sys.argv[2]))
     if sys.argv[1:2] == ["--train-whole"]:   # phase 13's whole runs
         sys.exit(train_whole_run(sys.argv[2]))
+    if sys.argv[1:2] == ["--dry"]:           # phase 14's meta-device work
+        sys.exit(dry_run(sys.argv[2]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -15,14 +15,25 @@ Dispatch is by tensor device only (:func:`on_cpu`):
   * tensors on a CUDA device launch the kernel. If the library cannot be
     built or loaded, or the device is not compute capability (9, 0), the
     wrapper raises. There is no override toward the plain version and no
-    fallback.
+    fallback;
+  * tensors on the ``meta`` device (a dry run: one rank's step counted
+    without a card, ``launch/dryrun.py::dry_run_cell``) take the kernel's
+    path as on the card: the wrapper runs its checks, so a shape the
+    kernel refuses is refused here too, and allocates its outputs on
+    ``meta``; :func:`launch` then launches nothing and counts nothing in
+    :data:`LAUNCHES`, and only hands the cost to active op counters
+    (:func:`dry_launch`).
 
-Every wrapper counts its launches in :data:`LAUNCHES` (one per launch,
-nowhere else), so a run can show that its path went through the kernels.
-A ctypes launch is invisible to PyTorch's dispatcher, so each wrapper
-also hands :func:`launch` its kernel's ``cost(...)`` (flops and bytes from
-the shapes, the formulas of the roofline bound): while an op counter
-(``launch/op_analysis.py``) is active, that cost is added to it.
+Mixed devices raise. Every wrapper counts its launches in
+:data:`LAUNCHES` (one per launch, nowhere else), so a run can show that
+its path went through the kernels. A ctypes launch is invisible to
+PyTorch's dispatcher, so each wrapper also hands :func:`launch` its
+kernel's ``cost(...)`` (flops and bytes from the shapes, the formulas of
+the roofline bound): while an op counter (``launch/op_analysis.py``) is
+active, that cost is added to it. Three costs read data on the host (a
+mask's non-zeros, the ids' distinct rows, the valid cache length); on
+``meta`` they take their bound instead, and the wrapper names it
+(``bound=``), so a counter can say which of its kernel counts are bounds.
 
 Checks on a path's own inputs: inside :func:`recording` every call of a
 wrapper is kept with its inputs and the plain version that takes the same
@@ -88,11 +99,6 @@ SIGNATURES = {
 LAUNCHES = {"embedding_bag": 0, "din_attention": 0, "rerank_score": 0,
             "augru": 0, "candidate_scorer": 0, "flash_decode": 0}
 _launch_lock = threading.Lock()
-#: the op counters (``launch/op_analysis.py``) active on each thread, each
-#: with an ``add_kernel(name, cost)`` method: a counter is a dispatch mode,
-#: which sees only its own thread's ops, so it takes only that thread's
-#: launches
-_cost_sinks = threading.local()
 _lib = None
 _lib_lock = threading.Lock()
 _checked_devices: set = set()
@@ -116,32 +122,35 @@ def launch_counts() -> dict:
         return dict(LAUNCHES)
 
 
-def _thread_sinks() -> list:
-    if not hasattr(_cost_sinks, "sinks"):
-        _cost_sinks.sinks = []
-    return _cost_sinks.sinks
-
-
-def add_cost_sink(sink):
-    _thread_sinks().append(sink)
-
-
-def remove_cost_sink(sink):
-    _thread_sinks().remove(sink)
+def _sinks() -> list:
+    """The op counters (``launch/op_analysis.py``) active here: the
+    dispatch modes on this thread's mode stack with an ``add_kernel(name,
+    cost, bound)`` method. A mode sees only its own thread's ops (and
+    those of the autograd threads a backward runs on, which inherit the
+    stack), so it takes only those launches."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return [m for m in _get_current_dispatch_mode_stack()
+            if hasattr(m, "add_kernel")]
 
 
 # ----------------------------------------------------------------- dispatch
 
 def on_cpu(*tensors) -> bool:
     """True when every given tensor lies on the CPU (→ plain version),
-    False when all lie on CUDA devices (→ kernel). Mixed or other devices
-    raise: they reach neither."""
+    False when all lie on CUDA devices (→ kernel) or all on ``meta`` (→
+    the kernel's path, dry: :func:`launch` launches nothing there). Mixed
+    or other devices raise: they reach neither."""
     devs = {t.device.type for t in tensors if t is not None}
     if devs == {"cpu"}:
         return True
-    if devs == {"cuda"}:
+    if devs in ({"cuda"}, {"meta"}):
         return False
     raise ValueError(f"kernel inputs on unsupported devices {sorted(devs)}")
+
+
+def is_dry(t: torch.Tensor) -> bool:
+    """True for a tensor on ``meta``: a cost reads its bound, not data."""
+    return t.device.type == "meta"
 
 
 def require(cond: bool, msg: str):
@@ -367,11 +376,17 @@ def kernel(name: str, device: torch.device):
     return getattr(library(), name)
 
 
-def launch(name: str, counter: str, device: torch.device, *args, cost):
+def launch(name: str, counter: str, device: torch.device, *args, cost,
+           bound=None):
     """Launch C entry point ``name`` on ``device``'s current stream, raise
     on a launch error, and count the launch under ``counter``. ``cost``
     (a callable returning the launch's (flops, bytes)) is called only
-    while an op counter is active, and its result added to each."""
+    while an op counter is active, and its result added to each. On
+    ``meta`` nothing launches: :func:`dry_launch` (``bound`` names what
+    the cost takes as its bound there, where it reads data on the card)."""
+    if device.type == "meta":
+        dry_launch(counter, cost, bound)
+        return
     fn = kernel(name, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -379,5 +394,14 @@ def launch(name: str, counter: str, device: torch.device, *args, cost):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     count_launch(counter)
-    for sink in list(_thread_sinks()):
+    for sink in _sinks():
         sink.add_kernel(counter, cost)
+
+
+def dry_launch(counter: str, cost, bound=None):
+    """A launch on the ``meta`` device: nothing runs and :data:`LAUNCHES`
+    is left as it is; ``cost`` is handed to the active op counters, as a
+    launch hands it, with ``bound`` (None where the cost reads only
+    shapes)."""
+    for sink in _sinks():
+        sink.add_kernel(counter, cost, bound)

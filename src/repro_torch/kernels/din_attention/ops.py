@@ -3,10 +3,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (launch, on_cpu, recorded, require,
+from repro_torch.kernels import (is_dry, launch, on_cpu, recorded, require,
                                  with_plain_gradient)
 from repro_torch.kernels.din_attention.ref import din_attention_ref
 
+#: what :func:`cost` takes on ``meta``, where it cannot read the mask
+BOUND = "the mask's non-zeros taken as B x T (every step active)"
 #: history steps per chunk (``kChunk`` in the source), the widths of the
 #: register tiles (``kMaxH1``, ``kMaxH2``) and the most blocks a row's
 #: cluster has (``kMaxCluster``)
@@ -47,7 +49,7 @@ def _launch(hist, mask, target, w1, b1, w2, b2, w3, b3):
         return out
     launch("din_attention_f32", "din_attention", hist.device,
            *(t.data_ptr() for t in args), out.data_ptr(), B, T, D, H1, H2,
-           cost=lambda: cost(*args))
+           cost=lambda: cost(*args), bound=BOUND)
     return out
 
 
@@ -55,11 +57,11 @@ def cost(hist, mask, target, w1, b1, w2, b2, w3, b3) -> tuple[int, int]:
     """(flops, bytes) of one call, the work its roofline bound counts:
     the first layer's target half once per row (the decomposed layer),
     the rest of the unit and the pooling for each unmasked step (the
-    mask's non-zeros, read on the host); bytes: each input read once, the
-    (B, D) output written once."""
+    mask's non-zeros, read on the host; on ``meta`` :data:`BOUND`);
+    bytes: each input read once, the (B, D) output written once."""
     B, T, D = hist.shape
     H1, H2 = w1.shape[1], w2.shape[1]
-    active = int((mask != 0).sum())
+    active = B * T if is_dry(mask) else int((mask != 0).sum())
     flops = (B * 2 * D * H1 + active * (4 * D * H1 + D + 2 * H1 * H2
                                         + 2 * H2 + 2 * D))
     nbytes = sum(t.numel() * t.element_size()

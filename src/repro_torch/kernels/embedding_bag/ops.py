@@ -7,7 +7,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import (launch, on_cpu, recorded, require,
+from repro_torch.kernels import (is_dry, launch, on_cpu, recorded, require,
                                  with_plain_gradient)
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_group_ref,
                                                    embedding_bag_ref)
@@ -18,6 +18,9 @@ _GROUP_ENTRY = {torch.float32: "embedding_bag_group_f32",
                 torch.bfloat16: "embedding_bag_group_bf16"}
 #: groups one grouped launch takes at most (``kMaxGroups`` in the source)
 MAX_GROUPS = 8
+#: what :func:`cost` takes on ``meta``, where it cannot read the ids
+BOUND = ("the ids' distinct rows taken as one a looked-up id, at most the "
+         "table's rows")
 
 
 @recorded("embedding_bag", embedding_bag_ref)
@@ -49,7 +52,7 @@ def _launch(table, ids, weights, combiner):
            table.data_ptr(), ids.data_ptr(),
            None if weights is None else weights.data_ptr(), out.data_ptr(),
            V, D, B, K, int(combiner == "mean"),
-           cost=lambda: cost([(table, ids, weights)]))
+           cost=lambda: cost([(table, ids, weights)]), bound=BOUND)
     return out
 
 
@@ -58,15 +61,18 @@ def cost(lookups) -> tuple[int, int]:
     weights, ...) per group, the work its roofline bound counts: a
     multiply-add per looked-up element; bytes: the ids and weights read
     once, each distinct row once (the ids' unique count, read on the
-    host), each bag's output row written once."""
+    host; on ``meta`` :data:`BOUND`), each bag's output row written
+    once."""
     flops = nbytes = 0
     for table, ids, weights, *_ in lookups:
         B, D = ids.shape[0], table.shape[1]
         row = D * table.element_size()
+        rows = (min(ids.numel(), table.shape[0]) if is_dry(ids)
+                else int(torch.unique(ids).numel()))
         nbytes += (ids.numel() * ids.element_size()
                    + (0 if weights is None
                       else weights.numel() * weights.element_size())
-                   + int(torch.unique(ids).numel()) * row + B * row)
+                   + rows * row + B * row)
         flops += 2 * ids.numel() * D
     return flops, nbytes
 
@@ -187,5 +193,6 @@ def _launch_group(lookups, places, size):
     desc.n, desc.D, desc.total = len(groups), D, bag0
     if bag0 and D:
         launch(_GROUP_ENTRY[dtype], "embedding_bag", device,
-               ctypes.addressof(desc), cost=lambda: cost(groups))
+               ctypes.addressof(desc), cost=lambda: cost(groups),
+               bound=BOUND)
     return buf

@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch import kernels as K
-from repro_torch.kernels import (launch, on_cpu, recorded, refuse_grad,
-                                 require)
+from repro_torch.kernels import (is_dry, launch, on_cpu, recorded,
+                                 refuse_grad, require)
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 #: cache rows of a split granule (``kTile`` in the source): each of a
@@ -39,6 +39,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: query heads per kv head the bf16 path takes (two 8-wide mma N tiles)
 MAX_GROUP_BF16 = 16
 _ENTRY = {torch.float32: "flash_decode_f32", torch.bfloat16: "flash_decode_bf16"}
+#: what the cost takes on ``meta``, where it cannot read cache_len
+BOUND = "the valid length taken as the cache's S rows (every row valid)"
 _slots: dict = {}
 
 
@@ -140,6 +142,12 @@ def flash_decode(q, k_cache, v_cache, cache_len, scale=None,
     lse = (torch.empty((B, H, G), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if B == 0 or H == 0 or G == 0:
+        return (out, lse) if return_lse else out
+    if is_dry(q):
+        # no card to size the splits by: one split, no workspace (the
+        # plan changes where the kernel works, not its cost)
+        launch(_ENTRY[q.dtype], "flash_decode", q.device,
+               cost=lambda: cost(q, k_cache, v_cache, S), bound=BOUND)
         return (out, lse) if return_lse else out
     chunk, n_split = split_plan(B, H, S, device_slots(q.device, q.dtype, G, D))
     # per (b, h, split): m and l per query head, then acc (G, D)

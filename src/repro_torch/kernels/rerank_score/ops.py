@@ -9,14 +9,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (launch, on_cpu, recorded, refuse_grad,
-                                 require)
+from repro_torch.kernels import (is_dry, launch, on_cpu, recorded,
+                                 refuse_grad, require)
 from repro_torch.kernels.rerank_score.ref import rerank_score_ref
 
 #: candidates per block (``kCands`` in the source), and the widths of the
 #: attention tower's register tiles (``kMaxH1``, ``kMaxH2``)
 CANDS, MAX_H1, MAX_H2 = 4, 80, 40
 _MAX_GRID_Y = 65535
+#: what :func:`cost` takes on ``meta``, where it cannot read the mask
+BOUND = "the mask's non-zeros taken as T (every history step active)"
 
 
 def _weights(attn_mlp, score_mlp) -> list:
@@ -73,7 +75,8 @@ def rerank_score(hist, mask, target, user_other, item_other,
         return out
     launch("rerank_score_f32", "rerank_score", hist.device,
            *(t.data_ptr() for t in args), out.data_ptr(),
-           T, D, C, d_u, d_i, H1, H2, M1, M2, cost=lambda: cost(*args))
+           T, D, C, d_u, d_i, H1, H2, M1, M2, cost=lambda: cost(*args),
+           bound=BOUND)
     return out
 
 
@@ -83,15 +86,15 @@ def cost(hist, mask, target, user_other, item_other, *weights
     (w1, b1, ..., w6, b6), the work its roofline bound counts: the
     history's half of the first attention layer once, the target's half
     per candidate, the rest of the unit and the pooling for each
-    candidate × unmasked step (the mask's non-zeros, read on the host),
-    the score MLP per candidate; bytes: each input read once, the (C,)
-    scores written once."""
+    candidate × unmasked step (the mask's non-zeros, read on the host;
+    on ``meta`` :data:`BOUND`), the score MLP per candidate; bytes: each
+    input read once, the (C,) scores written once."""
     T, D = hist.shape
     C, d_u, d_i = target.shape[0], user_other.shape[0], item_other.shape[1]
     H1, H2 = weights[0].shape[1], weights[2].shape[1]
     M1, M2 = weights[6].shape[1], weights[8].shape[1]
     K1 = 2 * D + d_u + d_i
-    active = int((mask != 0).sum())
+    active = T if is_dry(mask) else int((mask != 0).sum())
     flops = (2 * T * D * H1 + C * 2 * D * H1
              + C * active * (2 * D * H1 + D + 2 * H1 * H2 + 2 * H2 + 2 * D)
              + C * 2 * (K1 * M1 + M1 * M2 + M2))

@@ -38,6 +38,29 @@ whose times are the host's and are not written as the card's); on a mesh
 ``<arch>__<shape>__2x2@1xH100.json`` (ranks on one card) or
 ``...__2x2@cpu.json``. The CLI runs on ``cuda`` only; :func:`run_cell`
 also takes ``device="cpu"``.
+
+The production-mesh dry run (:func:`dry_run_cell`), the counterpart of
+the reference's compile of every cell on (16, 16) and (2, 16, 16):
+one rank's step runs on torch's ``meta`` device, through the code a live
+rank runs, on that rank's dry mesh (``launch/mesh.py::dry_mesh``: its
+coordinates, no process group). Its arguments are the rank's parts by
+the cell's specs (``Cell.local_args``), nothing is allocated or drawn,
+every collective returns the output a live group would give and is
+counted as one, and every kernel wrapper runs its checks and hands its
+cost to the op counter without a launch. Rank 0 and the last rank (the
+one holding the padded blocks) are counted; the record keeps both and
+heads with the larger (by peak bytes, then flops):
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch din --shape serve_p99 --production
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --production [--multi-pod]
+
+Records ``<arch>__<shape>__16x16@meta.json`` (``2x16x16@meta``): per
+device the argument bytes, the peak of the step's own storages plus the
+arguments and ``fits_h100`` against ``roofline.HBM_BYTES``, the counted
+flops, bytes and collective traffic by kind, the kernels by launches and
+cost, and which kernel costs are bounds (``bounded_kernel_counts``).
+Counted, not timed: no device runs, so the dry run goes on any host; the
+paths that run on a device keep ``default_device()``'s guard.
 """
 from __future__ import annotations
 
@@ -51,15 +74,19 @@ import traceback
 
 import torch
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 from repro_torch import kernels as K
 from repro_torch.configs import registry
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import op_analysis, roofline
-from repro_torch.launch.specs import build_cell
+from repro_torch.launch.specs import build_cell, tree_bytes
 
 DEFAULT_OUT = "artifacts/dryrun"
 CELL_TIMEOUT_S = 1800
+#: a production cell's dry count: deepseek-v3-671b × train_4k dispatches
+#: the most ops (16 micro-batches of 61 layers: ~2,000 s on one Xeon core)
+DRY_CELL_TIMEOUT_S = 3600
+DRY = "meta"
 
 
 def _sync(dev):
@@ -178,12 +205,19 @@ def _write(rec, out_dir, name):
                   indent=1, default=str)
 
 
-def _run_mesh_cell(arch_id, shape_name, out_dir, dev, steps, warmup,
-                   reduced, mesh, check_kernels) -> dict:
+def _abstract(mesh):
+    """``mesh`` ("2x2" or a shape tuple; axes as the reference's
+    ``--mesh`` names them) as an abstract mesh."""
     dims, axes = (mesh_lib.parse_mesh(mesh) if isinstance(mesh, str) else
                   (tuple(mesh), ("pod", "data", "model")[-len(mesh):]))
+    return mesh_lib.abstract_mesh(dims, axes)
+
+
+def _run_mesh_cell(arch_id, shape_name, out_dir, dev, steps, warmup,
+                   reduced, mesh, check_kernels) -> dict:
     cell = build_cell(arch_id, shape_name, device=dev, reduced=reduced,
-                      mesh=mesh_lib.abstract_mesh(dims, axes))
+                      mesh=_abstract(mesh))
+    dims, axes = cell.mesh.dims, cell.mesh.axis_names
     n = cell.mesh.size
     shared = dev.type == "cuda" and n > torch.cuda.device_count()
     where = (f"{1 if shared else n}xH100" if dev.type == "cuda"
@@ -292,20 +326,97 @@ def _run(cell, rec, dev, steps, warmup):
         torch.cuda.empty_cache()
 
 
-def run_all(out_dir: str):
+def dry_count(cell, mesh) -> dict:
+    """One rank's call of ``cell`` (built on ``mesh``'s shape) on the dry
+    ``mesh``, on ``meta``: the op counter's summary of the call, with
+    ``argument_bytes`` (the rank's parts of the arguments) and
+    ``peak_bytes_per_device`` (those plus the call's own peak), its
+    collectives by kind and ``t_count_s``. The call is the one a live
+    rank makes (``launch/mesh.py::cell_call``)."""
+    args = cell.local_args(mesh)
+    arg_bytes = tree_bytes(args)
+    call, _ = mesh_lib.cell_call(cell, args)
+    del args
+    t0 = time.monotonic()
+    with runtime.use_mesh(mesh), torch.no_grad():
+        out, ops = op_analysis.count_ops(call)
+    del out
+    ops["argument_bytes"] = arg_bytes
+    ops["peak_bytes_per_device"] = arg_bytes + ops["peak_bytes"]
+    ops["t_count_s"] = round(time.monotonic() - t0, 2)
+    return ops
+
+
+def dry_run_cell(arch_id: str, shape_name: str, multi_pod: bool = False,
+                 out_dir: str = DEFAULT_OUT, mesh=None, ranks=None,
+                 reduced: bool = False) -> dict:
+    """Count one rank's step of ``arch_id`` × ``shape_name`` on the
+    production mesh ((16, 16), or (2, 16, 16) with ``multi_pod``), or on
+    ``mesh`` ("2x2" or a shape tuple), on the ``meta`` device; write and
+    return the record. ``ranks`` are the ranks counted (default: rank 0
+    and the last). A failing cell is recorded (``ok: false``, ``error``)
+    and not raised, so a sweep goes on."""
+    shape = (mesh_lib.make_production_mesh(multi_pod=multi_pod)
+             if mesh is None else _abstract(mesh))
+    rec = {"arch": arch_id, "shape": shape_name, "mesh": shape.name,
+           "axes": list(shape.axis_names), "n_devices": shape.size,
+           "reduced": reduced, "device": DRY, "ok": False}
+    ranks = [0, shape.size - 1] if ranks is None else list(ranks)
+    t0 = time.monotonic()
+    try:
+        cell = build_cell(arch_id, shape_name, device=DRY, reduced=reduced,
+                          mesh=shape)
+        rec["meta"] = {k: (float(v) if isinstance(v, (int, float)) else v)
+                       for k, v in cell.meta.items()}
+        rec["arg_bytes_per_device"] = cell.arg_bytes_per_device()
+        rec["ranks"] = []
+        for r in ranks:
+            dry = mesh_lib.dry_mesh(shape.dims, shape.axis_names, r)
+            row = dry_count(cell, dry)
+            row.update(rank=r, coords=dict(dry.coords))
+            rec["ranks"].append(row)
+        head = max(rec["ranks"], key=lambda r: (r["peak_bytes_per_device"],
+                                                r["flops_per_device"]))
+        rec["headline_rank"] = head["rank"]
+        rec["memory"] = {
+            "argument_bytes_per_device": head["argument_bytes"],
+            "peak_bytes_per_device": head["peak_bytes_per_device"],
+            "device_bytes": roofline.HBM_BYTES,
+            "fits_h100": bool(head["peak_bytes_per_device"]
+                              <= roofline.HBM_BYTES)}
+        rec["ops"] = {k: head[k] for k in (
+            "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "collectives_by_kind",
+            "collectives_by_group", "kernels", "top_ops")}
+        rec["bounded_kernel_counts"] = {
+            k: v for r in rec["ranks"] for k, v in r["bounded_kernels"].items()}
+        rec["t_count_s"] = round(sum(r["t_count_s"] for r in rec["ranks"]), 2)
+        rec["ok"] = True
+    except Exception as e:  # noqa: BLE001 — record and continue the sweep
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-3000:]
+    rec["t_total_s"] = round(time.monotonic() - t0, 2)
+    _write(rec, out_dir, f"{arch_id}__{shape_name}__{shape.name}@{DRY}.json")
+    return rec
+
+
+def run_all(out_dir: str, production: bool = False, multi_pod: bool = False):
     """One subprocess per cell (a cell's memory goes with its process; one
     bad cell, or one past CELL_TIMEOUT_S, does not stop the sweep)."""
     from repro_torch.configs import registry
     results = []
+    extra = (["--production"] if production else []) + \
+        (["--multi-pod"] if multi_pod else [])
     for arch in registry.ARCHS.values():
         for shape in arch.shapes:
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                    "--arch", arch.arch_id, "--shape", shape.name,
-                   "--out", out_dir]
+                   "--out", out_dir, *extra]
             t0 = time.monotonic()
             try:
                 p = subprocess.run(cmd, capture_output=True, text=True,
-                                   timeout=CELL_TIMEOUT_S)
+                                   timeout=DRY_CELL_TIMEOUT_S if production
+                                   else CELL_TIMEOUT_S)
                 ok = p.returncode == 0
                 tail = (p.stdout + p.stderr)[-400:] if not ok else ""
             except subprocess.TimeoutExpired:
@@ -315,7 +426,9 @@ def run_all(out_dir: str):
             print(f"[{'OK' if ok else 'FAIL'}] {arch.arch_id} × {shape.name} "
                   f"({results[-1][3]}s) {tail}", flush=True)
     n_ok = sum(1 for r in results if r[2])
-    print(f"\n{n_ok}/{len(results)} cells ran on one card")
+    where = ((f"counted on the {'2x16x16' if multi_pod else '16x16'} mesh "
+              f"on meta") if production else "ran on one card")
+    print(f"\n{n_ok}/{len(results)} cells {where}")
     return results
 
 
@@ -327,12 +440,22 @@ def main():
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--mesh", help="e.g. 2x2 (with pod: 2x2x4): the cell "
                     "as one rank per mesh device")
+    ap.add_argument("--production", action="store_true",
+                    help="count one rank's step on the production mesh on "
+                    "the meta device (no device touched)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --production: the (2, 16, 16) mesh")
     args = ap.parse_args()
-    default_device()                     # the CLI runs on cuda only
+    if args.multi_pod and not args.production:
+        ap.error("--multi-pod goes with --production")
+    if not args.production:
+        default_device()                 # a run goes on cuda only
     if args.all:
-        run_all(args.out)
+        run_all(args.out, args.production, args.multi_pod)
         return
-    rec = run_cell(args.arch, args.shape, args.out, mesh=args.mesh)
+    rec = (dry_run_cell(args.arch, args.shape, args.multi_pod, args.out)
+           if args.production else
+           run_cell(args.arch, args.shape, args.out, mesh=args.mesh))
     print(json.dumps({k: v for k, v in rec.items()
                       if k != "traceback" and k not in _ARRAYS},
                      indent=1, default=str))

@@ -8,7 +8,12 @@ flat index over the axes, the order of ``jax.make_mesh``'s devices) and
 holds one process group for every combination of its axes; an abstract
 mesh (:func:`abstract_mesh`) has only the names and sizes, which is all
 the sharding rules read, so they can be evaluated at the production
-shapes without 256 ranks.
+shapes without 256 ranks. A dry mesh (:func:`dry_mesh`) is one rank's
+view of a mesh without a job: the rank's coordinates, which the model
+code reads as on a live rank, and no process group; its collectives
+return, on the ``meta`` device, the outputs a live group would give,
+counted the same (``runtime.py``), so one rank's step can be counted at
+the production shapes on any host (``launch/dryrun.py::dry_run_cell``).
 
 :func:`run_ranks` spawns ``n`` ranks (``spawn`` start method; rendezvous
 through a ``FileStore`` in a fresh temporary directory, so concurrent
@@ -52,7 +57,7 @@ class Mesh:
     process group per combination of axes."""
 
     def __init__(self, shape, axes, rank: Optional[int] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, dry: bool = False):
         self.axis_names = tuple(axes)
         self.dims = tuple(int(s) for s in shape)
         if len(self.dims) != len(self.axis_names):
@@ -61,6 +66,9 @@ class Mesh:
         self.size = math.prod(self.dims)
         self.rank = rank
         self.backend = backend
+        self.dry = dry
+        if dry and rank is None:
+            raise ValueError("a dry mesh is one rank's: give its rank")
         self.counts = CollectiveCounts()
         self.coords = ({} if rank is None else
                        dict(zip(self.axis_names,
@@ -77,8 +85,9 @@ class Mesh:
         return "x".join(str(d) for d in self.dims)
 
     def group(self, axes: tuple):
-        if self.abstract:
-            raise RuntimeError("an abstract mesh has no process groups")
+        if self.abstract or self.dry:
+            raise RuntimeError(f"{'an abstract' if self.abstract else 'a dry'}"
+                               f" mesh has no process groups")
         return self._groups[tuple(axes)]
 
     def _make_groups(self):
@@ -105,7 +114,8 @@ class Mesh:
                                            for i in combo)] = g
 
     def __repr__(self):
-        kind = "abstract" if self.abstract else f"rank {self.rank}, {self.backend}"
+        kind = ("abstract" if self.abstract else f"rank {self.rank}, dry"
+                if self.dry else f"rank {self.rank}, {self.backend}")
         return f"Mesh({self.shape}, {kind})"
 
 
@@ -134,13 +144,26 @@ def make_mesh(shape, axes) -> Mesh:
     return mesh
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """(16, 16) ("data", "model"), or (2, 16, 16) with "pod", abstract: the
-    sharding rules' production shapes (a live one would need 256 or 512
-    ranks, which no machine here has)."""
+def dry_mesh(shape, axes, rank: int) -> Mesh:
+    """Rank ``rank``'s view of a ``shape`` / ``axes`` mesh without a job:
+    its coordinates, no process group; collectives on ``meta`` tensors
+    only (``runtime.py``)."""
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} of a {tuple(shape)} mesh")
+    return Mesh(shape, axes, rank=rank, dry=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: Optional[int] = None) -> Mesh:
+    """(16, 16) ("data", "model"), or (2, 16, 16) with "pod": the sharding
+    rules' production shapes. Abstract (names and sizes) without
+    ``rank``; with it, that rank's dry mesh (:func:`dry_mesh`), on which
+    its step runs on ``meta`` (a live one would need 256 or 512 ranks)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return abstract_mesh(shape, axes)
+    if rank is None:
+        return abstract_mesh(shape, axes)
+    return dry_mesh(shape, axes, rank)
 
 
 def single_device_mesh() -> Mesh:
@@ -270,24 +293,30 @@ class CellDraw:
         from repro_torch.launch.specs import build_cell
         cell = build_cell(self.arch, self.shape, device=dev,
                           reduced=self.reduced, mesh=mesh)
-        args = cell.materialize(
+        return cell_call(cell, cell.materialize(
             dev, torch.Generator(device=dev).manual_seed(self.seed),
-            mesh=mesh)
-        if cell.carry:
-            # a train step: each call is the next step (its params and
-            # optimizer state fed back); the call returns the rest (the
-            # loss), replicated
-            state = {"args": args}
+            mesh=mesh))
 
-            def step():
-                out = cell.fn(*state["args"])
-                state["args"] = cell.next_args(state["args"], out)
-                return tuple(out[cell.carry:])
-            return step, tuple(cell.out_specs[cell.carry:])
-        n = cell.mesh_outputs
-        if n is None:
-            return (lambda: cell.fn(*args)), cell.out_specs
-        return (lambda: tuple(cell.fn(*args)[:n])), tuple(cell.out_specs[:n])
+
+def cell_call(cell, args):
+    """(call, out_specs): a rank's call of ``cell`` on its ``args`` as a
+    function of no arguments, and the specs of what it returns. A train
+    step's call is the next step (its params and optimizer state fed
+    back) and returns the rest (the loss), replicated; a serving cell's
+    returns its leading ``mesh_outputs``. The one call of a live rank
+    (:class:`CellDraw`) and of a dry one (``launch/dryrun.py``)."""
+    if cell.carry:
+        state = {"args": args}
+
+        def step():
+            out = cell.fn(*state["args"])
+            state["args"] = cell.next_args(state["args"], out)
+            return tuple(out[cell.carry:])
+        return step, tuple(cell.out_specs[cell.carry:])
+    n = cell.mesh_outputs
+    if n is None:
+        return (lambda: cell.fn(*args)), cell.out_specs
+    return (lambda: tuple(cell.fn(*args)[:n])), tuple(cell.out_specs[:n])
 
 
 @dataclass

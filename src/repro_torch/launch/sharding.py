@@ -161,7 +161,8 @@ def zero_specs(params_shape: Any, pspecs: Any, mesh,
                min_size: int = 1 << 20) -> Any:
     """ZeRO-2 sharding for gradient accumulators + optimizer state: add the
     ``data`` axis to the largest unsharded, divisible dim of every big leaf
-    whose spec doesn't already use it."""
+    whose spec doesn't already use it. A :class:`Table` stays one, as a
+    rank's state of a split table is a ``RowShard`` too."""
     nd = mesh.shape.get("data", 1)
     if nd <= 1:
         return pspecs
@@ -184,7 +185,7 @@ def zero_specs(params_shape: Any, pspecs: Any, mesh,
             return spec
         dim = max(cands, key=lambda i: leaf.shape[i])
         entries[dim] = "data"
-        return P(*entries)
+        return type(spec)(*entries)
 
     return tree_lib.tree_map(one, params_shape, pspecs)
 

@@ -25,20 +25,19 @@ keys and formulas.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from repro_torch import default_device
+from repro_torch import default_device, runtime
 from repro_torch import tree as tree_lib
 from repro_torch.configs import registry
 from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig, ShapeSpec
 from repro_torch.data import sampler, synthetic
 from repro_torch.launch import sharding as shr
-from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.launch.mesh import abstract_mesh, dry_mesh
 from repro_torch.launch.sharding import P
 from repro_torch.models import schnet, transformer
 from repro_torch.models.recsys import dien, din, mind, towers
@@ -76,6 +75,11 @@ class Cell:
     #: the leading outputs a mesh run gathers whole and returns (None:
     #: all): an LM cell's logits, not the cache its ranks hold in part
     mesh_outputs: Optional[int] = None
+    #: a train step's optimizer init: (the rank's params) → its state,
+    #: called inside the installed mesh (ZeRO-2 shards), as a live rank's
+    #: ``draw_local`` calls it; the state's specs infer a layout by
+    #: shape, as the reference's, which the port's ranks do not hold
+    init_local: Optional[Callable] = None
 
     def materialize(self, device=None, generator: Optional[torch.Generator]
                     = None, mesh=None) -> tuple:
@@ -97,25 +101,42 @@ class Cell:
         a train step's new params and optimizer state replace the old."""
         return tuple(out[:self.carry]) + tuple(args[self.carry:])
 
+    def local_args(self, mesh) -> tuple:
+        """The rank's part of ``args`` on ``mesh`` (dry or live), on
+        ``meta`` and drawn from nothing: each argument by its spec
+        (``local_specs``, else ``in_specs``), a :class:`~sharding.Table`
+        leaf as a ``RowShard`` (``shard_params``), every other leaf its
+        ``local_part``, contiguous as a drawn part is; a train step's
+        optimizer state by ``init_local`` on the rank's params. The
+        layout :meth:`materialize` draws on a live mesh."""
+        def contiguous(t):
+            return t.contiguous() if isinstance(t, torch.Tensor) else t
+        state = 1 if self.carry and self.init_local is not None else None
+        parts = [None if i == state else tree_lib.tree_map(
+                     contiguous, shr.shard_params(a, sp, mesh))
+                 for i, (a, sp) in enumerate(zip(
+                     self.args, self.local_specs or self.in_specs))]
+        if state is not None:
+            with runtime.use_mesh(mesh):
+                parts[state] = self.init_local(parts[0])
+        return tuple(parts)
+
     def arg_bytes(self) -> int:
-        return int(sum(t.numel() * t.element_size()
-                       for t in tree_lib.leaves(self.args)
-                       if isinstance(t, torch.Tensor)))
+        return tree_bytes(self.args)
 
     def arg_bytes_per_device(self) -> int:
-        """The argument bytes one rank of the cell's mesh holds: each
-        leaf divided by the ranks its spec (``local_specs``, else
-        ``in_specs``) splits it over."""
-        sizes: list = []
+        """The argument bytes one rank of the cell's mesh holds: those
+        of :meth:`local_args` for rank 0 (every rank holds as many: a
+        split dim must divide)."""
+        return tree_bytes(self.local_args(
+            dry_mesh(self.mesh.dims, self.mesh.axis_names, 0)))
 
-        def one(leaf, spec):
-            if isinstance(leaf, torch.Tensor):
-                split = math.prod(shr.flat_index(self.mesh, shr.entry_axes(e))[1]
-                                  for e in spec) if isinstance(spec, P) else 1
-                sizes.append(leaf.numel() * leaf.element_size() // split)
-        for a, sp in zip(self.args, self.local_specs or self.in_specs):
-            tree_lib.tree_map(one, a, sp)
-        return int(sum(sizes))
+
+def tree_bytes(tree) -> int:
+    """The bytes of a tree's tensors (a ``RowShard``'s local rows)."""
+    return int(sum(t.numel() * t.element_size()
+                   for t in tree_lib.leaves(tree)
+                   if isinstance(t, torch.Tensor)))
 
 
 def _mesh(mesh):
@@ -248,7 +269,8 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
             grad_shardings=zspecs, param_specs=pspecs)
         meta["n_micro"] = n_micro
         tspec = shr.batched_spec(mesh, (B, S))
-        in_pspecs = zspecs if getattr(cfg, "fsdp_params", False) else pspecs
+        fsdp = getattr(cfg, "fsdp_params", False)
+        in_pspecs = zspecs if fsdp else pspecs
         opt_state = opt_init(params)
         ospecs = shr.opt_state_specs(opt_state, params, zspecs)
 
@@ -265,7 +287,10 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
                     meta=meta, device=device,
                     in_specs=(in_pspecs, ospecs, tspec),
                     out_specs=(in_pspecs, ospecs, P()), mesh=mesh,
-                    draw_local=draw_local)
+                    draw_local=draw_local, init_local=opt_init,
+                    # ZeRO-3's params over data are the reference's
+                    # layout; a rank of the port holds them by the TP specs
+                    local_specs=(pspecs, ospecs, tspec) if fsdp else None)
 
     # the serving cells: parameters (and a decode cache) drawn part by
     # part and layer by layer, whole or, on a live mesh, the rank's slice
@@ -419,7 +444,7 @@ def build_gnn_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
                 draw, carry=2, meta=meta, device=device,
                 in_specs=(pspecs, ospecs, bspec),
                 out_specs=(pspecs, ospecs, P()), mesh=mesh, draw_local=draw,
-                local_specs=(pspecs, ospecs, whole))
+                local_specs=(pspecs, ospecs, whole), init_local=opt_init)
 
 
 # --------------------------------------------------------------- recsys
@@ -514,7 +539,7 @@ def build_rec_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
                         meta=meta, device=device,
                         in_specs=(pspecs, ospecs, bspec),
                         out_specs=(pspecs, ospecs, P()), mesh=mesh,
-                        draw_local=draw_local)
+                        draw_local=draw_local, init_local=opt_init)
         meta = {"model_flops": 2.0 * n_dense * B, "params": n_dense + n_table,
                 "model_bytes_per_device": rec_bytes(B),
                 "param_dtype": "float32"}

@@ -229,9 +229,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     on q's device) → (B,1,H,G,Dv) in q's dtype.
 
     A CUDA tensor runs the ``flash_decode`` kernel on ``q[:, 0]``, which
-    reads cache_len on the device. A CPU tensor takes the reference's math
-    verbatim: normalize p, cast it to v's dtype, then the PV product."""
-    if q.device.type == "cuda":
+    reads cache_len on the device (a ``meta`` one, a dry run, its
+    wrapper). A CPU tensor takes the reference's math verbatim: normalize
+    p, cast it to v's dtype, then the PV product."""
+    if q.device.type in ("cuda", "meta"):
         if q.shape[1] != 1:
             raise ValueError(f"decode takes one query token, got {q.shape[1]}")
         return flash_decode(q[:, 0].contiguous(), k_cache, v_cache, cache_len,

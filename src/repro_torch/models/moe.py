@@ -5,6 +5,10 @@ Dispatch is sort-based, as in the reference: argsort by expert,
 rank-in-expert capacity, a gather into (E, C, d) buffers, one batched
 product per expert weight, and a combine through a zero sentinel row for
 dropped pairs. Shared experts are a plain dense GLU handled by the caller.
+Every shape is static, as in the reference's jitted code: counts are
+scatter-adds (no ``bincount``) and every (token, expert) pair is written,
+a dropped one to the sentinel slot, so one rank's step also runs on the
+``meta`` device (a dry run, ``launch/dryrun.py``).
 
 On a device mesh whose ``model`` axis is larger than 1 (read from
 ``runtime.current_mesh()``, as the reference reads it) each rank holds
@@ -82,9 +86,16 @@ def _route(x, router_w, top_k: int, aux_probs=lambda probs: probs):
     # load-balance aux (Switch-style), for a training loss
     T, E = logits.shape
     me = aux_probs(probs).mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * top_k)
+    ce = _counts(idx.reshape(-1), E).float() / (T * top_k)
     aux = E * torch.sum(me * ce)
     return gate, idx, aux
+
+
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` for ids in [0, n), as a
+    scatter-add of static shape (n,)."""
+    return torch.zeros((n,), dtype=torch.long, device=ids.device) \
+        .scatter_add_(0, ids, torch.ones_like(ids))
 
 
 def _dispatch_compute_combine(xg, gate, idx, w1, w3, w2, *, e0: int, C: int,
@@ -102,7 +113,7 @@ def _dispatch_compute_combine(xg, gate, idx, w1, w3, w2, *, e0: int, C: int,
     sort_key = torch.where(mine, e_flat, torch.full_like(e_flat, E_loc))
     order = torch.argsort(sort_key, stable=True)
     sorted_e = sort_key[order]
-    counts = torch.bincount(sorted_e, minlength=E_loc + 1)
+    counts = _counts(sorted_e, E_loc + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(N, device=dev) - starts[sorted_e]
     keep = (sorted_e < E_loc) & (pos < C)
@@ -110,11 +121,13 @@ def _dispatch_compute_combine(xg, gate, idx, w1, w3, w2, *, e0: int, C: int,
     slot = torch.where(keep, sorted_e * C + pos, torch.full_like(pos, sentinel))
     src_tok = order // k
 
-    # slot → source token; a slot no pair fills stays empty (zero row)
+    # slot → source token; a slot no pair fills stays empty (zero row).
+    # Every pair is written: the dropped and foreign ones all to the
+    # sentinel slot, which is cut off
     idx_buf = torch.zeros((sentinel + 1,), dtype=torch.long, device=dev)
-    idx_buf[slot[keep]] = src_tok[keep]
-    occ = torch.zeros((sentinel + 1,), dtype=xg.dtype, device=dev)
-    occ[slot[keep]] = 1
+    idx_buf[slot] = src_tok
+    occ = torch.zeros((sentinel + 1,), dtype=xg.dtype, device=dev) \
+        .index_fill_(0, slot, 1)
     buf = xg.index_select(0, idx_buf[:sentinel]) * occ[:sentinel, None]
     buf = buf.reshape(E_loc, C, d)
 

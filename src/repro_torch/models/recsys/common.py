@@ -127,8 +127,16 @@ def batch_roll(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([last[prev:prev + 1], x[:-1]])
 
 
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log(sigmoid(x))`` as the reference's ``jax.nn.log_sigmoid``
+    computes it, ``-softplus(-x)``. ``F.logsigmoid`` also writes a buffer
+    output on the CPU (and on ``meta``) but not on CUDA, so a step's
+    counted bytes would depend on the device it is counted on."""
+    return -F.softplus(-x)
+
+
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    ls = F.logsigmoid(logits)
+    ls = log_sigmoid(logits)
     return -batch_mean(labels * ls + (1 - labels) * (ls - logits))
 
 

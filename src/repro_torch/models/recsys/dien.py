@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import default_device, runtime
 from repro_torch.configs.base import RecsysConfig
@@ -22,8 +21,8 @@ from repro_torch.kernels.augru import augru
 from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
 from repro_torch.models.recsys.common import (batch_roll, batch_sum,
                                               bce_loss, field_lookups,
-                                              hist_lookup, masked_hist,
-                                              tables_init)
+                                              hist_lookup, log_sigmoid,
+                                              masked_hist, tables_init)
 from repro_torch.sparse.sharded import (BIG_AXES, sharded_embedding_bag_group,
                                         sharded_gather_a2a)
 from repro_torch.topk import sharded_topk
@@ -132,7 +131,7 @@ def logits_fn(params, batch: dict, cfg: RecsysConfig, return_aux=False):
     pos = torch.sum(pred * hist[:, 1:], -1)
     neg = torch.sum(pred * batch_roll(hist[:, 1:]), -1)
     m = mask[:, 1:]
-    aux = -(F.logsigmoid(pos) + F.logsigmoid(-neg)) * m
+    aux = -(log_sigmoid(pos) + log_sigmoid(-neg)) * m
     aux = batch_sum(aux) / torch.clamp(batch_sum(m), min=1.0)
     return logits, aux
 

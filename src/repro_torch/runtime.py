@@ -21,7 +21,12 @@ Each collective counts its calls and bytes by kind on the mesh
 counts under ``all_reduce``): a backward's collectives as ``kind/bwd``,
 and a forward collective that autograd issues again while it recomputes
 a checkpointed block as ``kind/recompute``, so a training step's bytes
-hold all three.
+hold all three. An op counter active on the thread (a *watcher*: a
+dispatch mode on the thread's mode stack, which the autograd threads of
+a backward inherit) sees each collective as one op, its input and
+output, and none of the ops the backend dispatches to carry it out; so
+a dry mesh's collective, which dispatches none, counts the same as a
+live one.
 
 The rule for gradients. Training on a mesh, every rank computes the same
 global loss (the mean over the whole global batch, replicated on every
@@ -241,6 +246,18 @@ class CollectiveCounts:
         return out
 
 
+def _watchers() -> list:
+    """The dispatch modes on this thread's mode stack that watch
+    collectives: ``w.muted()``, a context in which it counts no op, is
+    entered around each collective's exchange, then
+    ``w.add_collective(kind, axes, g, x, out)`` is called with its
+    counted kind, its axes (in the mesh's order), the group's size, its
+    input and its output."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return [m for m in _get_current_dispatch_mode_stack()
+            if hasattr(m, "add_collective")]
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -260,7 +277,10 @@ def _phase_kind(kind: str, backward: bool) -> str:
 def _collective(kind: str, x: torch.Tensor, axes, op, mesh=None,
                 backward: bool = False) -> torch.Tensor:
     """``op(x, group)`` over the group of ``axes`` on ``mesh`` (the
-    current one if None), counted."""
+    current one if None), counted. On a dry mesh (``mesh.dry``: one
+    rank's coordinates, no process group) ``x`` must lie on ``meta``:
+    the output is the one a live group of that size gives, allocated on
+    ``meta``, and counted the same."""
     mesh = current_mesh() if mesh is None else mesh
     if mesh is None:
         return x.contiguous()
@@ -270,9 +290,29 @@ def _collective(kind: str, x: torch.Tensor, axes, op, mesh=None,
     x = x.contiguous()
     if g == 1:
         return x
-    out = op(x, mesh.group(axes))
-    mesh.counts.add(_phase_kind(kind, backward), g, _nbytes(out))
+    if mesh.dry and x.device.type != "meta":
+        raise RuntimeError(f"{kind} on a dry mesh: the tensor lies on "
+                           f"{x.device}, not on meta (a dry mesh moves "
+                           f"nothing)")
+    watchers = _watchers()
+    with contextlib.ExitStack() as quiet:
+        for w in watchers:
+            quiet.enter_context(w.muted())
+        out = (_dry_output(kind, x, g) if mesh.dry
+               else op(x, mesh.group(axes)))
+    kind = _phase_kind(kind, backward)
+    for w in watchers:
+        w.add_collective(kind, axes, g, x, out)
+    mesh.counts.add(kind, g, _nbytes(out))
     return out
+
+
+def _split_rows(t, n: int, kind: str) -> int:
+    """Dim 0 of ``t`` over ``n`` ranks; raises where it does not divide."""
+    if t.shape[0] % n:
+        raise ValueError(f"{kind}: dim 0 of {tuple(t.shape)} does not "
+                         f"split over {n} ranks")
+    return t.shape[0] // n
 
 
 def _gather_op(t, group):
@@ -285,11 +325,8 @@ def _gather_op(t, group):
 
 def _scatter_op(t, group):
     import torch.distributed as dist
-    n = dist.get_world_size(group)
-    if t.shape[0] % n:
-        raise ValueError(f"reduce_scatter: dim 0 of {tuple(t.shape)} "
-                         f"does not split over {n} ranks")
-    out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
+    out = t.new_empty((_split_rows(t, dist.get_world_size(group),
+                                   "reduce_scatter"), *t.shape[1:]))
     dist.reduce_scatter_tensor(out, t, group=group)
     return out
 
@@ -307,6 +344,20 @@ def _to_all_op(t, group):
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
     return out
+
+
+def _dry_output(kind: str, t, g: int):
+    """The output the live collective ``kind`` gives over a group of
+    ``g`` ranks, allocated on ``t``'s device (``meta``): what a dry mesh
+    returns."""
+    if kind == "all_gather":
+        return t.new_empty((g * t.shape[0], *t.shape[1:]))
+    if kind == "reduce_scatter":
+        return t.new_empty((_split_rows(t, g, kind), *t.shape[1:]))
+    if kind == "all_to_all":
+        _split_rows(t, g, kind)
+        return torch.empty_like(t)
+    return t                                     # all_reduce, in place
 
 
 def _block_of(mesh, axes, n: int, g: torch.Tensor) -> torch.Tensor:
