@@ -50,8 +50,9 @@ Phases, each printing its lines; any failure exits nonzero:
      checked against the stage stats;
   9. training on the card: (a) ``launch/train.py::train`` for smollm-135m
      at its published widths, S=4096, a global batch of 8 in 2
-     micro-batches (cut from 256 in 8), 6 steps with a checkpoint every 3,
-     then a resume from the newest (restored parameters bit for bit), one
+     micro-batches (cut from 256 in 8), 4 steps with a checkpoint every 2
+     (cut from 6 and 3 for 13 (f)), then a resume from the newest
+     (restored parameters bit for bit), one
      step's device time and idle share by torch.profiler; (b) one LM train
      step card vs CPU at B=2, S=256 (loss, every gradient, the update);
      (c) DIN at published widths (user_id / item_id cut to 2**20) at the
@@ -136,14 +137,29 @@ Phases, each printing its lines; any failure exits nonzero:
      smollm-135m x train_4k (must not fit a rank's share), din x
      train_batch (B2 and one grouped B3 a step on every rank, replayed)
      and SchNet's ogb_products (must not fit), 1 timed step a cell
-     (SchNet's other three shapes cut: (d) holds them);
+     (SchNet's other three shapes cut: (d) holds them); (f)
+     deepseek-v3-671b's training layout (the reference's ``fsdp_params``
+     and ``shard_carry``) at published widths (d_model 7,168, 128 heads,
+     MLA, vocab 129,280, dense d_ff 18,432, expert d_ff 2,048, top-8, one
+     shared expert, MTP, bf16, remat, Adafactor, ``zero_specs`` at its
+     2^20 minimum), cut to 2 layers (1 dense, 1 MoE; from 61) and 16
+     routed experts (from 256), ~4.4 B parameters, S=4096 and one
+     sequence a data rank (global batch 2, from 256 x 4096), one step in
+     the ZeRO-3 layout with the split residual and one in the ZeRO-2
+     layout with the whole residual on the same draws, each under the op
+     counter: the loss within TOL_LM and every updated parameter within
+     TOL_LM leaf-scaled (the largest difference printed), every rank's
+     ZeRO-3 blocks of their spec's shape, each rank's peak lower in the
+     ZeRO-3 layout, no all_gather after the ZeRO-3 backward, the
+     collectives by kind and the ms a step; a job of (a)-(d)'s launch;
  14. the production-mesh dry run, in a process of its own started at the
      call's start (CUDA hidden from it: the meta device needs no card)
      and joined here: (a) ``launch/dryrun.py::dry_run_cell`` counts every
      rank of the 2x2 cells that [11c], [12] and [13e] run live (din x
      serve_p99, din x retrieval_cand, dien x serve_p99, smollm-135m and
-     deepseek-v2-lite-16b x long_500k, din x train_batch) on the meta
-     device, and each rank's dry count is held to its live record:
+     deepseek-v2-lite-16b x long_500k, din x train_batch, and [13f]'s
+     ZeRO-3 cell) on the meta device, and each rank's dry count is held
+     to its live record:
      collectives by kind (calls, bytes), kernel calls, and flops and
      bytes exactly outside the kernels whose dry cost is a bound (those
      at least the live count, the excess printed), with the dry peak
@@ -1872,7 +1888,8 @@ def durability_run() -> dict:
 
 LM_TRAIN_BATCH, LM_TRAIN_MICRO = 8, 2     # cut from train_4k's 256 in 8
 LM_TRAIN_SEQ = 4096                       # train_4k's sequence length
-LM_TRAIN_STEPS, LM_CKPT_EVERY, LM_RESUME_STEPS = 6, 3, 1
+#: (cut from 6 steps and a checkpoint every 3 for [13f]'s time)
+LM_TRAIN_STEPS, LM_CKPT_EVERY, LM_RESUME_STEPS = 4, 2, 1
 REC_TRAIN_BATCH = 65536                   # configs/base.py: rec_train
 REC_GRAD_BATCH = 4096                     # DIN card vs CPU gradients
 REC_MODEL_BATCH = 1024                    # DIEN / MIND / two-tower gradients
@@ -1945,9 +1962,10 @@ def _profile_train_step(step, label, warm=True):
 
 def lm_train_run():
     """Phase 9 (a) and (b): ``launch/train.py::train`` for smollm-135m at
-    its published widths on the card, a checkpoint every 3 steps, then a
-    second ``train`` resuming from the newest; then one train step of the
-    same carried weights card against CPU at B=2, S=256."""
+    its published widths on the card, a checkpoint every LM_CKPT_EVERY
+    steps, then a second ``train`` resuming from the newest; then one
+    train step of the same carried weights card against CPU at B=2,
+    S=256."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
@@ -3571,8 +3589,10 @@ def train_mesh_run(card: str, lm_losses) -> dict:
     AdamW steps, every rank's losses and parameters the same bits. Then
     ``launch/train.py --mesh 2x2`` for smollm-135m (LM_MESH13_STEPS
     steps, a checkpoint every LM_MESH13_EVERY, then a resume on the
-    mesh) and (e) ``run_cell`` on the mesh. Returns the kernels' launches over (b), (c) and (e)'s DIN
-    cell, all ranks."""
+    mesh) and (e) ``run_cell`` on the mesh; (f) deepseek-v3's training
+    layout, ZeRO-3 against ZeRO-2 (:func:`ds13f_rank`), the last job of
+    (a)-(d)'s launch. Returns the kernels' launches over (b), (c) and
+    (e)'s DIN cell, all ranks."""
     import argparse
     import numpy as np
     import torch
@@ -3639,11 +3659,13 @@ def train_mesh_run(card: str, lm_losses) -> dict:
         jobs[f"schnet/{shape}"] = Job(
             "chip_smoke:schnet_steps13", params, gspecs, (batch,), (None,),
             {"cfg": gcfg, "n_graphs": len(w["targets"]), "pspecs": gspecs})
+    # (f) deepseek-v3's training layout, last: it takes the most memory
+    jobs["ds13f"] = Job("chip_smoke:ds13f_rank")
     t0 = time.perf_counter()
     ranks = run_jobs(list(jobs.values()), MESH_SHAPE, MESH_AXES,
                      device="cuda", timeout=900)
     out = {k: [r[i] for r in ranks] for i, k in enumerate(jobs)}
-    say13(f"[13a-d] the ranks' launch: {time.perf_counter() - t0:.1f} s")
+    say13(f"[13a-d,f] the ranks' launch: {time.perf_counter() - t0:.1f} s")
 
     # (a) the LM's first step
     lm = out["lm"]
@@ -3751,6 +3773,7 @@ def train_mesh_run(card: str, lm_losses) -> dict:
                        tree_lib.leaves(got["params"]), _numbered(w, "param0"),
                        _numbered(w, "param"), _numbered(w, "grad"))
         _rank_lines13(f"schnet {shape}", out[f"schnet/{shape}"])
+    _ds13f_held(out["ds13f"], card)
     del out, ranks, whole
 
     # (a) the launcher on the mesh, then a resume
@@ -3842,6 +3865,209 @@ def train_mesh_run(card: str, lm_losses) -> dict:
     return launches
 
 
+#: (f): deepseek-v3-671b at published widths, cut to DS13F_LAYERS layers
+#: (DS13F_DENSE dense, then MoE; from 61) and DS13F_EXPERTS routed experts
+#: (from 256), S=DS13F_SEQ, one sequence a data rank, one step
+DS13F_LAYERS, DS13F_DENSE, DS13F_EXPERTS = 2, 1, 16
+DS13F_SEQ, DS13F_BATCH, DS13F_SEED = 4096, 2, 24
+#: (f)'s cell: its key in LIVE_RECORDS and its dry record's name
+DS13F = ("deepseek-v3-671b", "train_13f")
+
+
+def ds13f_cell(zero3: bool, mesh, device="cuda"):
+    """(f)'s training cell on ``mesh``: the reference's layout (the
+    ZeRO-3 parameters by ``zero_specs`` at its published 2^20 minimum,
+    the residual split over ``model``, remat on, Adafactor) or, with
+    ``zero3`` False, the ZeRO-2 layout with the whole residual
+    (``fsdp_params`` and ``shard_carry`` off)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.lm_archs import DEEPSEEK_V3
+    from repro_torch.launch import specs
+    cfg = dataclasses.replace(
+        DEEPSEEK_V3, n_layers=DS13F_LAYERS, moe=dataclasses.replace(
+            DEEPSEEK_V3.moe, n_routed=DS13F_EXPERTS,
+            n_dense_layers=DS13F_DENSE))
+    if not zero3:
+        cfg = dataclasses.replace(cfg, fsdp_params=False, shard_carry=False)
+    shape = ShapeSpec(DS13F[1], "train", {"seq_len": DS13F_SEQ,
+                                          "global_batch": DS13F_BATCH})
+    return specs.build_lm_cell(registry.ArchDef(DS13F[0], "lm", cfg, (),
+                                                None), shape, device,
+                               mesh=mesh)
+
+
+def _nodes13f(tree) -> list:
+    """Each leaf's innermost node in JAX's order: its DataShard, else the
+    leaf."""
+    from repro_torch import runtime
+    if isinstance(tree, runtime.DataShard):
+        return [tree]
+    if isinstance(tree, runtime.RowShard):
+        return _nodes13f(tree.local)
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _nodes13f(tree[k])]
+    return [tree]
+
+
+def ds13f_rank(params=None):
+    """A rank of (f): the step in the reference's layout, then in the
+    ZeRO-2 layout with the whole residual, on the same draws, each under
+    the op counter (the ZeRO-3 step's count is the live record [14a]
+    holds the dry count to): each step's loss, ms (CUDA events),
+    peak (``max_memory_allocated`` from its drawn arguments on) and
+    collectives, all of them and those after its loss and gradient;
+    every ZeRO-3 block's shape
+    against its spec's; and every updated parameter of the ZeRO-3 step
+    against the ZeRO-2 step's at TOL_LM, leaf-scaled, leaf by leaf over
+    the whole leaf (each rank holds its block of the ZeRO-2 rank's part;
+    the largest |want|, the worst difference and the elements off are
+    reduced over every rank)."""
+    import torch
+    from repro_torch import runtime
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import op_analysis, sharding
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.runtime import CollectiveCounts
+    from repro_torch.train import train_step
+    mesh = runtime.current_mesh()
+    am = abstract_mesh(mesh.dims, mesh.axis_names)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    # cuBLAS and the collectives' first use, before either step is timed
+    w = torch.ones((256, 256), dtype=torch.bfloat16, device=dev)
+    runtime.all_reduce((w @ w).float(), mesh.axis_names)
+    torch.cuda.synchronize()
+    out, kept = {}, None
+    marks, grad = [], train_step.value_and_grad
+
+    def marked(*a, **kw):
+        got = grad(*a, **kw)
+        marks.append(mesh.counts.snapshot())
+        return got
+    train_step.value_and_grad = marked
+    try:
+        for zero3 in (True, False):
+            cell = ds13f_cell(zero3, am)
+            gc.collect()
+            torch.cuda.empty_cache()
+            args = cell.materialize(dev, torch.Generator(device=dev)
+                                    .manual_seed(DS13F_SEED), mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            run = {"arg_bytes": torch.cuda.memory_allocated(dev)}
+            before, marks[:] = mesh.counts.snapshot(), []
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (new_p, new_s, loss), ops = op_analysis.count_ops(
+                lambda: cell.fn(*args))
+            end.record()
+            torch.cuda.synchronize()
+            run["ms"] = start.elapsed_time(end)
+            run["peak"] = torch.cuda.max_memory_allocated(dev)
+            after = mesh.counts.snapshot()
+            run["collectives"] = CollectiveCounts.since(after, before)
+            run["post"] = CollectiveCounts.since(after, marks[0])
+            run["loss"] = float(loss)
+            del args
+            if zero3:
+                out["ops"] = ops
+                specs_ = []
+                tree_lib.tree_map(lambda _l, s: specs_.append(s),
+                                  cell.args[0], cell.in_specs[0])
+                blocks = []
+                for whole, spec, node in zip(tree_lib.leaves(cell.args[0]),
+                                             specs_, _nodes13f(new_p)):
+                    want = tuple(sharding.local_part(whole, spec, mesh).shape)
+                    z3 = isinstance(spec, sharding.Gathered)
+                    blocks.append(z3 == isinstance(node, runtime.DataShard)
+                                  and tuple(tree_lib.leaves(node)[0].shape)
+                                  == want)
+                run["blocks_ok"], run["n_zero3"] = all(blocks), sum(
+                    isinstance(s, sharding.Gathered) for s in specs_)
+                kept = ([t.cpu() for t in tree_lib.leaves(new_p)], specs_)
+                del new_p, new_s
+            else:
+                worst, off, n, same, rows = 0.0, 0, 0, 0, []
+                names = [tree_lib.path_name(p_) for p_, _ in
+                         tree_lib.flatten_with_paths(cell.args[0])]
+                for name, got, spec, want in zip(names, kept[0], kept[1],
+                                                 tree_lib.leaves(new_p)):
+                    if isinstance(spec, sharding.Gathered):
+                        d = spec.data_dim
+                        s0, per = runtime.block(want.shape[d], "data")
+                        want = want.narrow(d, s0, per)
+                    got, want = got.to(dev).float(), want.float()
+                    top = runtime.all_reduce(want.abs().amax().reshape(1),
+                                             mesh.axis_names, op="max")
+                    scale = max(1.0, float(top))
+                    diff = (got - want).abs()
+                    bad = (diff > TOL_LM * scale + TOL_LM * want.abs()).sum()
+                    stats = torch.stack([diff.amax(), bad.float()])
+                    top = float(runtime.all_reduce(
+                        stats[:1].clone(), mesh.axis_names, op="max")) / scale
+                    k = int(runtime.all_reduce(stats[1:].clone(),
+                                               mesh.axis_names))
+                    worst, off, n = max(worst, top), off + k, n + 1
+                    same += top == 0
+                    rows.append((top, k, name))
+                out.update(worst=worst, off=off, leaves=n, same=same,
+                           worst_leaves=sorted(rows)[-3:])
+                del new_p, new_s, kept
+            out["zero3" if zero3 else "zero2"] = run
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        train_step.value_and_grad = grad
+    return out
+
+
+def _ds13f_held(rows: list, card: str):
+    """(f)'s checks and lines from its ranks' rows; the live record [14a]
+    holds the dry count to."""
+    import torch
+    z3_peaks = []
+    for r, row in enumerate(rows):
+        got = row["out"]
+        z3, z2 = got["zero3"], got["zero2"]
+        compare(f"[13f] rank {r} loss, ZeRO-3 and split carry vs ZeRO-2 and "
+                f"whole carry", torch.tensor([z3["loss"]]),
+                torch.tensor([z2["loss"]]), TOL_LM)
+        check(got["off"] == 0, f"[13f] rank {r}: {got['off']} updated "
+              f"parameter elements off TOL_LM (worst leaf-scaled "
+              f"{got['worst']:.3e}; the worst leaves (difference, elements "
+              f"off, name) {got['worst_leaves']})")
+        check(z3["blocks_ok"], f"[13f] rank {r}: a ZeRO-3 block's shape or "
+              f"node differs from its spec's")
+        check(z3["peak"] < z2["peak"], f"[13f] rank {r}: ZeRO-3 peak "
+              f"{z3['peak']} not below ZeRO-2's {z2['peak']}")
+        post3 = {k for (k, _g) in z3["post"]}
+        post2 = {k for (k, _g) in z2["post"]}
+        check("all_gather" not in post3 and "all_gather" in post2,
+              f"[13f] rank {r}: after the backward ZeRO-3 ran {post3}, "
+              f"ZeRO-2 {post2}")
+        say13(f"[13f] rank {r} ({card}): loss {z3['loss']!r} (ZeRO-3, split carry) vs "
+              f"{z2['loss']!r} (ZeRO-2, whole carry); {got['leaves']} updated "
+              f"leaves ({got['same']} bit for bit), largest leaf-scaled "
+              f"difference {got['worst']:.3e} "
+              f"(TOL_LM {TOL_LM:g}); {z3['n_zero3']} ZeRO-3 leaves, every "
+              f"block its spec's shape")
+        for name, run in (("ZeRO-3", z3), ("ZeRO-2", z2)):
+            say13(f"[13f] rank {r} {name}: {run['ms']:.1f} ms a step (its "
+                  f"first, under the op counter), peak "
+                  f"{run['peak'] / 2**30:.2f} GiB "
+                  f"({run['arg_bytes'] / 2**30:.2f} GiB allocated after the "
+                  f"draw), "
+                  f"collectives {_coll_line(run['collectives'])}; after the "
+                  f"loss and gradient: {_coll_line(run['post'])}")
+        z3_peaks.append(z3["peak"])
+    LIVE_RECORDS[DS13F] = {"ranks": [
+        {"rank": r, "ops": row["out"]["ops"], "max_allocated_bytes": peak}
+        for r, (row, peak) in enumerate(zip(rows, z3_peaks))]}
+
+
 def _rank_lines13(label, ranks_):
     for r, rank in enumerate(ranks_):
         say13(f"[13] {label} rank {r}: launches {rank['launches']}, "
@@ -3871,7 +4097,8 @@ def dry_run(out_dir: str) -> int:
     """Phase 14's meta-device work, in a process of its own that the call
     starts first (CUDA hidden from it: it touches no card): (a)
     ``dry_run_cell`` of every DRY_MESH_CELLS cell on the 2x2 mesh for
-    all 4 ranks, at published widths; (b) ``python -m
+    all 4 ranks, at published widths, and [13f]'s cell
+    (:func:`ds13f_dry`); (b) ``python -m
     repro_torch.launch.dryrun --production [--multi-pod]`` for every
     DRY_PRODUCTION cell. Records and ``times.json`` under ``out_dir``."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
@@ -3885,6 +4112,7 @@ def dry_run(out_dir: str) -> int:
     for arch, shape in DRY_MESH_CELLS:
         dryrun.dry_run_cell(arch, shape, out_dir=out_dir, mesh=MESH_SHAPE,
                             ranks=range(4))
+    ds13f_dry(out_dir)
     times["a"] = time.perf_counter() - t0
     env = {**os.environ, "PYTHONPATH": src, "OMP_NUM_THREADS": "1"}
     t0 = time.perf_counter()
@@ -3901,6 +4129,30 @@ def dry_run(out_dir: str) -> int:
     with open(os.path.join(out_dir, "times.json"), "w") as f:
         json.dump(times, f)
     return 0
+
+
+def ds13f_dry(out_dir: str):
+    """[13f]'s ZeRO-3 cell counted for each rank of the 2x2 mesh on the
+    meta device (``dryrun.dry_count``), written as ``dry_run_cell``
+    writes a record."""
+    import traceback
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh, dry_mesh
+    rec = {"arch": DS13F[0], "shape": DS13F[1], "ok": False, "ranks": []}
+    try:
+        cell = ds13f_cell(True, abstract_mesh(MESH_SHAPE, MESH_AXES), "meta")
+        for r in range(math.prod(MESH_SHAPE)):
+            row = dryrun.dry_count(cell, dry_mesh(MESH_SHAPE, MESH_AXES, r))
+            rec["ranks"].append({**row, "rank": r})
+        rec["bounded_kernel_counts"] = {
+            k: v for r in rec["ranks"] for k, v in r["bounded_kernels"].items()}
+        rec["ok"] = True
+    except Exception as e:  # noqa: BLE001 — recorded; [14a] fails on it
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-3000:]
+    with open(os.path.join(out_dir, f"{DS13F[0]}__{DS13F[1]}__2x2@meta.json"),
+              "w") as f:
+        json.dump(rec, f, default=str)
 
 
 def start_dry(out_dir: str):
@@ -3958,7 +4210,7 @@ def dry_check(proc, out_dir: str, card: str):
                   ) as f:
             return json.load(f)
 
-    for arch, shape in DRY_MESH_CELLS:
+    for arch, shape in DRY_MESH_CELLS + (DS13F,):
         dry = load(arch, shape, "2x2")
         check(dry["ok"], f"[14a] {arch} x {shape} dry: {dry.get('error')}\n"
               f"{dry.get('traceback', '')}")

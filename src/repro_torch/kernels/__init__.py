@@ -1,8 +1,8 @@
 """Build, load and dispatch policy of the port's hand-written kernels.
 
 Sources live in ``kernels/csrc/*.cu``: CUDA C++ for ``sm_90a`` with a
-plain C interface. :func:`build` compiles them with one ``nvcc`` call
-into ONE shared library and caches it under
+plain C interface. :func:`build` compiles them, one ``nvcc`` a source
+started together, into ONE shared library and caches it under
 ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by a
 hash of the sources and flags.
 :func:`library` builds on first use and binds the entry points with
@@ -52,6 +52,7 @@ drops the gradient.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import fcntl
@@ -320,12 +321,13 @@ def build_dir() -> Path:
 
 
 def build() -> Path:
-    """Compile every source into the shared library with one ``nvcc`` call
-    and return its path. A library already built from the same sources is
-    reused. The compiler's output, ptxas resource usage included, is kept
-    in ``build.log`` beside the library. Processes that build at once
-    (the ranks of a mesh) take turns on a file lock in the build
-    directory: the first compiles, the others find its library."""
+    """Compile every source into the shared library and return its path:
+    one ``nvcc -c`` a source, all started together, then one link. A
+    library already built from the same sources is reused. The
+    compilers' output, ptxas resource usage included, is kept in
+    ``build.log`` beside the library. Processes that build at once (the
+    ranks of a mesh) take turns on a file lock in the build directory:
+    the first compiles, the others find its library."""
     out = build_dir()
     lib = out / LIB_NAME
     if lib.exists():
@@ -336,13 +338,25 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib.exists():                   # built while this one waited
             return lib
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+
+        def run(args):
+            return subprocess.run([nvcc, *args], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+        objs = [out / f"{src.stem}.{os.getpid()}.o" for src in sources()]
+        with concurrent.futures.ThreadPoolExecutor(len(objs)) as pool:
+            procs = list(pool.map(run, [
+                [*compile_flags, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(sources(), objs)]))
         tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, *map(str, sources()),
-                               "-o", str(tmp)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        (out / "build.log").write_text(proc.stdout)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stdout)
+        if all(p.returncode == 0 for p in procs):
+            procs.append(run([*NVCC_FLAGS, *map(str, objs), "-o", str(tmp)]))
+        log = "".join(p.stdout for p in procs)
+        (out / "build.log").write_text(log)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError("nvcc failed:\n" + log)
         os.replace(tmp, lib)
     return lib
 

@@ -19,7 +19,8 @@ counterparts on a live mesh: :func:`local_part` takes the rank's part of a
 whole tensor by its spec, :func:`gather_full` puts the whole back
 together; :func:`shard_params` makes the lookup tables' row-split
 parameters (:class:`Table` specs) ``runtime.RowShard``s, which carry
-their global row count.
+their global row count, and ZeRO-3 parameters (:class:`Gathered` specs)
+``runtime.DataShard``s, which the model gathers over ``data`` on use.
 """
 from __future__ import annotations
 
@@ -51,6 +52,22 @@ class Table(P):
     """The spec of a lookup table whose rows split (a recsys table, the
     LM's embedding): :func:`shard_params` makes its leaf a
     ``runtime.RowShard``, the form the sparse lookups read."""
+
+
+class Gathered(P):
+    """The spec of a ZeRO-3 parameter (``zero_specs(..., gathered=True)``):
+    split over ``data`` on a dim its compute spec leaves whole.
+    :func:`shard_params` makes its leaf a ``runtime.DataShard``, which the
+    model gathers whole over ``data`` where it uses the leaf."""
+
+    @property
+    def data_dim(self) -> int:
+        return tuple(self).index("data")
+
+
+class GatheredTable(Table, Gathered):
+    """A ZeRO-3 lookup table: a ``RowShard`` whose rows are a
+    ``DataShard``."""
 
 
 def _names(path) -> list[str]:
@@ -158,11 +175,14 @@ def param_specs(params_shape, cfg, mesh):
 # ------------------------------------------------------------- ZeRO grads
 
 def zero_specs(params_shape: Any, pspecs: Any, mesh,
-               min_size: int = 1 << 20) -> Any:
+               min_size: int = 1 << 20, gathered: bool = False) -> Any:
     """ZeRO-2 sharding for gradient accumulators + optimizer state: add the
     ``data`` axis to the largest unsharded, divisible dim of every big leaf
     whose spec doesn't already use it. A :class:`Table` stays one, as a
-    rank's state of a split table is a ``RowShard`` too."""
+    rank's state of a split table is a ``RowShard`` too. ``gathered``:
+    the same specs as ZeRO-3 parameter specs (``fsdp_params``; the
+    reference's ``pspecs = zspecs``), each leaf that gained ``data``
+    marked :class:`Gathered` (:class:`GatheredTable`)."""
     nd = mesh.shape.get("data", 1)
     if nd <= 1:
         return pspecs
@@ -185,6 +205,9 @@ def zero_specs(params_shape: Any, pspecs: Any, mesh,
             return spec
         dim = max(cands, key=lambda i: leaf.shape[i])
         entries[dim] = "data"
+        if gathered:
+            return (GatheredTable if isinstance(spec, Table)
+                    else Gathered)(*entries)
         return type(spec)(*entries)
 
     return tree_lib.tree_map(one, params_shape, pspecs)
@@ -292,10 +315,9 @@ def local_part(tensor: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 
 
 def gather_full(tensor, spec: P, mesh) -> torch.Tensor:
-    """The whole tensor from each rank's ``local_part`` (a ``RowShard``'s
-    local rows too): an all_gather along every split dim."""
-    if isinstance(tensor, runtime.RowShard):
-        tensor = tensor.local
+    """The whole tensor from each rank's ``local_part`` (a shard's local
+    rows or block too): an all_gather along every split dim."""
+    tensor = tree_lib.strip_shards(tensor)
     with runtime.use_mesh(mesh):
         for dim, entry in enumerate(spec):
             axes = entry_axes(entry)
@@ -306,20 +328,32 @@ def gather_full(tensor, spec: P, mesh) -> torch.Tensor:
     return tensor.contiguous()
 
 
+def held(part: torch.Tensor, spec: P, mesh, shape: tuple):
+    """What a rank holds of a leaf of ``shape`` whose :func:`local_part`
+    is ``part``: a :class:`Gathered` leaf's part as a
+    ``runtime.DataShard`` (its block over ``data``), a :class:`Table`
+    whose rows split over more than one rank as a ``runtime.RowShard``
+    (its local rows, the global row count, the axes) around that; else
+    ``part``."""
+    if isinstance(spec, Gathered) and flat_index(mesh, ("data",))[1] > 1:
+        part = runtime.DataShard(part, spec.data_dim)
+    if isinstance(spec, Table):
+        axes = entry_axes(spec[0])
+        if flat_index(mesh, axes)[1] > 1:
+            return runtime.RowShard(part, shape[0], axes)
+    return part
+
+
 def shard_params(params, pspecs, mesh):
-    """The rank's parameters: a :class:`Table` leaf whose rows split over
-    more than one rank becomes a ``runtime.RowShard`` (its local rows, the
-    global row count, the axes); every other leaf its :func:`local_part`."""
+    """The rank's parameters: each leaf's :func:`local_part`, held as
+    :func:`held` says."""
     if params is None:
         return None
 
     def one(leaf, spec):
-        if isinstance(spec, Table):
-            axes = entry_axes(spec[0])
-            if flat_index(mesh, axes)[1] > 1:
-                return runtime.RowShard(local_part(leaf, spec, mesh),
-                                        leaf.shape[0], axes)
-        return local_part(leaf, spec, mesh) if isinstance(spec, P) else leaf
+        if not isinstance(spec, P):
+            return leaf
+        return held(local_part(leaf, spec, mesh), spec, mesh, leaf.shape)
     return tree_lib.tree_map(one, params, pspecs)
 
 

@@ -16,7 +16,8 @@ the same values: the recsys cells' tables as this rank's rows only
 (``tables_init``), the batch whole and then its ``local_part``; the LM
 cells' parameters and decode cache part by part and layer by layer, each
 part from its own seeded generator (``transformer.init``,
-:func:`draw_lm_cache`), keeping the rank's slice of each layer; an
+:func:`draw_lm_cache`), keeping the rank's slice of each layer (a
+``fsdp_params`` training cell's: its ZeRO-3 blocks); an
 LM training cell's optimizer state as the rank's ZeRO-2 shards (its step
 is ``build_train_step(..., grad_shardings=zero_specs)``; the recsys and
 GNN steps, as the reference's, have no ZeRO split); a GNN cell's
@@ -245,8 +246,8 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
             "param_dtype": cfg.param_dtype,
             "params": cfg.param_count(), "active_params": cfg.active_param_count()}
 
-    def draw_params(dev, g, live=None):
-        return transformer.init(g, cfg, dev, mesh=live)
+    def draw_params(dev, g, live=None, specs=None):
+        return transformer.init(g, cfg, dev, mesh=live, specs=specs)
 
     def draw_tokens(rng, dev, seq):
         return _tensors(synthetic.lm_batch(rng, cfg, B, seq)["tokens"], dev)
@@ -258,19 +259,19 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
     if shape.kind == "train":
         n_micro = _lm_micro(cfg, B, mesh)
         # ZeRO-2: grad accumulator + optimizer state pick up an extra
-        # `data` sharding (ZeRO-3 with fsdp_params: the params too). A
-        # rank on a live mesh holds its parameters by the TP specs and
-        # trains with the ZeRO-2 step (fsdp_params included: the same
-        # values, the params not sharded over data)
+        # `data` sharding; updated params all-gather back to the compute
+        # sharding. ZeRO-3 (fsdp_params): the params themselves stay
+        # data-sharded, each a DataShard the model gathers on use, and
+        # their gradients arrive reduce-scattered by those gathers
         zspecs = shr.zero_specs(params, pspecs, mesh)
+        if getattr(cfg, "fsdp_params", False):
+            pspecs = shr.zero_specs(params, pspecs, mesh, gathered=True)
         step, opt_init = build_train_step(
             lambda p, toks: transformer.lm_loss(p, toks, cfg),
             opt_lib.for_family("lm", cfg.param_count()), n_micro=n_micro,
             grad_shardings=zspecs, param_specs=pspecs)
         meta["n_micro"] = n_micro
         tspec = shr.batched_spec(mesh, (B, S))
-        fsdp = getattr(cfg, "fsdp_params", False)
-        in_pspecs = zspecs if fsdp else pspecs
         opt_state = opt_init(params)
         ospecs = shr.opt_state_specs(opt_state, params, zspecs)
 
@@ -279,18 +280,15 @@ def build_lm_cell(arch, shape: ShapeSpec, device=None, mesh=None) -> Cell:
             return p, opt_init(p), draw_tokens(rng, dev, S)
 
         def draw_local(dev, g, rng, live):
-            p = draw_params(dev, g, live)
+            p = draw_params(dev, g, live, pspecs)
             return (p, opt_init(p),
                     shr.local_part(draw_tokens(rng, dev, S), tspec, live))
         return Cell(arch.arch_id, shape.name, step,
                     (params, opt_state, _ids(B, S)), draw, carry=2,
                     meta=meta, device=device,
-                    in_specs=(in_pspecs, ospecs, tspec),
-                    out_specs=(in_pspecs, ospecs, P()), mesh=mesh,
-                    draw_local=draw_local, init_local=opt_init,
-                    # ZeRO-3's params over data are the reference's
-                    # layout; a rank of the port holds them by the TP specs
-                    local_specs=(pspecs, ospecs, tspec) if fsdp else None)
+                    in_specs=(pspecs, ospecs, tspec),
+                    out_specs=(pspecs, ospecs, P()), mesh=mesh,
+                    draw_local=draw_local, init_local=opt_init)
 
     # the serving cells: parameters (and a decode cache) drawn part by
     # part and layer by layer, whole or, on a live mesh, the rank's slice

@@ -36,7 +36,9 @@ here:
     for its heads (the norms' scales, ``wk`` / ``wv`` where they do not
     split; MLA's latents) enter the split through ``runtime.enter``, so
     their gradients are summed over ``model``; the row-parallel ``wo``'s
-    all_reduce is the exit (its backward is the identity);
+    all_reduce is the exit (its backward is the identity), or, where the
+    residual is split over ``model`` (``cfg.shard_carry``), a
+    reduce_scatter onto the rank's block of d_model;
   * decode over a sequence-sharded cache is a distributed softmax
     (reference ``attention.py:109-133``): the new token's K/V row goes to
     the rank that owns its position (a masked write on the device), every
@@ -389,7 +391,7 @@ def _decode_on_shards(q, k, v, cache, cache_len, seq: SeqShard,
 
 
 def gqa_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
-                seq: Optional[SeqShard] = None):
+                seq: Optional[SeqShard] = None, carry: bool = False):
     """cache=None: full causal self-attention (prefill). With cache: decode
     — x is (B,1,d); the new K/V are written into the cache in place at
     cache_len, and (out, (k_cache, v_cache)) is returned.
@@ -397,7 +399,9 @@ def gqa_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
     On a mesh the rank attends for its heads (:func:`head_split`) and
     ``wo`` is row-parallel; ``seq`` (the cache's sequence shard) makes a
     prefill return its cache rows in ``kv_cache_specs``' layout and a
-    decode combine the shards (:func:`_decode_on_shards`)."""
+    decode combine the shards (:func:`_decode_on_shards`). ``carry``: the
+    output as the rank's block of d_model over ``model`` (``wo``'s partial
+    products reduce-scattered, ``layers.row_parallel``)."""
     B, S, _ = x.shape
     D = cfg.d_head
     hs = head_split(cfg)
@@ -422,7 +426,7 @@ def gqa_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
                              k_cache, v_cache, cache_len + S)
         new_kv = (k_cache, v_cache)
     o = o.reshape(B, S, hs.n * D)
-    return row_parallel(o, p["wo"], hs.q_split), new_kv
+    return row_parallel(o, p["wo"], hs.q_split, carry), new_kv
 
 
 # ---------------------------------------------------------------- MLA block
@@ -503,13 +507,13 @@ def _mla_decode_on_shards(p, q_nope, q_rope, c_kv, k_rope, cache, cache_len,
 
 
 def mla_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
-                seq: Optional[SeqShard] = None):
+                seq: Optional[SeqShard] = None, carry: bool = False):
     """MLA attention. The cache holds the latent (c_kv, k_rope): kv_lora +
     d_rope per token. Decode uses the absorbed form (w_k_b folds into q,
     w_v_b applies after the latent-space attention); the latent caches are
     written in place at cache_len. On a mesh the rank computes its heads
     (the latent projections are replicated) and ``wo`` is row-parallel;
-    ``seq`` as in :func:`gqa_forward`."""
+    ``seq`` and ``carry`` as in :func:`gqa_forward`."""
     m = cfg.mla
     B, S, _ = x.shape
     hs = head_split(cfg)
@@ -562,7 +566,7 @@ def mla_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
         o = torch.einsum("bshl,lhv->bshv", o_lat, wvb)      # (B,1,H,v_dim)
         new_cache = (c_cache, r_cache)
     o = o.reshape(B, S, H * m.v_dim).to(x.dtype)
-    return row_parallel(o, p["wo"], hs.q_split), new_cache
+    return row_parallel(o, p["wo"], hs.q_split, carry), new_cache
 
 
 def attn_init(generator, cfg, dtype, device=None):
@@ -571,6 +575,7 @@ def attn_init(generator, cfg, dtype, device=None):
 
 
 def attn_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
-                 seq: Optional[SeqShard] = None):
+                 seq: Optional[SeqShard] = None, carry: bool = False):
     fwd = mla_forward if cfg.mla else gqa_forward
-    return fwd(p, x, positions, cfg, cache=cache, cache_len=cache_len, seq=seq)
+    return fwd(p, x, positions, cfg, cache=cache, cache_len=cache_len,
+               seq=seq, carry=carry)

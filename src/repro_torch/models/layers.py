@@ -144,26 +144,58 @@ def mlp_init(generator: torch.Generator, d_in: int, d_ff: int, d_out: int,
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str, glu: bool,
-              split: bool = False) -> torch.Tensor:
+              split: bool = False, carry: bool = False) -> torch.Tensor:
     """The FFN. ``split``: on a mesh, ``w1`` / ``w3`` hold the rank's
     columns of d_ff and ``w2`` its rows (column- then row-parallel, the
     reference's ``launch/sharding.py:67-72``), so the output is summed over
     ``model`` (:func:`row_parallel`) and ``x`` enters the split
-    (``runtime.enter``: its gradient is summed over ``model``)."""
+    (``runtime.enter``: its gradient is summed over ``model``).
+    ``carry``: the output as the rank's block of its last dim over
+    ``model`` (:func:`row_parallel`)."""
     if split:
         x = runtime.enter(x, "model")
     h = activation(x @ p["w1"], act)
     if glu:
         h = h * (x @ p["w3"])
-    return row_parallel(h, p["w2"], split)
+    return row_parallel(h, p["w2"], split, carry)
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor,
-                 split: bool) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w: torch.Tensor, split: bool,
+                 carry: bool = False) -> torch.Tensor:
     """x @ w. ``split``: ``w`` holds the rank's rows of the contraction
     (row-parallel over ``model``), so the rank's partial product is summed
     over ``model`` by one ``all_reduce`` in its own dtype — where and as
-    GSPMD inserts it for the reference."""
+    GSPMD inserts it for the reference. ``carry``: the product as the
+    rank's block of its last dim over ``model`` (the split residual of
+    ``cfg.shard_carry``), a partial one reduce-scattered there
+    (:func:`carry_block`)."""
+    if carry:
+        return carry_block(x @ w, partial=split)
     if not split:
         return x @ w
     return runtime.all_reduce(x @ w, "model")
+
+
+# ---------------------------------------------- the residual over ``model``
+
+def carry_block(y: torch.Tensor, partial: bool = False) -> torch.Tensor:
+    """The rank's block over ``model`` of ``y``'s last dim (the residual
+    stream split on d_model, ``cfg.shard_carry``). ``partial``: ``y`` is
+    the rank's partial sum (a row-parallel product), reduce-scattered over
+    ``model`` on that dim in place of the all_reduce. Else ``y`` is
+    replicated over ``model``: the block is a slice, and ``y`` enters
+    ``model`` (``runtime.enter``), so the ranks' blocks' cotangents,
+    zero-padded by the slice's backward, are summed into the whole."""
+    if partial:
+        return runtime.reduce_scatter(y.movedim(-1, 0), "model").movedim(0, -1)
+    start, per = runtime.block(y.shape[-1], "model")
+    return runtime.enter(y, "model").narrow(-1, start, per)
+
+
+def carry_whole(x: torch.Tensor) -> torch.Tensor:
+    """The whole residual from the ranks' blocks of its last dim: one
+    all_gather over ``model`` (its backward takes the rank's block of the
+    cotangent, which is replicated over ``model``), contiguous as the
+    whole residual is."""
+    return runtime.all_gather(x.movedim(-1, 0), "model").movedim(
+        0, -1).contiguous()

@@ -49,7 +49,8 @@ import torch
 
 from repro_torch import default_device, runtime
 from repro_torch.launch.sharding import P
-from repro_torch.models.layers import activation, as_dtype, randn_scaled
+from repro_torch.models.layers import (activation, as_dtype, carry_block,
+                                      randn_scaled)
 from repro_torch.topk import ordered_topk
 
 #: a gathered token row of more elements than this (tokens x d_model)
@@ -149,7 +150,7 @@ def _dispatch_compute_combine(xg, gate, idx, w1, w3, w2, *, e0: int, C: int,
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, act: str = "silu", *,
-              batch_axes=None):
+              batch_axes=None, carry: bool = False):
     """x (..., d) → (same, aux_loss). Token dims are flattened internally.
 
     On a mesh with a ``model`` axis the experts are split (module
@@ -158,7 +159,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, act: str = "silu", *,
     or, with ``batch_axes=()``, tokens every rank holds whole; the output
     comes back in ``x``'s layout. Whole tokens whose count splits over the
     data axes take the token-sharded branch on the rank's block, as the
-    reference's GSPMD reshards them, and are gathered back."""
+    reference's GSPMD reshards them, and are gathered back. ``carry``: the
+    output as the rank's block of d over ``model`` (``layers.carry_block``;
+    token-sharded rows trade their gather over ``model`` for one
+    all_to_all there)."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     xt = x.reshape(-1, d)
@@ -168,11 +172,11 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, act: str = "silu", *,
             xt, gate, idx, p["w1"], p["w3"], p["w2"],
             e0=0, C=_capacity(xt.shape[0], cfg), act=act)
         return out.reshape(*lead, d), aux
-    out, aux = _moe_on_mesh(p, xt, cfg, act, batch_axes)
-    return out.reshape(*lead, d), aux
+    out, aux = _moe_on_mesh(p, xt, cfg, act, batch_axes, carry)
+    return out.reshape(*lead, out.shape[-1]), aux
 
 
-def _moe_on_mesh(p, xt, cfg, act, batch_axes):
+def _moe_on_mesh(p, xt, cfg, act, batch_axes, carry=False):
     n_model = runtime.axis_size("model")
     n_data = runtime.axis_size("data")
     nd = runtime.data_axis_size()
@@ -232,12 +236,20 @@ def _moe_on_mesh(p, xt, cfg, act, batch_axes):
     else:
         out_full = _dispatch_compute_combine(xt, gate, idx, *w, e0=e0, C=C,
                                              act=act)
-    if tok_sharded and T_row % (n_data * n_model) == 0:
+    split_rows = tok_sharded and T_row % (n_data * n_model) == 0
+    if split_rows:
         # the expert (model) and f-slice (data) partials summed and the
         # rows scattered over both axes, then the data shard's rows
         # gathered over model: ~1.06x the buffer moved instead of ~2.9x
-        out = runtime.all_gather(
-            runtime.reduce_scatter(out_full, ("data", "model")), "model")
+        out = runtime.reduce_scatter(out_full, ("data", "model"))
+        if carry:
+            # the rank's rows, every column → every row of the data
+            # shard, the rank's columns: column block j to model rank j
+            r = out.shape[0]
+            out = out.reshape(r, n_model, d // n_model).transpose(0, 1)
+            out = runtime.all_to_all(out.reshape(r * n_model, -1), "model")
+        else:
+            out = runtime.all_gather(out, "model")
     elif tok_sharded:
         out = runtime.reduce_scatter(runtime.all_reduce(out_full, "model"),
                                      "data")
@@ -246,6 +258,8 @@ def _moe_on_mesh(p, xt, cfg, act, batch_axes):
             out_full, ("data", "model") if f_sharded else ("model",))
     if whole and tok_sharded:
         out = runtime.all_gather(out, runtime.batch_axes())
+    if carry and not split_rows:
+        out = carry_block(out)
     mesh = runtime.current_mesh()
     aux = runtime.all_reduce(aux.reshape(1), mesh.axis_names)[0] / mesh.size
     return out, aux

@@ -25,11 +25,15 @@ heads and FFN widths over ``model`` where they divide, the experts over
 ``model``), of the KV cache (``kv_cache_specs``: the sequence over
 ``model``, or over every axis where the batch does not split) and of the
 batch (its block over the data axes, or the batch whole with
-``batch_axes=()``). The residual stream stays whole on every ``model``
-rank; the logits of the vocab-split head are gathered over ``model``.
-Training on a mesh runs :func:`hidden_states` under autograd and
-:func:`lm_loss` over the vocab-split head (:func:`chunked_xent`), the
-gradients by ``runtime``'s rule.
+``batch_axes=()``). The logits of the vocab-split head are gathered over
+``model``. Training on a mesh runs :func:`hidden_states` under autograd
+and :func:`lm_loss` over the vocab-split head (:func:`chunked_xent`), the
+gradients by ``runtime``'s rule. Where ``cfg.shard_carry`` (deepseek-v3)
+the residual between a training forward's blocks is the rank's block of
+d_model over ``model`` (:func:`_block`); serving keeps it whole. A ZeRO-3
+parameter (``fsdp_params``: ``sharding.zero_specs(..., gathered=True)``)
+is a ``runtime.DataShard``, gathered over ``data`` where it is used: a
+layer's at the top of its block, inside the remat.
 """
 from __future__ import annotations
 
@@ -46,8 +50,9 @@ from repro_torch import tree as tree_lib
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (as_dtype, mlp_apply, mlp_init,
-                                       norm_apply, norm_init, randn_scaled)
+from repro_torch.models.layers import (as_dtype, carry_block, carry_whole,
+                                       mlp_apply, mlp_init, norm_apply,
+                                       norm_init, randn_scaled)
 from repro_torch.sparse.sharded import sharded_lookup
 
 
@@ -87,7 +92,14 @@ def _layer(stacked, i: int):
     """Layer ``i`` of a stacked parameter tree (views, no copies)."""
     if isinstance(stacked, dict):
         return {k: _layer(v, i) for k, v in stacked.items()}
+    if isinstance(stacked, runtime.DataShard):
+        return stacked.layer(i)
     return stacked[i]
+
+
+def _depth(stacked) -> int:
+    """The layers of a stacked parameter tree."""
+    return tree_lib.leaves(stacked)[0].shape[0]
 
 
 def part_generator(seed: int, *path, device=None) -> torch.Generator:
@@ -115,17 +127,19 @@ def stack_layers(draw_layer, n: int):
 
 
 def init(generator: torch.Generator, cfg: LMConfig, device=None,
-         mesh=None) -> dict:
+         mesh=None, specs=None) -> dict:
     """Random parameters in the reference's layout, drawn part by part:
     the embedding, the head, the MTP block and each layer of each stack
     from its own generator (:func:`part_generator`, seeded from
     ``generator``'s initial seed, the part's path and the layer). With
     ``mesh=None`` every part is kept whole; on a live ``mesh`` only the
-    rank's part of each layer is kept (``lm_param_specs``; the embedding a
-    ``runtime.RowShard``), so no rank ever holds a whole stacked leaf, and
-    every rank holds its part of the values drawn whole."""
-    from repro_torch.launch.sharding import (P, local_part, lm_param_specs,
-                                             shard_params)
+    rank's part of each layer is kept (``specs``, by default
+    ``lm_param_specs``; the embedding a ``runtime.RowShard``, a ZeRO-3
+    leaf a ``runtime.DataShard``: ``sharding.held``), so no rank ever
+    holds a whole stacked leaf, and every rank holds its part of the
+    values drawn whole."""
+    from repro_torch.launch.sharding import (P, held, local_part,
+                                             lm_param_specs)
     dev = default_device(device)
     dt = _dtype(cfg)
     seed = generator.initial_seed()
@@ -133,21 +147,24 @@ def init(generator: torch.Generator, cfg: LMConfig, device=None,
     def gen(*path):
         return part_generator(seed, *path, device=dev)
 
-    specs = (None if mesh is None else lm_param_specs(
-        init(generator, cfg, device=torch.device("meta")), cfg, mesh))
+    if mesh is None:
+        specs = None
+    elif specs is None:
+        specs = lm_param_specs(init(generator, cfg, device=torch.device(
+            "meta")), cfg, mesh)
+
+    def part(t, sp):
+        """The rank's part, copied out of the whole drawn part where it
+        is smaller (a view would keep the whole alive)."""
+        got = local_part(t, sp, mesh)
+        return got.clone() if got.numel() < t.numel() else got
 
     def keep(tree, name):
-        """The rank's part, copied out of the whole drawn part (a view
-        would keep the whole alive)."""
         if specs is None:
             return tree
-        if name == "embed":              # the lookup takes a RowShard
-            shard = shard_params(tree, specs[name], mesh)["table"]
-            if isinstance(shard, runtime.RowShard):
-                shard.local = shard.local.clone()
-            return {"table": shard}
         return tree_lib.tree_map(
-            lambda t, sp: local_part(t, sp, mesh).clone(), tree, specs[name])
+            lambda t, sp: held(part(t, sp), sp, mesh, t.shape), tree,
+            specs[name])
 
     def stack(name, moe_layer, n):
         def draw(i):
@@ -157,14 +174,19 @@ def init(generator: torch.Generator, cfg: LMConfig, device=None,
             return tree_lib.tree_map(
                 lambda t, sp: local_part(t, P(*sp[1:]), mesh), layer,
                 specs[name])
-        return stack_layers(draw, n)
+        out = stack_layers(draw, n)
+        if specs is None:
+            return out
+        return tree_lib.tree_map(
+            lambda t, sp: held(t, sp, mesh, t.shape), out, specs[name])
 
     n_dense = cfg.moe.n_dense_layers if cfg.moe else 0
     params: dict = {
         "embed": keep({"table": randn_scaled(gen("embed"), (cfg.vocab,
                                                             cfg.d_model),
                                              0.02, dev).to(dt)}, "embed"),
-        "final_norm": norm_init(cfg.d_model, cfg.norm, dt, dev),
+        "final_norm": keep(norm_init(cfg.d_model, cfg.norm, dt, dev),
+                           "final_norm"),
     }
     if n_dense:
         params["dense_layers"] = stack("dense_layers", False, n_dense)
@@ -188,19 +210,22 @@ def init(generator: torch.Generator, cfg: LMConfig, device=None,
 
 # ----------------------------------------------------------------- blocks
 
-def _ffn_aux(p, x, cfg: LMConfig, moe_layer: bool, batch_axes=None):
+def _ffn_aux(p, x, cfg: LMConfig, moe_layer: bool, batch_axes=None,
+             carry: bool = False):
     """The block's feed-forward and its MoE load-balance aux (0 if dense).
     On a mesh the dense FFN and the shared experts are tensor-parallel
     over ``model`` where their d_ff divides it; ``batch_axes`` says the
-    MoE how ``x``'s tokens lie (``moe.moe_apply``)."""
+    MoE how ``x``'s tokens lie (``moe.moe_apply``); ``carry``: the output
+    as the rank's block of d_model over ``model``."""
     split = runtime.splits(_ffn_width(cfg, moe_layer), "model")
     if moe_layer:
         ff, aux = moe_lib.moe_apply(p["moe"], x, cfg.moe, cfg.act,
-                                    batch_axes=batch_axes)
+                                    batch_axes=batch_axes, carry=carry)
         if "shared" in p:
-            ff = ff + mlp_apply(p["shared"], x, cfg.act, cfg.glu, split)
+            ff = ff + mlp_apply(p["shared"], x, cfg.act, cfg.glu, split,
+                                carry)
         return ff, aux
-    return (mlp_apply(p["mlp"], x, cfg.act, cfg.glu, split),
+    return (mlp_apply(p["mlp"], x, cfg.act, cfg.glu, split, carry),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -208,24 +233,45 @@ def _ffn(p, x, cfg: LMConfig, moe_layer: bool, batch_axes=None):
     return _ffn_aux(p, x, cfg, moe_layer, batch_axes)[0]
 
 
+def _split_carry(cfg: LMConfig) -> bool:
+    """True where the residual between blocks is the rank's block of
+    d_model over ``model``: ``cfg.shard_carry`` on a mesh whose ``model``
+    axis splits d_model."""
+    return cfg.shard_carry and runtime.splits(cfg.d_model, "model")
+
+
 def _block(p, x, positions, cfg: LMConfig, moe_layer: bool):
-    """Pre-norm transformer block. Returns (x, aux_loss).
+    """Pre-norm transformer block. Returns (x, aux_loss). Its ZeRO-3
+    leaves are gathered first (``runtime.gathered``): under remat they
+    live for the block's forward and are gathered again in its
+    recompute, as GSPMD re-gathers them.
 
     The reference pins the residual's layout here with ``runtime.shard``
     (``transformer.py:93-98,111-114``): whole over ``model``, or, where
-    ``cfg.shard_carry`` (deepseek-v3 only), split over ``model`` so that
-    the layer inputs its remat saves take d/16 a device. A sharding
-    constraint changes a layout, never a value. The port keeps the
-    residual whole on every ``model`` rank, so there is no layout to pin
-    (training on a mesh included): the split carry saves memory only
-    under GSPMD's remat of a training step, where the saved layer inputs
-    take d/16 a device; here each rank keeps them whole."""
+    ``cfg.shard_carry`` (deepseek-v3), split over ``model`` on d_model,
+    so that the layer inputs its remat saves take d/16 a device. The port
+    holds the same layout (:func:`_split_carry`): the block takes and
+    returns the rank's block of d_model (a whole input, the embedding's
+    or the MTP projection's, is cut to its block); each norm reads the
+    residual gathered over ``model`` (``layers.carry_whole``), and the
+    row-parallel outputs of attention and of the FFN / MoE land on the
+    rank's block by a reduce_scatter (an all_to_all for the MoE's rows)
+    where the whole residual takes an all_reduce. The tensor a remat
+    saves between layers is then (B_local, S, d / model). A sharding
+    constraint changes a layout, never a value."""
+    p = runtime.gathered(p)
+    carry = _split_carry(cfg)
+    whole = carry_whole if carry else (lambda t: t)
+    x_in = x if x.shape[-1] == cfg.d_model else carry_whole(x)
+    if carry and x is x_in:             # a whole input, cut to its block
+        x = carry_block(x)
     h, _ = attn.attn_forward(
-        p["attn"], norm_apply(x, p["ln1"], cfg.norm, cfg.norm_eps),
-        positions, cfg)
+        p["attn"], norm_apply(x_in, p["ln1"], cfg.norm, cfg.norm_eps),
+        positions, cfg, carry=carry)
     x = x + h
-    ff, aux = _ffn_aux(p, norm_apply(x, p["ln2"], cfg.norm, cfg.norm_eps),
-                       cfg, moe_layer)
+    ff, aux = _ffn_aux(p, norm_apply(whole(x), p["ln2"], cfg.norm,
+                                     cfg.norm_eps), cfg, moe_layer,
+                       carry=carry)
     return x + ff, aux
 
 
@@ -240,13 +286,14 @@ def _block_decode(p, x, positions, cfg: LMConfig, moe_layer: bool, cache,
 
 
 def _head_w(params, cfg: LMConfig):
-    """The head (d, V); on a mesh the rank's vocab columns: the tied head
-    reads the embedding's local rows transposed."""
+    """The head (d, V); on a mesh the rank's vocab columns (a ZeRO-3
+    head gathered over ``data``): the tied head reads the embedding's
+    local rows transposed."""
     if cfg.tie_embeddings:
-        table = params["embed"]["table"]
+        table = runtime.gathered(params["embed"])["table"]
         return (table.local if isinstance(table, runtime.RowShard)
                 else table).T
-    return params["lm_head"]["w"]
+    return runtime.gathered(params["lm_head"])["w"]
 
 
 def _logits(params, x, cfg: LMConfig):
@@ -280,11 +327,11 @@ def _seq_shard(rows: int, batch_axes) -> Optional[attn.SeqShard]:
 def hidden_states(params, tokens, cfg: LMConfig):
     """Embed + all blocks + final norm. tokens (B,S) → (B,S,d), aux."""
     B, S = tokens.shape
-    x = sharded_lookup(params["embed"]["table"], tokens)
+    x = sharded_lookup(runtime.gathered(params["embed"])["table"], tokens)
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if "dense_layers" in params:
-        for i in range(params["dense_layers"]["ln1"]["scale"].shape[0]):
+        for i in range(_depth(params["dense_layers"])):
             x, _ = _block(_layer(params["dense_layers"], i), x, positions, cfg,
                           moe_layer=False)
     moe_layer = cfg.moe is not None
@@ -293,14 +340,17 @@ def hidden_states(params, tokens, cfg: LMConfig):
         return _block(p, x, positions, cfg, moe_layer)
 
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(params["layers"]["ln1"]["scale"].shape[0]):
+    for i in range(_depth(params["layers"])):
         p = _layer(params["layers"], i)
         if remat:
             x, aux = checkpoint(body, p, x, use_reentrant=False)
         else:
             x, aux = body(p, x)
         aux_total = aux_total + aux
-    x = norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    if _split_carry(cfg):
+        x = carry_whole(x)
+    x = norm_apply(x, runtime.gathered(params["final_norm"]), cfg.norm,
+                   cfg.norm_eps)
     return x, aux_total
 
 
@@ -362,7 +412,15 @@ def lm_loss(params, tokens, cfg: LMConfig, aux_weight: float = 1e-3):
     load-balance aux). tokens (B,S). On a mesh ``tokens`` are the rank's
     block of the batch split over the mesh's data axes and the loss is
     the global batch's mean on every rank (:func:`chunked_xent`); the MoE
-    aux is the mesh's (``moe.py``)."""
+    aux is the mesh's (``moe.py``). A ZeRO-3 embedding is gathered once
+    for both of its lookups; a ZeRO-3 weight that autograd saves is
+    gathered again by the backward (``runtime.regathered``)."""
+    with runtime.regathered():
+        return _lm_loss(params, tokens, cfg, aux_weight)
+
+
+def _lm_loss(params, tokens, cfg: LMConfig, aux_weight: float):
+    params = {**params, "embed": runtime.gathered(params["embed"])}
     x, aux = hidden_states(params, tokens, cfg)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1] * 0], dim=1)
     ones = torch.ones(tokens[:, 1:].shape, dtype=torch.float32,
@@ -373,7 +431,7 @@ def lm_loss(params, tokens, cfg: LMConfig, aux_weight: float = 1e-3):
     if cfg.mtp and "mtp" in params:
         # MTP depth 1: combine h_t with the embedding of token t+1, one
         # extra block, predict token t+2 (deepseek-v3 §2.2)
-        mp = params["mtp"]
+        mp = runtime.gathered(params["mtp"])
         emb_next = sharded_lookup(params["embed"]["table"],
                                   torch.roll(tokens, -1, dims=1))
         h = torch.cat([
@@ -384,6 +442,8 @@ def lm_loss(params, tokens, cfg: LMConfig, aux_weight: float = 1e-3):
         positions = torch.arange(S, device=h.device).expand(B, S)
         h, _ = _block(mp["block"], h, positions, cfg,
                       moe_layer=cfg.moe is not None)
+        if _split_carry(cfg):
+            h = carry_whole(h)
         labels2 = torch.roll(tokens, -2, dims=1)
         mask2 = F.pad(ones[:, 1:], (0, 2))
         loss = loss + 0.3 * chunked_xent(h, head_w, labels2, mask2,
@@ -485,7 +545,7 @@ def prefill(params, tokens, cfg: LMConfig, smax: int, *, batch_axes=None):
     # the stacks are allocated at the first layer and filled layer by
     # layer (no second copy of the cache for a stack of per-layer pieces)
     cache_a = cache_b = None
-    n_scan = params["layers"]["ln1"]["scale"].shape[0]
+    n_scan = _depth(params["layers"])
     for i in range(n_dense + n_scan):
         dense = i < n_dense
         p = _layer(params["dense_layers"] if dense else params["layers"],

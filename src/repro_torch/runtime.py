@@ -10,11 +10,13 @@ On a mesh the port is explicit SPMD by rank: each rank, one process of a
 ``torch.distributed`` job (``launch/mesh.py``), runs the same model code on
 its rank-local tensors — its rows of every row-sharded table
 (:class:`RowShard`), the replicated dense parameters and its part of the
-batch — and every collective is an explicit call over the process group
-of one mesh axis or a tuple of axes (:func:`all_gather`,
-:func:`reduce_scatter`, :func:`all_reduce`, :func:`all_to_all`). Where the
-reference's ``shard`` lets GSPMD pick a layout, the port's :func:`shard`
-takes the rank's block of a tensor the rank holds whole.
+batch; a ZeRO-3 parameter as its block over ``data`` (:class:`DataShard`),
+gathered where it is used — and every collective is an explicit call
+over the process group of one mesh axis or a tuple of axes
+(:func:`all_gather`, :func:`reduce_scatter`, :func:`all_reduce`,
+:func:`all_to_all`). Where the reference's ``shard`` lets GSPMD pick a
+layout, the port's :func:`shard` takes the rank's block of a tensor the
+rank holds whole.
 
 Each collective counts its calls and bytes by kind on the mesh
 (``mesh.counts``, read by ``launch/op_analysis.py``; a max reduction
@@ -211,6 +213,87 @@ class RowShard:
     @property
     def start(self) -> int:
         return shard_index(self.axes) * self.local.shape[0]
+
+
+@dataclass
+class DataShard:
+    """A rank's block of a ZeRO-3 parameter (the reference's
+    ``fsdp_params``, ``launch/specs.py:111-114``): its part by the compute
+    spec, split further over ``data`` along ``dim`` (the reference's
+    ``zero_specs`` splits over ``data`` only). :meth:`gather` gives the
+    whole part where the model uses it, as GSPMD re-gathers a layer's
+    weights on use."""
+    local: torch.Tensor
+    dim: int
+
+    def gather(self) -> torch.Tensor:
+        """The rank's whole part, gathered over ``data`` along ``dim``.
+        The gathered part feeds work on the rank's block of the batch, so
+        its backward reduce-scatters the ranks' partial cotangents
+        (``all_gather(..., partial=True)``): the gradient reaches the
+        train step summed over ``data`` and in the rank's block. The part
+        comes back contiguous, as the ZeRO-2 rank holds it, so its
+        products take the same kernels."""
+        whole = all_gather(self.local.movedim(self.dim, 0), "data",
+                           partial=True).movedim(0, self.dim).contiguous()
+        whole._regather = _Regather(self)        # see :func:`regathered`
+        return whole
+
+    def layer(self, i: int) -> "DataShard":
+        """Layer ``i`` of a stacked leaf (dim 0 the layers)."""
+        if self.dim == 0:
+            raise ValueError("a stacked leaf split over its layers has no "
+                             "layer to take")
+        return DataShard(self.local[i], self.dim - 1)
+
+
+class _Regather:
+    """How autograd saves a gathered ZeRO-3 weight under
+    :func:`regathered`: its shard, gathered again the first time the
+    backward needs it and kept while a node that saved it lives."""
+    __slots__ = ("shard", "whole")
+
+    def __init__(self, shard: DataShard):
+        self.shard, self.whole = shard, None
+
+    def get(self) -> torch.Tensor:
+        if self.whole is None:
+            with torch.no_grad():
+                self.whole = self.shard.gather()
+        return self.whole
+
+
+def _pack(t: torch.Tensor):
+    return getattr(t, "_regather", t)
+
+
+def _unpack(saved):
+    return saved.get() if isinstance(saved, _Regather) else saved
+
+
+@contextlib.contextmanager
+def regathered():
+    """Within, autograd saves a gathered ZeRO-3 weight as its shard, and
+    the backward gathers it again where it first needs it (an
+    ``all_gather/recompute``; once for all the nodes that saved it): no
+    rank keeps a whole weight from its forward to its backward (FSDP's
+    reshard after forward; a remat layer recomputes its gathers
+    anyway)."""
+    with torch.autograd.graph.saved_tensors_hooks(_pack, _unpack):
+        yield
+
+
+def gathered(tree):
+    """``tree`` (dicts of parameters) with every :class:`DataShard`
+    gathered (:meth:`DataShard.gather`), a :class:`RowShard` of one
+    gathered around its rows; everything else as it is."""
+    if isinstance(tree, dict):
+        return {k: gathered(v) for k, v in tree.items()}
+    if isinstance(tree, DataShard):
+        return tree.gather()
+    if isinstance(tree, RowShard) and isinstance(tree.local, DataShard):
+        return RowShard(tree.local.gather(), tree.rows, tree.axes)
+    return tree
 
 
 # ------------------------------------------------------------ collectives

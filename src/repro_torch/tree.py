@@ -15,15 +15,19 @@ as static data: the walks reach the local rows as a leaf, and a map
 rebuilds the shard around what it returns there, so gradients,
 optimizer states and checkpoints of a split table keep their shape. The
 shard adds nothing to a leaf's path (its name is the whole table's).
+A ``runtime.DataShard`` (a rank's block of a ZeRO-3 parameter) is a node
+of the same kind, with its split dim as static data; a RowShard
+may hold one as its rows.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.runtime import RowShard
+from repro_torch.runtime import DataShard, RowShard
 
-#: the key of a RowShard's one child: it extends no path
+#: the key of a shard's one child: it extends no path
 _SAME = object()
+_SHARDS = (RowShard, DataShard)
 
 
 def _is_namedtuple(node) -> bool:
@@ -32,7 +36,7 @@ def _is_namedtuple(node) -> bool:
 
 def _children(node):
     """(keys, children) of an inner node in JAX's order; None for a leaf."""
-    if isinstance(node, RowShard):
+    if isinstance(node, _SHARDS):
         return [_SAME], [node.local]
     if isinstance(node, dict):
         keys = sorted(node)
@@ -47,7 +51,7 @@ def _children(node):
 def _rebuild(node, children):
     """``node``'s kind of container holding ``children`` (in JAX's order);
     a dict keeps ``node``'s own key order."""
-    if isinstance(node, RowShard):
+    if isinstance(node, _SHARDS):
         return dataclasses.replace(node, local=children[0])
     if isinstance(node, dict):
         by_key = dict(zip(sorted(node), children))
@@ -106,18 +110,18 @@ def tree_map(fn, tree, *rest):
     kids = _children(tree)
     if kids is None:
         return fn(tree, *rest)
-    # a node of ``rest`` at a RowShard's place that is no shard itself (a
+    # a node of ``rest`` at a shard's place that is no shard itself (a
     # spec) goes to the shard's rows whole
-    others = [[r] if isinstance(tree, RowShard) and not isinstance(
-        r, RowShard) else _children(r)[1] for r in rest]
+    others = [[r] if isinstance(tree, _SHARDS) and not isinstance(
+        r, _SHARDS) else _children(r)[1] for r in rest]
     return _rebuild(tree, [tree_map(fn, child, *(o[i] for o in others))
                            for i, child in enumerate(kids[1])])
 
 
 def strip_shards(tree):
-    """``tree`` with every ``RowShard`` replaced by its local rows."""
-    if isinstance(tree, RowShard):
-        return tree.local
+    """``tree`` with every shard replaced by its local rows or block."""
+    if isinstance(tree, _SHARDS):
+        return strip_shards(tree.local)
     kids = _children(tree) if tree is not None else None
     if kids is None:
         return tree

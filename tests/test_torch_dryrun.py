@@ -59,7 +59,8 @@ from repro_torch.kernels.embedding_bag.ref import (embedding_bag_group_ref,
 from repro_torch.kernels.flash_decode import ops as decode_ops
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.rerank_score import ops as rerank_ops
-from repro_torch.launch import dryrun, roofline
+from repro_torch.launch import dryrun, roofline, specs
+from repro_torch.launch import sharding as sharding_lib
 from repro_torch.launch.mesh import (Job, abstract_mesh, dry_mesh,
                                      make_production_mesh, run_jobs)
 from repro_torch.launch.op_analysis import OpCounter
@@ -141,11 +142,12 @@ def fake_card():
         mod.on_cpu = lambda *t: False
 
 
-def build(arch_id, shape, reduced, mesh, zero_min=None):
+def build(arch_id, shape, reduced, mesh, zero_min=None, remat=None):
     """The cell of ``arch_id`` at ``shape`` (a registry name or a
-    (name, kind, dims) tuple) on ``mesh``; ``zero_min`` the ZeRO-2
+    (name, kind, dims) tuple) on ``mesh``; ``zero_min`` the ZeRO
     split's minimum leaf size (the reduced leaves are far below the
-    published one)."""
+    published one); ``remat`` the config's, where given."""
+    import dataclasses
     from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import sharding, specs
@@ -160,6 +162,10 @@ def build(arch_id, shape, reduced, mesh, zero_min=None):
         arch = registry.ArchDef(arch.arch_id, arch.family,
                                 arch.reduced(arch.config), arch.shapes,
                                 arch.reduced)
+    if remat is not None:
+        arch = registry.ArchDef(arch.arch_id, arch.family,
+                                dataclasses.replace(arch.config, remat=remat),
+                                arch.shapes, arch.reduced)
     spec = (ShapeSpec(shape[0], shape[1], dict(shape[2]))
             if isinstance(shape, (tuple, list))
             else registry.get_shape(arch, shape))
@@ -169,7 +175,7 @@ def build(arch_id, shape, reduced, mesh, zero_min=None):
 
 
 def live_count(params=None, arch_id=None, shape=None, reduced=True,
-               kernels=False, zero_min=None):
+               kernels=False, zero_min=None, remat=None):
     """This rank's cell drawn on the CPU and its call counted twice (the
     second count guards the peak against gloo's worker thread, which may
     let a collective's tensors go a moment after the call returns), with
@@ -180,7 +186,7 @@ def live_count(params=None, arch_id=None, shape=None, reduced=True,
     if kernels:
         fake_card()
     mesh = runtime.current_mesh()
-    cell = build(arch_id, shape, reduced, mesh, zero_min)
+    cell = build(arch_id, shape, reduced, mesh, zero_min, remat)
     args = cell.materialize("cpu", torch.Generator().manual_seed(0),
                             mesh=mesh)
     leaves = [t for t in tree.leaves(args) if isinstance(t, torch.Tensor)]
@@ -406,15 +412,22 @@ LIVE_CELLS = [
     ("deepseek_prefill_ep", "deepseek-v2-lite-16b",
      ("prefill_small", "prefill", {"seq_len": 32, "global_batch": 4}), True,
      False, None),
+    ("deepseek_train_zero3", "deepseek-v3-671b",
+     ("train_small", "train", {"seq_len": 16, "global_batch": 8}), True,
+     False, 64),
 ]
+#: the ZeRO-3 live cell (``fsdp_params``, the split carry) trains as
+#: published, remat on (the reduced config turns it off)
+ZERO3_LIVE = {"deepseek_train_zero3"}
 
 
 @pytest.fixture(scope="module")
 def live_2x2(helper):
     jobs = [Job("dry_helper:live_count",
                 kwargs={"arch_id": a, "shape": s, "reduced": red,
-                        "kernels": kern, "zero_min": zm})
-            for _, a, s, red, kern, zm in LIVE_CELLS]
+                        "kernels": kern, "zero_min": zm,
+                        "remat": True if name in ZERO3_LIVE else None})
+            for name, a, s, red, kern, zm in LIVE_CELLS]
     ranks = run_jobs(jobs, (2, 2), AXES, timeout=400)
     return {c[0]: [rank[i]["out"] for rank in ranks]
             for i, c in enumerate(LIVE_CELLS)}
@@ -433,7 +446,7 @@ def test_every_rank_s_dry_count_equals_a_live_run(cell, helper, live_2x2):
     _, arch, shape, reduced, kernels, zero_min = next(
         c for c in LIVE_CELLS if c[0] == cell)
     built = helper.build(arch, shape, reduced, abstract_mesh((2, 2), AXES),
-                         zero_min)
+                         zero_min, True if cell in ZERO3_LIVE else None)
     try:
         for r, live in enumerate(live_2x2[cell]):
             mesh = dry_mesh((2, 2), AXES, r)
@@ -458,9 +471,12 @@ def test_every_rank_s_dry_count_equals_a_live_run(cell, helper, live_2x2):
             assert (df, db) == (lf, lb), r
             for k, (f, b) in dk.items():
                 assert f >= lk[k][0] and b >= lk[k][1], (k, (f, b), lk[k])
-            if zero_min is not None:        # the ZeRO-2 shards over data
-                assert any(g["kind"] == "reduce_scatter" and
-                           g["axes"] == ["data"]
+            if zero_min is not None:        # the ZeRO shards over data:
+                # ZeRO-2's gradients reduce-scattered by the step, ZeRO-3's
+                # by its gathers' backward
+                kind = ("reduce_scatter/bwd" if cell in ZERO3_LIVE
+                        else "reduce_scatter")
+                assert any(g["kind"] == kind and g["axes"] == ["data"]
                            for g in dry["collectives_by_group"])
             if not kernels:
                 assert dry["flops_per_device"] == first["flops_per_device"]
@@ -484,7 +500,15 @@ REF_CELLS = [
     ("smollm_train", "smollm-135m",
      ("t", "train", {"seq_len": 64, "global_batch": 8}), 0.0694),
     ("schnet_molecule", "schnet", "molecule", 0.0014),
+    ("deepseek_train", "deepseek-v3-671b",
+     ("t", "train", {"seq_len": 64, "global_batch": 8}), 0.0825),
 ]
+#: the cells built other than as the registry's reduced config: the
+#: reduced deepseek-v3 as published trains, remat on (the reduced config
+#: turns it off), ZeRO-3 and the split carry as published, ZeRO at
+#: ZERO_MIN elements so that its reduced leaves do shard
+ZERO_MIN = 64
+REF_OPTS = {"deepseek_train": {"remat": True, "zero_min": ZERO_MIN}}
 #: Why each bound (ROADMAP.md §C): the port computes a projection whose
 #: weight is replicated over ``model`` for every token of the rank on
 #: every model rank, where GSPMD splits those tokens over ``model`` and
@@ -495,30 +519,56 @@ REF_CELLS = [
 #: @ (64, 40) against the reference's (32, 64) @ (64, 40)), in the
 #: backward too where the step trains. SchNet: the readout's (3840, 1) @
 #: (1, 8) product, which XLA turns into a broadcast multiply (no dot).
+#: deepseek_train (ZeRO-3, the split carry, remat): the same for every
+#: projection whose weight is replicated over ``model`` (MLA's ``wkv_a``
+#: and ``wq_a``, the MoE router, the MTP's ``proj``), in the forward, the
+#: remat's recompute and the backward: 0.08243 at rank 0.
 
 REF_SCRIPT = r"""
-import json, sys
+import dataclasses, functools, json, sys
+import numpy as np
 import repro.launch.dryrun                  # REPRO_DRYRUN_DEVICES=8 first
+import jax
+from jax.sharding import NamedSharding, PartitionSpec
 from repro import runtime
 from repro.configs import registry
 from repro.configs.base import ShapeSpec
-from repro.launch import specs
+from repro.launch import sharding, specs
 from repro.launch.hlo_analysis import analyze_hlo
 from repro.launch.mesh import make_mesh
 mesh = make_mesh((2, 4), ("data", "model"))
+published = sharding.zero_specs
 out = {}
-for name, arch_id, shape in json.loads(sys.argv[1]):
+for name, arch_id, shape, opts in json.loads(sys.argv[1]):
     a = registry.get(arch_id)
-    a = registry.ArchDef(a.arch_id, a.family, a.reduced(a.config), a.shapes,
-                         a.reduced)
+    cfg = a.reduced(a.config)
+    if "remat" in opts:
+        cfg = dataclasses.replace(cfg, remat=opts["remat"])
+    a = registry.ArchDef(a.arch_id, a.family, cfg, a.shapes, a.reduced)
     sh = (ShapeSpec(shape[0], shape[1], dict(shape[2]))
           if isinstance(shape, list) else registry.get_shape(a, shape))
     build = {"lm": specs.build_lm_cell, "gnn": specs.build_gnn_cell,
              "recsys": specs.build_rec_cell}[a.family]
+    sharding.zero_specs = (functools.partial(published,
+                                             min_size=opts["zero_min"])
+                           if "zero_min" in opts else published)
     with runtime.use_mesh(mesh):
         cell = build(a, sh, mesh)
         text = cell.jitted(mesh).lower(*cell.args).compile().as_text()
-    out[name] = analyze_hlo(text, 8)["flops_per_device"]
+    out[name] = {"flops": analyze_hlo(text, 8)["flops_per_device"]}
+    if opts:                  # each argument's shard shapes on a device
+        is_spec = lambda x: isinstance(x, PartitionSpec)
+        shards = [[list(NamedSharding(mesh, sp).shard_shape(leaf.shape))
+                   for leaf, sp in zip(jax.tree.leaves(arg), jax.tree.leaves(
+                       spec, is_leaf=is_spec))]
+                  for arg, spec in zip(cell.args, cell.in_specs)]
+        out[name]["shards"] = shards
+        # AdamW's state: the step, then m and v in the parameters' order;
+        # True where opt_state_specs gave a leaf its own parameter's spec
+        # (it infers them by shape)
+        ps = jax.tree.leaves(cell.in_specs[0], is_leaf=is_spec)
+        st = jax.tree.leaves(cell.in_specs[1], is_leaf=is_spec)[1:]
+        out[name]["state_own"] = [a == b for a, b in zip(st, ps + ps)]
 print("REF" + json.dumps(out))
 """
 
@@ -529,7 +579,8 @@ def ref_2x4():
                JAX_PLATFORMS="cpu", REPRO_DRYRUN_DEVICES="8")
     p = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(REF_SCRIPT),
-         json.dumps([[n, a, s] for n, a, s, _ in REF_CELLS])],
+         json.dumps([[n, a, s, REF_OPTS.get(n, {})]
+                     for n, a, s, _ in REF_CELLS])],
         capture_output=True, text=True, env=env, timeout=400, cwd=ROOT)
     assert p.returncode == 0 and "REF" in p.stdout, p.stderr[-3000:]
     return json.loads(p.stdout.split("REF")[-1])
@@ -539,13 +590,95 @@ def ref_2x4():
 def test_flops_per_device_at_2x4_against_the_reference_hlo(cell, helper,
                                                            ref_2x4):
     _, arch, shape, bound = next(c for c in REF_CELLS if c[0] == cell)
-    built = helper.build(arch, shape, True, abstract_mesh((2, 4), AXES))
-    want = ref_2x4[cell]
-    for r in (0, 7):
-        got = dryrun.dry_count(built, dry_mesh((2, 4), AXES, r))
-        ratio = got["flops_per_device"] / want - 1
-        # the port never counts less than the reference: it drops no work
-        assert 0 <= ratio <= bound, (r, got["flops_per_device"], want)
+    built = helper.build(arch, shape, True, abstract_mesh((2, 4), AXES),
+                         **REF_OPTS.get(cell, {}))
+    want = ref_2x4[cell]["flops"]
+    try:
+        for r in (0, 7):
+            got = dryrun.dry_count(built, dry_mesh((2, 4), AXES, r))
+            ratio = got["flops_per_device"] / want - 1
+            # the port never counts less than the reference: it drops no
+            # work
+            assert 0 <= ratio <= bound, (r, got["flops_per_device"], want)
+    finally:
+        from repro_torch.launch import sharding
+        sharding.zero_specs = sharding.published_zero_specs
+
+
+def test_zero3_argument_bytes_at_2x4_are_the_reference_shards(helper,
+                                                             ref_2x4):
+    """The reduced deepseek-v3 training cell in the reference's ZeRO-3
+    layout at (2, 4): every rank's parameters hold the reference's shard
+    shapes (``NamedSharding(mesh, spec).shard_shape`` of each leaf by the
+    cell's ``in_specs``), leaf by leaf, and so their bytes; its tokens
+    the reference's shard (the port's ids are int64); and its AdamW
+    state the reference's shards wherever the reference's
+    ``opt_state_specs``, which infers a state leaf's spec by its shape,
+    gave it its own parameter's spec. At reduced widths leaves of one
+    shape take another's (the norms' (3, 64) scales a (3, 64) leaf's
+    split over ``model``, 64 x 64 squares each other's): a layout GSPMD
+    reshards to and no rank of the port holds (its state is drawn on its
+    own blocks, ``Cell.init_local``)."""
+    ref = ref_2x4["deepseek_train"]
+    params_ref, state_ref, tokens_ref = ref["shards"]
+    built = helper.build("deepseek-v3-671b", REF_CELLS[-1][2], True,
+                         abstract_mesh((2, 4), AXES), **REF_OPTS[
+                             "deepseek_train"])
+    own = [True] + ref["state_own"]                  # the step: a scalar
+    assert 0 < sum(own) < len(own)
+    try:
+        for r in range(8):
+            params, state, tokens = built.local_args(dry_mesh((2, 4), AXES, r))
+            leaves = tree_lib.leaves(params)
+            assert [list(t.shape) for t in leaves] == params_ref, r
+            assert specs.tree_bytes(params) == sum(
+                int(np.prod(s)) * t.element_size()
+                for s, t in zip(params_ref, leaves))
+            got = [list(t.shape) for t in tree_lib.leaves(state)]
+            assert len(got) == len(state_ref)
+            assert [g for g, o in zip(got, own) if o] == \
+                [w for w, o in zip(state_ref, own) if o], r
+            assert [list(tokens.shape)] == tokens_ref, r
+    finally:
+        from repro_torch.launch import sharding
+        sharding.zero_specs = sharding.published_zero_specs
+
+
+def test_doubling_the_data_axis_halves_a_rank_s_zero3_bytes(helper):
+    """A dry rank of the reduced deepseek-v3 training cell (ZeRO-3) at
+    (4, 2) holds half the bytes of each ZeRO-3 leaf it holds at (2, 2),
+    for every leaf whose chosen dim divides 4 (the same dim is chosen on
+    both meshes); the leaves whose spec names no ``data`` hold the
+    same."""
+    shape = REF_CELLS[-1][2]
+    held = {}
+    try:
+        for dims in ((2, 2), (4, 2)):
+            built = helper.build("deepseek-v3-671b", shape, True,
+                                 abstract_mesh(dims, AXES), zero_min=ZERO_MIN,
+                                 remat=True)
+            nodes = []
+            tree_lib.tree_map(lambda _l, sp: nodes.append(sp), built.args[0],
+                              built.in_specs[0])
+            local = built.local_args(dry_mesh(dims, AXES, 0))[0]
+            held[dims] = [(sp, t.numel() * t.element_size()) for sp, t in
+                          zip(nodes, tree_lib.leaves(local))]
+    finally:
+        from repro_torch.launch import sharding
+        sharding.zero_specs = sharding.published_zero_specs
+    halved = 0
+    whole = [t.shape for t in tree_lib.leaves(built.args[0])]
+    for (sp2, b2), (sp4, b4), full in zip(held[(2, 2)], held[(4, 2)], whole):
+        if isinstance(sp2, sharding_lib.Gathered):
+            if full[sp2.data_dim] % 4 == 0:
+                assert isinstance(sp4, sharding_lib.Gathered)
+                assert sp4.data_dim == sp2.data_dim
+                assert 2 * b4 == b2, (sp2, sp4)
+                halved += 1
+        elif not any("data" in sharding_lib.entry_axes(e) for e in sp2):
+            assert not isinstance(sp4, sharding_lib.Gathered)
+            assert b4 == b2, sp2
+    assert halved > 0
 
 
 # ------------------------------------------------------ production records

@@ -1392,8 +1392,9 @@ def test_mesh_training_runs_with_jax_and_reference_blocked():
 def test_build_takes_turns_across_processes(tmp_path):
     """Two processes that build the kernel library at once (the ranks of
     a mesh on one card) take turns on the build directory's file lock:
-    one compiles, the other finds its library; the compiles never
-    overlap. The compile is a stub that takes a second."""
+    one compiles (each source, then the link), the other finds its
+    library; the two never compile at once. The compile is a stub that
+    takes a second."""
     script = textwrap.dedent("""
         import os, sys, time, types
         from pathlib import Path
@@ -1424,4 +1425,8 @@ def test_build_takes_turns_across_processes(tmp_path):
     paths = {o[0].strip() for o in outs}
     assert len(paths) == 1 and Path(paths.pop()).read_bytes() == b"library"
     events = [line.split() for line in log.read_text().splitlines()]
-    assert [e[0] for e in events] == ["start", "end"], events
+    # one process ran every compile (a source each, then the link)
+    n_runs = len(K.sources()) + 1
+    assert len({e[1] for e in events}) == 1, events
+    assert sorted(e[0] for e in events) == ["end"] * n_runs + \
+        ["start"] * n_runs, events

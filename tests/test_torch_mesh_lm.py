@@ -14,8 +14,9 @@
   * the masked cache write on a shard boundary and on the last row of the
     last shard, rank by rank, against ``dynamic_update_slice``;
   * the reference's ``hidden_states`` with ``shard_carry=True``
-    (deepseek-v3): the port on a (2, 2) mesh, whose residual stays whole,
-    gives its values;
+    (deepseek-v3): the port on a (2, 2) mesh in a training forward, whose
+    residual between blocks is each rank's block of d_model, gives its
+    values;
   * the port's expert-parallel ``moe_apply`` on (2, 4) against the
     reference's ``moe_apply`` on a forced 8-device CPU mesh in a
     subprocess (as ``tests/test_distributed.py`` runs it), at
@@ -184,6 +185,37 @@ def moe_apply(*args, **kwargs):
     return moe.moe_apply(*args, **kwargs)
 """
 
+#: a rank-side function (its own module: the one above cuts CHUNK_ELEMS
+#: for every job after its import)
+CARRY_MODULE = """
+import torch
+
+from repro_torch import tree as tree_lib
+from repro_torch.models import transformer
+
+
+def carry_forward(params, tokens, cfg):
+    \"\"\"hidden_states in a training forward (autograd on, every float
+    parameter requiring its gradient), with the shape of the residual
+    each block hands the next, one row a block.\"\"\"
+    block, shapes = transformer._block, []
+
+    def recorded(*args, **kwargs):
+        out = block(*args, **kwargs)
+        shapes.append(tuple(out[0].shape))
+        return out
+    transformer._block = recorded
+    try:
+        with torch.enable_grad():
+            live = tree_lib.tree_map(
+                lambda t: t.detach().requires_grad_(t.is_floating_point()),
+                params)
+            x, _ = transformer.hidden_states(live, tokens, cfg)
+    finally:
+        transformer._block = block
+    return x.detach(), torch.tensor(shapes)
+"""
+
 
 def _moe_inputs():
     rng = np.random.default_rng(5)
@@ -249,6 +281,7 @@ def mesh_runs(lm_cases, moe_ref, tmp_path_factory):
     data, _ = moe_ref
     helper = tmp_path_factory.mktemp("chunked")
     (helper / "chunked_moe.py").write_text(CHUNKED_MODULE)
+    (helper / "carry_lm.py").write_text(CARRY_MODULE)
     out = {}
     for name, shape in MESHES.items():
         jobs, names = _lm_jobs(lm_cases, shape, BATCHES[name])
@@ -260,7 +293,7 @@ def mesh_runs(lm_cases, moe_ref, tmp_path_factory):
                 params_from_numpy(weights, "cpu"), cfg,
                 abstract_mesh(shape, AXES))
             extra["shard_carry"] = Job(
-                "repro_torch.models.transformer:hidden_states", weights,
+                "carry_lm:carry_forward", weights,
                 pspecs, (runs[2][0], cfg), (P("data", None), None),
                 out_specs=(P("data", None, None), None))
             for arch_id in BF16_ARCHS:
@@ -370,17 +403,24 @@ def test_masked_cache_write_lands_on_the_owner_only(position, n_shards):
 
 
 def test_shard_carry_changes_no_value(mesh_runs, lm_cases):
-    """deepseek-v3's ``shard_carry=True`` pins a layout in the reference;
-    on a (2, 2) mesh the port's residual stays whole and hidden_states
-    equals the reference's (single device) within 2e-5."""
+    """deepseek-v3's ``shard_carry=True`` splits the residual over
+    ``model`` on d_model (the reference's layout pin): in a training
+    forward on a (2, 2) mesh the carry every block hands the next is the
+    rank's (B_local, S, d / 2) block, and hidden_states, gathered whole
+    before the final norm, equals the reference's (single device) within
+    2e-5."""
     cfg = _reduced(jax_registry, "deepseek-v3-671b")
     assert cfg.shard_carry
     weights, runs = lm_cases["deepseek-v3-671b"]
     toks = runs[2][0]
     want, _ = jax.jit(jax_tf.hidden_states, static_argnums=(2,))(
         jax.tree.map(jnp.asarray, weights), jnp.asarray(toks, jnp.int32), cfg)
+    B, S = np.shape(toks)
     for rank in mesh_runs["2x2"]["shard_carry"]:
-        np.testing.assert_allclose(rank["out"][0], np.asarray(want), **TOL)
+        hidden, carries = rank["out"]
+        assert [tuple(int(n) for n in c) for c in carries] == \
+            [(B // 2, S, cfg.d_model // 2)] * cfg.n_layers
+        np.testing.assert_allclose(hidden, np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("arch_id", BF16_ARCHS)
