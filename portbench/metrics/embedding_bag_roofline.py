@@ -1,0 +1,6 @@
+"""The embedding_bag kernels' share of their roofline (%), traced."""
+from portbench.readers import roofline
+
+
+def read(run):
+    return roofline(run, "embedding_bag")
