@@ -1542,34 +1542,56 @@ def lm_service_run() -> int:
           f"{step_ms} ms (CUDA graph replay) against {fig['ms_per_step']} "
           f"ms/step host-driven: device idle share "
           f"{1 - step_ms / fig['ms_per_step']}", flush=True)
-    _profile_step(lambda: transformer.decode_step(params, cg, tg[:, -1:], cfg))
+    prof = _profile_step(
+        lambda: transformer.decode_step(params, cg, tg[:, -1:], cfg))
+    print(f"[7] profiler, one eager decode step: {prof['launches']} kernel "
+          f"launch calls, {prof['device_events']} device events, busy "
+          f"{prof['device_busy_s'] * 1e3} ms; largest: " + "; ".join(
+              f"{n[:70]} x{c} {s * 1e3} ms" for n, c, s in prof["top"]),
+          flush=True)
     del params, params_cpu, cg, cc
     gc.collect()
     torch.cuda.empty_cache()
     return counts["flash_decode"]
 
 
-def _profile_step(step):
-    """One eager call of ``step`` under torch.profiler: the kernels it ran
-    on the card, their device time, and the largest by device time."""
+def _profile_step(step, warm=False) -> dict:
+    """One call of ``step`` (after a warm-up call if ``warm``) under
+    torch.profiler: its wall (s), the device's busy time (s: the device
+    events' durations summed, read from the raw trace, as building
+    ``key_averages`` over an LM train step's ~84,000 kernels took 15.5 s)
+    and idle share, its device events and kernel launch calls, and the six
+    largest device operations as (name, count, s). A pass that comes back
+    without device events (it happens on a short step) is repeated, up to
+    three calls; a step with no device time fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if warm:
         step()
+    for _ in range(3):
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    kernels = sorted((e for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-    print(f"[7] profiler, one eager decode step: {launches} kernel launch "
-          f"calls, {sum(e.count for e in kernels)} kernels, device busy "
-          f"{sum(e.self_device_time_total for e in kernels) / 1e3} ms; "
-          f"largest: " + "; ".join(
-              f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3} ms"
-              for e in kernels[:6]), flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name, launches = {}, 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                n, ns = by_name.get(e.name(), (0, 0))
+                by_name[e.name()] = (n + 1, ns + e.duration_ns())
+            elif e.name().startswith(("cudaLaunch", "cuLaunch")):
+                launches += 1
+        if by_name:
+            break
+    busy = sum(ns for _, ns in by_name.values()) / 1e9
+    check(busy > 0, "the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall,
+            "device_events": sum(n for n, _ in by_name.values()),
+            "launches": launches,
+            "top": [(name, n, ns / 1e9) for name, (n, ns) in top]}
 
 
 def _leaves(tree):
@@ -1930,34 +1952,12 @@ def _event_time(fn, n=3):
     return _event_ms(lambda: [fn() for _ in range(n)], n)
 
 
-def _profile_train_step(step, label, warm=True):
-    """One more call of ``step`` (a train step; after a warm-up call
-    unless the path is warm already) under torch.profiler: its wall, the
-    device's busy time (the device events' durations summed, read from
-    the raw trace: building ``key_averages`` over an LM step's ~84,000
-    kernels took 15.5 s) and idle share, and the largest kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    if warm:
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            n, ns = by_name.get(e.name(), (0, 0))
-            by_name[e.name()] = (n + 1, ns + e.duration_ns())
-    busy = sum(ns for _, ns in by_name.values()) / 1e9
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    say9(f"{label} one step under torch.profiler: wall {wall} s, device busy "
-         f"{busy} s ({sum(n for n, _ in by_name.values())} device events), "
-         f"idle share {1 - busy / wall}; largest: " + "; ".join(
-             f"{name[:70]} x{n} {ns / 1e9} s" for name, (n, ns) in top))
-    check(busy > 0, f"{label}: the profiler saw no device time")
+def _say_profile(label, prof):
+    """Phase 9's line of a train step under torch.profiler."""
+    say9(f"{label} one step under torch.profiler: wall {prof['wall_s']} s, "
+         f"device busy {prof['device_busy_s']} s ({prof['device_events']} "
+         f"device events), idle share {prof['idle_share']}; largest: "
+         + "; ".join(f"{n[:70]} x{c} {s} s" for n, c, s in prof["top"]))
 
 
 def lm_train_run():
@@ -2031,8 +2031,9 @@ def lm_train_run():
     state = opt_init(params)
     tokens = torch.randint(0, cfg.vocab, (LM_TRAIN_BATCH, LM_TRAIN_SEQ),
                            device="cuda")
-    _profile_train_step(lambda: step_fn(params, state, tokens), "[9a]",
-                        warm=False)        # train() warmed every kernel
+    # train() warmed every kernel
+    _say_profile("[9a]", _profile_step(
+        lambda: step_fn(params, state, tokens)))
     del params, state, fig, again, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -2125,7 +2126,8 @@ def rec_train_run() -> dict:
                              din_attention=1),
               f"DIN train step {step} launched {counts}, expected one "
               f"grouped embedding_bag and one din_attention")
-    _profile_train_step(lambda: step_fn(params, state, batch), "[9c]")
+    _say_profile("[9c]", _profile_step(
+        lambda: step_fn(params, state, batch), warm=True))
     say9(f"[9c] 3 steps at B={REC_TRAIN_BATCH}: losses {losses}, wall s "
           f"{step_s} ({REC_TRAIN_BATCH / (sum(step_s[1:]) / 2)} examples/s "
           f"over steps 2-3); per step 1 grouped embedding_bag + 1 "
@@ -2354,7 +2356,7 @@ def gnn_run():
     import torch
     from repro_torch import kernels as K
     from repro_torch.configs import registry
-    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import specs
     from repro_torch.models import schnet
     from repro_torch.tree import tree_map
     from repro_torch.train.train_step import value_and_grad
@@ -2402,7 +2404,7 @@ def gnn_run():
         torch.cuda.reset_peak_memory_stats()
         # one warm-up step, then SCHNET_STEPS - 1 between CUDA events
         ms = _event_time(step, SCHNET_STEPS - 1)
-        prof = dryrun.profile_step(step, torch.device("cuda"))
+        prof = _profile_step(step)
         losses = [float(x) for x in losses]
         check(all(math.isfinite(x) for x in losses), f"{shape}: non-finite loss")
         say10(f"[10a] {shape}: {SCHNET_STEPS} AdamW steps, {ms} ms/step "
@@ -2413,9 +2415,8 @@ def gnn_run():
               f"under torch.profiler: wall {prof['wall_s']} s, device busy "
               f"{prof['device_busy_s']} s in {prof['device_events']} device "
               f"events, idle share {prof['idle_share']}; largest: "
-              + "; ".join(f"{n} x{c} {t} s" for n, c, t in prof["top"][:4]))
-        check(prof["device_busy_s"] > 0, f"{shape}: the profiler saw no "
-              f"device time")
+              + "; ".join(f"{n[:90]} x{c} {t} s"
+                          for n, c, t in prof["top"][:4]))
         del state, params, opt_state, batch, inputs
         gc.collect()
         torch.cuda.empty_cache()
@@ -2507,8 +2508,7 @@ def cell_sweep() -> dict:
               f"{mem.get('max_allocated_bytes')} bytes, counted flops "
               f"{rec.get('ops', {}).get('flops_per_device')} bytes "
               f"{rec.get('ops', {}).get('bytes_per_device')}, kernels "
-              f"{rec.get('ops', {}).get('kernels')}, idle share "
-              f"{rec.get('profile', {}).get('idle_share')}; "
+              f"{rec.get('ops', {}).get('kernels')}; "
               f"{rec.get('error', '')}")
         check(mem.get("fits_h100") is fits,
               f"{arch} x {shape}: fits_h100 {mem.get('fits_h100')}, "
@@ -2517,9 +2517,6 @@ def cell_sweep() -> dict:
               f"{rec.get('error')}\n{rec.get('traceback', '')}")
         for name in kernels:
             check(counts[name] > 0, f"{arch} x {shape}: {name} never launched")
-        if rec["ok"]:
-            check(rec["profile"]["device_busy_s"] > 0,
-                  f"{arch} x {shape}: the profiler saw no device time")
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         rows.append(roofline.analyze_row(rec))

@@ -67,6 +67,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.obs.layer import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -181,11 +183,14 @@ def recording():
 
 
 def recorded(kernel_name: str, plain):
-    """Decorator of kernel ``kernel_name``'s public wrapper: inside
-    :func:`recording` each call is kept with ``plain``, the plain version
-    that takes the wrapper's arguments."""
+    """Decorator of kernel ``kernel_name``'s public wrapper: each call runs
+    inside the layer span ``kernel.<kernel_name>`` (its checks, argument
+    build and launch; ``obs.layer``), and inside :func:`recording` it is
+    kept with ``plain``, the plain version that takes the wrapper's
+    arguments."""
     def deco(wrapper):
         sig = inspect.signature(wrapper)
+        layer = f"kernel.{kernel_name}"
 
         @functools.wraps(wrapper)
         def call(*args, **kwargs):
@@ -195,7 +200,8 @@ def recorded(kernel_name: str, plain):
                 bound.apply_defaults()
                 calls.append((kernel_name, wrapper, plain, bound.args,
                               bound.kwargs))
-            return wrapper(*args, **kwargs)
+            with span(layer):
+                return wrapper(*args, **kwargs)
         return call
     return deco
 

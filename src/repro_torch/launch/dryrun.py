@@ -12,8 +12,7 @@ to stop at, so a cell that fits the card is run:
   * otherwise its arguments are drawn on the card (``Cell.materialize``),
     then come warm-up steps, N steps timed with CUDA events, one step
     counted by ``launch/op_analysis.py`` (flops, bytes, the kernels'
-    launches) and one step under torch.profiler (device busy time, idle
-    share); ``max_memory_allocated`` is recorded.
+    launches); ``max_memory_allocated`` is recorded.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch schnet --shape molecule
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all      # subprocesses
@@ -111,35 +110,6 @@ def _timed_ms(run, dev, n: int) -> float:
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / n
-
-
-def profile_step(run, dev) -> dict:
-    """One call of ``run`` under torch.profiler: its wall, the device's
-    busy time (the device events' durations summed from the raw trace)
-    and idle share, and the largest kernels by device time. A pass that
-    comes back without device events (it happens on a short step) is
-    repeated, up to three calls."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        _sync(dev)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            _sync(dev)
-            wall = time.perf_counter() - t0
-        by_name: dict = {}
-        for e in prof.profiler.kineto_results.events():
-            if e.device_type() == torch.autograd.DeviceType.CUDA:
-                n, ns = by_name.get(e.name(), (0, 0))
-                by_name[e.name()] = (n + 1, ns + e.duration_ns())
-        if by_name:
-            break
-    busy = sum(ns for _, ns in by_name.values()) / 1e9
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-    return {"wall_s": wall, "device_busy_s": busy,
-            "idle_share": 1.0 - busy / wall if wall else None,
-            "device_events": sum(n for n, _ in by_name.values()),
-            "top": [(name[:90], n, ns / 1e9) for name, (n, ns) in top]}
 
 
 def run_cell(arch_id: str, shape_name: str, out_dir: str = DEFAULT_OUT,
@@ -318,7 +288,6 @@ def _run(cell, rec, dev, steps, warmup):
         rec["host_step_ms"] = ms       # the CPU's time, not the card's
     _, rec["ops"] = op_analysis.count_ops(step)
     if dev.type == "cuda":
-        rec["profile"] = profile_step(step, dev)
         rec["memory"]["max_allocated_bytes"] = \
             torch.cuda.max_memory_allocated(dev)
     del state

@@ -158,7 +158,6 @@ def analyze_row(rec: dict) -> dict:
         "step_s": step_s, "floor_s": floor_s,
         "roofline_frac": floor_s / step_s if step_s else None,
         "modelled_frac": floor_s / modelled_s if modelled_s else 0.0,
-        "idle_share": rec.get("profile", {}).get("idle_share"),
         "peak_gib": mem.get("peak_bytes_per_device" if dry else
                             "max_allocated_bytes", 0) / 2**30,
         "estimate_gib": mem.get("estimate_bytes", 0) / 2**30,
@@ -177,9 +176,8 @@ def _num(x, fmt=".3g"):
 def markdown_table(rows: list[dict]) -> str:
     out = ["| arch | shape | ok | step ms | compute s | memory s | coll s | "
            "dominant | MODEL/counted flops | roofline frac (measured) | "
-           "modelled frac | idle share | peak GiB (estimate GiB) | "
-           "what moves it |",
-           "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
+           "modelled frac | peak GiB (estimate GiB) | what moves it |",
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
         step_ms = None if r["step_s"] is None else r["step_s"] * 1e3
         ok = ("yes" if r["ok"] else
@@ -189,7 +187,7 @@ def markdown_table(rows: list[dict]) -> str:
             f"{_num(step_ms)} | {r['compute_s']:.3g} | {r['memory_s']:.3g} | "
             f"{r['collective_s']:.3g} | {r['dominant']} | "
             f"{r['flops_ratio']:.2f} | {_num(r['roofline_frac'], '.4f')} | "
-            f"{r['modelled_frac']:.3f} | {_num(r['idle_share'], '.3f')} | "
+            f"{r['modelled_frac']:.3f} | "
             f"{r['peak_gib']:.2f} ({r['estimate_gib']:.1f}) | {r['hint']} |")
     return "\n".join(out)
 

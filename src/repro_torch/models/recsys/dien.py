@@ -23,6 +23,7 @@ from repro_torch.models.recsys.common import (batch_roll, batch_sum,
                                               bce_loss, field_lookups,
                                               hist_lookup, log_sigmoid,
                                               masked_hist, tables_init)
+from repro_torch.obs.layer import span
 from repro_torch.sparse.sharded import (BIG_AXES, sharded_embedding_bag_group,
                                         sharded_gather_a2a)
 from repro_torch.topk import sharded_topk
@@ -102,9 +103,12 @@ def _attention(states, att_w, target, mask):
 
 def _evolved_interest(params, hist, mask, target):
     """GRU states → attention vs target → AUGRU final state. (B,H)."""
-    states = gru_apply(params["gru"], hist)                   # (B,T,H)
-    att = _attention(states, params["att_w"], target, mask)
-    return states, augru_apply(params["augru"], states, att)
+    with span("model.gru"):
+        states = gru_apply(params["gru"], hist)               # (B,T,H)
+    with span("model.attention"):
+        att = _attention(states, params["att_w"], target, mask)
+    with span("model.augru"):
+        return states, augru_apply(params["augru"], states, att)
 
 
 def logits_fn(params, batch: dict, cfg: RecsysConfig, return_aux=False):
@@ -113,17 +117,20 @@ def logits_fn(params, batch: dict, cfg: RecsysConfig, return_aux=False):
     hist_ids = batch["user"]["hist"]
     # one grouped lookup: the history, then [target, user fields, item
     # fields] side by side
-    emb, feats = sharded_embedding_bag_group(
-        [hist_lookup(tables, hist_ids),
-         (tables["item_id"], batch["item"]["item_id"], None, "sum"),
-         *field_lookups(tables, cfg.user_fields, batch["user"]["fields"]),
-         *field_lookups(tables, item_side, batch["item"])],
-        blocks=(1, 1 + len(cfg.user_fields) + len(item_side)))
-    hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)
+    with span("model.lookup"):
+        emb, feats = sharded_embedding_bag_group(
+            [hist_lookup(tables, hist_ids),
+             (tables["item_id"], batch["item"]["item_id"], None, "sum"),
+             *field_lookups(tables, cfg.user_fields, batch["user"]["fields"]),
+             *field_lookups(tables, item_side, batch["item"])],
+            blocks=(1, 1 + len(cfg.user_fields) + len(item_side)))
+    with span("model.hist_mask"):
+        hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)
     target = feats[:, :cfg.embed_dim]
     states, final = _evolved_interest(params, hist, mask, target)
-    x = torch.cat([final, feats], dim=-1)
-    logits = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
+    with span("model.score_mlp"):
+        x = torch.cat([final, feats], dim=-1)
+        logits = mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
     if not return_aux:
         return logits
     # auxiliary loss: state_t should predict behavior t+1 (vs shuffled negative)
@@ -145,7 +152,8 @@ def loss_fn(params, batch: dict, cfg: RecsysConfig,
 
 @torch.no_grad()
 def serve_scores(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    return torch.sigmoid(logits_fn(params, batch, cfg))
+    with span("model.step"):
+        return torch.sigmoid(logits_fn(params, batch, cfg))
 
 
 @torch.no_grad()

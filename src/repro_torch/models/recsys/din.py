@@ -20,6 +20,7 @@ from repro_torch.models.layers import mlp_tower_apply, mlp_tower_init
 from repro_torch.models.recsys.common import (bce_loss, field_lookups,
                                               hist_lookup, masked_hist,
                                               tables_init)
+from repro_torch.obs.layer import span
 from repro_torch.sparse.sharded import (BIG_AXES, sharded_embedding_bag_group,
                                         sharded_gather_a2a)
 from repro_torch.topk import ordered_topk, sharded_topk
@@ -63,17 +64,21 @@ def logits_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     hist_ids = batch["user"]["hist"]
     # one grouped lookup: the history, then [target, user fields, item
     # fields] side by side, as the score MLP reads them
-    emb, feats = sharded_embedding_bag_group(
-        [hist_lookup(tables, hist_ids),
-         (tables["item_id"], batch["item"]["item_id"], None, "sum"),
-         *field_lookups(tables, cfg.user_fields, batch["user"]["fields"]),
-         *field_lookups(tables, item_side, batch["item"])],
-        blocks=(1, 1 + len(cfg.user_fields) + len(item_side)))
-    hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)
+    with span("model.lookup"):
+        emb, feats = sharded_embedding_bag_group(
+            [hist_lookup(tables, hist_ids),
+             (tables["item_id"], batch["item"]["item_id"], None, "sum"),
+             *field_lookups(tables, cfg.user_fields, batch["user"]["fields"]),
+             *field_lookups(tables, item_side, batch["item"])],
+            blocks=(1, 1 + len(cfg.user_fields) + len(item_side)))
+    with span("model.hist_mask"):
+        hist, mask = masked_hist(emb, hist_ids, cfg.embed_dim)
     target = feats[:, :cfg.embed_dim]
-    pooled = attention_pool(params, hist, mask, target)
-    x = torch.cat([pooled, feats], dim=-1)
-    return mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
+    with span("model.attention"):
+        pooled = attention_pool(params, hist, mask, target)
+    with span("model.score_mlp"):
+        x = torch.cat([pooled, feats], dim=-1)
+        return mlp_tower_apply(params["mlp"], x, act="silu")[..., 0]
 
 
 def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
@@ -85,7 +90,8 @@ def loss_fn(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
 
 @torch.no_grad()
 def serve_scores(params, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    return torch.sigmoid(logits_fn(params, batch, cfg))
+    with span("model.step"):
+        return torch.sigmoid(logits_fn(params, batch, cfg))
 
 
 @torch.no_grad()

@@ -13,6 +13,7 @@ Three legs:
 emits through.
 """
 from repro_torch.obs import bridge  # noqa: F401
+from repro_torch.obs.layer import span  # noqa: F401
 from repro_torch.obs.log import CapturingHandler, log_event  # noqa: F401
 from repro_torch.obs.metrics import (DEFAULT, BUCKET_BOUNDS, Counter,  # noqa: F401
                                Gauge, Histogram, MetricsRegistry,
@@ -26,7 +27,7 @@ __all__ = [
     "MetricsRegistry", "get_registry", "Tracer", "TraceBuffer", "annotate",
     "add_child_spans", "shard_fanout_spans", "shard_profile",
     "critical_path", "span_topology", "stage_path", "log_event",
-    "CapturingHandler", "bridge", "StatsRecorder", "read_history",
+    "CapturingHandler", "bridge", "StatsRecorder", "read_history", "span",
 ]
 
 
