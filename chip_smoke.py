@@ -16,8 +16,11 @@ Phases, each printing its lines; any failure exits nonzero:
      kernel or whose design is new, the device time of each launch;
      embedding_bag both per table and grouped (one launch for all of a
      model call's lookups, against the per-field launches it replaces),
-     an empty kernel's launch as the floor under both, and the candidate
-     scorer on -inf, NaN and signed-zero scores;
+     an empty kernel's launch as the floor under both, the candidate
+     scorer on -inf, NaN and signed-zero scores, and din_attention on both
+     of its paths (the bulk path at the DNN stage's 65,536 rows timed, held
+     to the float64 plain version, its steps counter read; the path
+     switch found with the counter);
   4. DIN, DIEN, MIND and two-tower at their published widths (every table
      cut to 2**16 rows for this phase only): each model's serve_scores and
      its ranking call (score_candidates / retrieve) on the card through
@@ -394,8 +397,6 @@ def kernel_checks(results: dict):
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.din_attention import din_attention, din_attention_ref
-    from repro_torch.kernels.din_attention import ops as din_ops
     from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_ref
     from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.rerank_score import rerank_score, rerank_score_ref
@@ -455,54 +456,7 @@ def kernel_checks(results: dict):
     torch.cuda.empty_cache()
     embedding_bag_group_checks(results, rng, t)
 
-    # ---- B2 din_attention
-    print("[3] din_attention vs plain", flush=True)
-
-    def din_case(B, T, D, H1, H2, mask, tol, label, bias=False):
-        hist = t(rng.normal(size=(B, T, D)))
-        tgt = t(rng.normal(size=(B, D)))
-        w1 = t(rng.normal(size=(4 * D, H1)) * 0.2)
-        w2 = t(rng.normal(size=(H1, H2)) * 0.2)
-        w3 = t(rng.normal(size=(H2, 1)) * 0.2)
-        b1, b2, b3 = (t(rng.normal(size=(n,)) * 0.1 if bias else np.zeros(n))
-                      for n in (H1, H2, 1))
-        args = (hist, t(mask), tgt, w1, b1, w2, b2, w3, b3)
-        err = compare(label, din_attention(*args), din_attention_ref(*args), tol)
-        return args, err
-
-    for B, T, D, H1, H2 in [(8, 8, 8, 8, 4), (16, 100, 18, 80, 40),
-                            (12, 33, 16, 32, 8)]:
-        args, err = din_case(B, T, D, H1, H2, rng.random((B, T)) > 0.2,
-                             TOL_F32, f"B={B} T={T} D={D} H1={H1} H2={H2}")
-        if (B, T, D, H1, H2) == (16, 100, 18, 80, 40):
-            full_args, full_err = args, err
-    for B, T in [(1, 1), (1, 9), (5, 1)]:
-        din_case(B, T, 8, 16, 8, np.ones((B, T)), TOL_EDGE, f"edge B={B} T={T}")
-    din_case(2, 6, 8, 16, 8, np.zeros((2, 6)), TOL_EDGE, "edge zero mask")
-    # the one-launch design's edges: T just past a chunk (16 steps) and
-    # past a cluster's span (8 chunks: each block then loops over its
-    # chunks), T = 1, B = 256 (the cluster narrows for large B), and a
-    # row whose mask is all zero inside a batch of non-zero rows
-    from repro_torch.kernels.din_attention.ops import CHUNK, MAX_CLUSTER
-    span = CHUNK * MAX_CLUSTER
-    for B, T in [(16, CHUNK + 1), (16, 2 * CHUNK + 1), (4, span),
-                 (4, span + 1), (3, 2 * span + 5), (16, 1), (256, 100)]:
-        din_case(B, T, 18, 80, 40, rng.random((B, T)) > 0.2, TOL_F32,
-                 f"design edge B={B} T={T} D=18 H1=80 H2=40")
-    for H1, H2 in [(80, 40), (37, 11)]:          # non-zero biases, padding
-        din_case(16, 100, 18, H1, H2, rng.random((16, 100)) > 0.2, TOL_F32,
-                 f"design edge B=16 T=100 H1={H1} H2={H2}, non-zero biases",
-                 bias=True)
-    zero_row = rng.random((16, 100)) > 0.2
-    zero_row[5] = False
-    din_case(16, 100, 18, 80, 40, zero_row, TOL_F32,
-             "design edge B=16 T=100, row 5's mask all zero")
-    bms, by = bound_ms(din_ops.cost(*full_args))
-    results["din_attention"] = dict(
-        max_abs_err=full_err, bound_ms=bms, bound_by=by,
-        shape="B=16 T=100 D=18 H1=80 H2=40",
-        **timings(lambda: din_attention(*full_args),
-                  lambda: din_attention_ref(*full_args)))
+    din_attention_checks(results, rng, t)
 
     # ---- B1 rerank_score
     print("[3] rerank_score vs plain", flush=True)
@@ -594,6 +548,195 @@ def kernel_checks(results: dict):
               f"replay): kernel {r['ms']} ms, plain {r['plain_ms']} ms, "
               f"library {r['library_ms']} ms, bound {r['bound_ms']} ms "
               f"({r['bound_by']})", flush=True)
+
+
+def din_attention_checks(results: dict, rng, t):
+    """B2 against its plain version (2e-5; the reference's edge cells
+    3e-5) on both of its paths. The cluster path (B x chunks within what
+    the card holds as clusters): the reference's cells, T just past a
+    chunk (16) and a cluster's span (128), T = 1, non-zero biases, an
+    all-zero-mask row, and B=16 T=100 timed. The bulk path: the DNN
+    stage's shape (B = 65,536, T = 100, D = 18, 80-40, prefix masks of
+    lengths 1-100) timed by graph replay, with the steps counter held to
+    the count of non-empty chunks and read over the valid steps; masks
+    with holes and with whole 16-step chunks masked between valid ones;
+    all-zero rows (zero exactly); B on each side of the path switch,
+    found with the counter, and at it; T = 1, 37 and 129; widths 37-11
+    with non-zero biases."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.din_attention import din_attention, din_attention_ref
+    from repro_torch.kernels.din_attention import ops as din_ops
+
+    print("[3] din_attention vs plain", flush=True)
+
+    def din_args(B, T, D, H1, H2, mask, bias=False):
+        hist = t(rng.normal(size=(B, T, D)))
+        tgt = t(rng.normal(size=(B, D)))
+        w1 = t(rng.normal(size=(4 * D, H1)) * 0.2)
+        w2 = t(rng.normal(size=(H1, H2)) * 0.2)
+        w3 = t(rng.normal(size=(H2, 1)) * 0.2)
+        b1, b2, b3 = (t(rng.normal(size=(n,)) * 0.1 if bias else np.zeros(n))
+                      for n in (H1, H2, 1))
+        return (hist, t(mask), tgt, w1, b1, w2, b2, w3, b3)
+
+    def din_case(B, T, D, H1, H2, mask, tol, label, bias=False):
+        args = din_args(B, T, D, H1, H2, mask, bias)
+        err = compare(label, din_attention(*args), din_attention_ref(*args), tol)
+        return args, err
+
+    def bulk_case(label, args):
+        """A bulk-path case, held to the float64 plain version at
+        rtol=atol=TOL_F32: over thousands of rows at these weights two
+        float32 computations part by up to the whole allowance (on an H100
+        at B = 65,536: the float32 plain version from the float64 one 0.97
+        of it, the cluster path run at that batch from the float32 one
+        1.21), so the float64 version is the oracle; the float32 plain
+        version's distances are printed beside it."""
+        got = din_attention(*args)
+        want64 = din_attention_ref(*(a.double() for a in args))
+        err = compare(f"{label}, vs f64 plain", got, want64, TOL_F32)
+        plain = din_attention_ref(*args)
+        print(f"    f32 plain vs f64 plain: allowance used "
+              f"{verdict(plain, want64, TOL_F32)[1]:.3f}; kernel vs f32 "
+              f"plain: {verdict(got, plain, TOL_F32)[1]:.3f}", flush=True)
+        del want64, plain
+        return got, err
+
+    for B, T, D, H1, H2 in [(8, 8, 8, 8, 4), (16, 100, 18, 80, 40),
+                            (12, 33, 16, 32, 8)]:
+        args, err = din_case(B, T, D, H1, H2, rng.random((B, T)) > 0.2,
+                             TOL_F32, f"B={B} T={T} D={D} H1={H1} H2={H2}")
+        if (B, T, D, H1, H2) == (16, 100, 18, 80, 40):
+            full_args, full_err = args, err
+    for B, T in [(1, 1), (1, 9), (5, 1)]:
+        din_case(B, T, 8, 16, 8, np.ones((B, T)), TOL_EDGE, f"edge B={B} T={T}")
+    din_case(2, 6, 8, 16, 8, np.zeros((2, 6)), TOL_EDGE, "edge zero mask")
+    # the cluster path's edges: T just past a chunk (16 steps) and past a
+    # cluster's span (8 chunks: each block then loops over its chunks),
+    # T = 1, and a row whose mask is all zero inside a batch of non-zero
+    # rows
+    CHUNK = din_ops.CHUNK
+    span = CHUNK * din_ops.MAX_CLUSTER
+    for B, T in [(16, CHUNK + 1), (16, 2 * CHUNK + 1), (4, span),
+                 (4, span + 1), (3, 2 * span + 5), (16, 1)]:
+        din_case(B, T, 18, 80, 40, rng.random((B, T)) > 0.2, TOL_F32,
+                 f"cluster edge B={B} T={T} D=18 H1=80 H2=40")
+    for H1, H2 in [(80, 40), (37, 11)]:          # non-zero biases, padding
+        din_case(16, 100, 18, H1, H2, rng.random((16, 100)) > 0.2, TOL_F32,
+                 f"cluster edge B=16 T=100 H1={H1} H2={H2}, non-zero biases",
+                 bias=True)
+    zero_row = rng.random((16, 100)) > 0.2
+    zero_row[5] = False
+    din_case(16, 100, 18, 80, 40, zero_row, TOL_F32,
+             "cluster edge B=16 T=100, row 5's mask all zero")
+    bms, by = bound_ms(din_ops.cost(*full_args))
+    results["din_attention"] = dict(
+        max_abs_err=full_err, bound_ms=bms, bound_by=by,
+        shape="B=16 T=100 D=18 H1=80 H2=40",
+        **timings(lambda: din_attention(*full_args),
+                  lambda: din_attention_ref(*full_args)))
+
+    def nonempty_steps(mask):
+        """CHUNK x the chunks of ``mask`` that hold a non-zero."""
+        B, T = mask.shape
+        n = -(-T // CHUNK)
+        padded = np.zeros((B, n * CHUNK), bool)
+        padded[:, :T] = mask != 0
+        return int(padded.reshape(B, n, CHUNK).any(-1).sum()) * CHUNK
+
+    def prefix(B, T, lo=1):
+        return np.arange(T)[None] < rng.integers(lo, T + 1, (B, 1))
+
+    # the bulk path at the DNN stage's shape, as din.bulk hands it
+    B, T = 65536, 100
+    mask = prefix(B, T)
+    args = din_args(B, T, 18, 80, 40, mask)
+    _, err = bulk_case(f"bulk B={B} T={T} D=18 H1=80 H2=40, prefix masks "
+                       f"1-{T}", args)
+    steps, valid = din_ops.computed_steps(*args), int(mask.sum())
+    check(steps == nonempty_steps(mask),
+          f"bulk steps counter {steps}, expected {nonempty_steps(mask)}")
+    ms = device_ms(lambda: din_attention(*args), iters=10, replays=5)
+    bms, by = bound_ms(din_ops.cost(*args))
+    print(f"  bulk B={B} T={T}: {ms:.5f} ms a call (graph replay), bound "
+          f"{bms:.5f} ms ({by}), {100 * bms / ms:.2f}% of it; steps "
+          f"computed {steps} over valid {valid}: {steps / valid:.4f} a "
+          f"valid step", flush=True)
+    check(steps / valid <= 1.2, "bulk path computes over 1.2 steps a valid "
+          "step at the DNN stage's mix")
+    results["din_attention@bulk"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=None, library_ms=None, bound_ms=bms,
+        bound_by=by, steps_per_valid=steps / valid,
+        shape=f"B={B} T={T} D=18 H1=80 H2=40, prefix masks 1-{T}")
+    del args
+    torch.cuda.empty_cache()
+    s16 = din_ops.computed_steps(*full_args)
+    print(f"  cluster B=16 T=100: steps computed {s16} over valid "
+          f"{int((full_args[1] != 0).sum())}", flush=True)
+    check(s16 == 16 * -(-100 // CHUNK) * CHUNK,
+          "the cluster path computes every chunk")
+
+    # masks the bulk path skips inside: holes, and whole chunks masked
+    # between valid ones; rows whose mask is all zero
+    B, T = 4096, 100
+    holes = rng.random((B, T)) > 0.3
+    gaps = rng.random((B, T)) > 0.2
+    for c in (1, 3, 4):
+        gaps[:, c * CHUNK:(c + 1) * CHUNK] = False
+    gaps[::7, :2 * CHUNK] = False
+    for label, mask in (("holes", holes), ("whole chunks masked", gaps)):
+        args = din_args(B, T, 18, 80, 40, mask)
+        bulk_case(f"bulk B={B} T={T}, {label}", args)
+        check(din_ops.computed_steps(*args) == nonempty_steps(mask),
+              f"bulk steps counter, {label}")
+    zero = prefix(B, T)
+    rows = [0, 5, 17, 2048, B - 1]
+    zero[rows] = False
+    zero[100:164] = False                 # a run of zero rows
+    got, _ = bulk_case(f"bulk B={B} T={T}, all-zero rows",
+                       din_args(B, T, 18, 80, 40, zero))
+    check(float(got[rows].abs().max()) == 0.0
+          and float(got[100:164].abs().max()) == 0.0,
+          "an all-zero-mask row's output is not zero")
+
+    # the path switch: the smallest B the bulk path takes, found with the
+    # counter on masks whose first chunk is empty (the cluster path
+    # computes it, the bulk path skips it); then B on each side and at it
+    T = 100
+    one = np.ones((1, T), bool)
+    one[:, :CHUNK] = False
+
+    def bulk(B):
+        a = din_args(B, T, 18, 80, 40, np.repeat(one, B, 0))
+        return din_ops.computed_steps(*a) < B * -(-T // CHUNK) * CHUNK
+
+    lo, hi = 1, 4096
+    check(not bulk(lo) and bulk(hi), "the path switch lies outside 1-4096")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if bulk(mid) else (mid, hi)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  path switch at T={T} D=18: B <= {lo} cluster, B >= {hi} bulk "
+          f"({sms} SMs; {lo} x {-(-T // CHUNK)} chunks <= the card's "
+          f"resident cluster blocks)", flush=True)
+    for B in (lo - 1, lo):
+        din_case(B, T, 18, 80, 40, prefix(B, T), TOL_F32,
+                 f"switch B={B} T={T} (cluster)")
+    for B in (hi, hi + 1):
+        bulk_case(f"switch B={B} T={T} (bulk)",
+                  din_args(B, T, 18, 80, 40, prefix(B, T)))
+
+    # the bulk path's edges: B = 256 (a block a row), T = 1, 37 (a
+    # partial last chunk), 129 (past 8 chunks); widths 37-11 with non-zero
+    # biases (padded units)
+    bulk_case("bulk edge B=256 T=100 D=18 H1=80 H2=40",
+              din_args(256, 100, 18, 80, 40, rng.random((256, 100)) > 0.2))
+    for T in (1, 37, 129):
+        bulk_case(f"bulk edge B=4096 T={T} D=18 H1=80 H2=40",
+                  din_args(4096, T, 18, 80, 40, prefix(4096, T)))
+    bulk_case("bulk edge B=4096 T=100 H1=37 H2=11, non-zero biases",
+              din_args(4096, 100, 18, 37, 11, prefix(4096, 100), bias=True))
 
 
 def embedding_bag_group_checks(results: dict, rng, t):

@@ -85,7 +85,8 @@ SIGNATURES = {
     # a host pointer to the groups' descriptors (passed on by value)
     "embedding_bag_group_f32": [_P, _P],
     "embedding_bag_group_bf16": [_P, _P],
-    "din_attention_f32": [_P] * 10 + [_I] * 5 + [_P],
+    # ..., the steps counter (null: not counted), then the stream
+    "din_attention_f32": [_P] * 10 + [_I] * 5 + [_P, _P],
     "rerank_score_f32": [_P] * 18 + [_I] * 9 + [_P],
     "augru_f32": [_P] * 7 + [_I] * 4 + [_P],
     "candidate_scorer_f32": [_P] * 4 + [_I] * 4 + [_P, _P],

@@ -789,6 +789,38 @@ def test_din_attention_is_one_launch_without_scratch(B, T, fake_card,
     assert name == "din_attention_f32" and shapes == [(B, D)]
     assert args[9] == out.data_ptr()
     assert args[10:15] == (B, T, D, H1, H2)
+    assert args[15] is None            # the steps counter is off on the path
+
+
+def test_din_attention_computed_steps_hands_the_counter(fake_card,
+                                                        monkeypatch, rng):
+    """``computed_steps`` launches once with the steps counter on: the C
+    entry gets a zeroed int64 on the inputs' device and the wrapper
+    reads back what the launch added to it."""
+    calls, _status = fake_card
+    real_zeros = torch.zeros
+
+    def zeros(*shape, dtype=None, device=None, **kw):
+        if device is not None and torch.device(device).type == "cuda":
+            return FakeCuda(real_zeros(*shape, dtype=dtype))
+        return real_zeros(*shape, dtype=dtype, device=device, **kw)
+    monkeypatch.setattr(torch, "zeros", zeros)
+    monkeypatch.setattr(FakeCuda, "item", lambda self: self.t.item(),
+                        raising=False)
+    entry = K.kernel("din_attention_f32", None)
+
+    def counting(*args):
+        counter = _at(args[15], (1,), torch.int64)
+        assert int(counter[0]) == 0
+        counter += 16 * 7
+        return entry(*args)
+    monkeypatch.setattr(K, "kernel", lambda name, device: counting)
+    B, T, D, H1, H2 = 3, 100, 18, 80, 40
+    args_in = _rng_tensors(rng, (B, T, D), (B, T), (B, D), (4 * D, H1), (H1,),
+                           (H1, H2), (H2,), (H2, 1), (1,))
+    assert din_ops.computed_steps(*args_in) == 16 * 7
+    (name, args), = calls
+    assert name == "din_attention_f32" and isinstance(args[15], int)
 
 
 @pytest.mark.parametrize("H1,H2", [(din_ops.MAX_H1 + 1, 40),
@@ -961,7 +993,13 @@ def test_library_signatures_match_the_sources():
 @pytest.mark.parametrize("source,module,names", [
     ("din_attention.cu", din_ops, {"kChunk": "CHUNK", "kMaxH1": "MAX_H1",
                                    "kMaxH2": "MAX_H2",
-                                   "kMaxCluster": "MAX_CLUSTER"}),
+                                   "kMaxCluster": "MAX_CLUSTER",
+                                   "kBulkThreads": "BULK_THREADS",
+                                   "kBulkTiles": "BULK_TILES",
+                                   "kBulkList": "BULK_LIST",
+                                   "kRegSteps": "REG_STEPS",
+                                   "kRegUnits": "REG_UNITS",
+                                   "kUnitPad": "UNIT_PAD"}),
     ("embedding_bag.cu", bag_ops, {"kMaxGroups": "MAX_GROUPS"}),
     ("rerank_score.cu", rerank_ops, {"kCands": "CANDS", "kMaxH1": "MAX_H1",
                                      "kMaxH2": "MAX_H2"}),
@@ -1010,7 +1048,7 @@ def _plain_entries():
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
     def din(hist, mask, tgt, w1, b1, w2, b2, w3, b3, out, B, T, D, H1, H2,
-            _stream):
+            _steps, _stream):
         args = [_at(hist, (B, T, D)), _at(mask, (B, T)), _at(tgt, (B, D)),
                 _at(w1, (4 * D, H1)), _at(b1, (H1,)), _at(w2, (H1, H2)),
                 _at(b2, (H2,)), _at(w3, (H2, 1)), _at(b3, (1,))]
