@@ -20,7 +20,10 @@ Phases, each printing its lines; any failure exits nonzero:
      scorer on -inf, NaN and signed-zero scores, and din_attention on both
      of its paths (the bulk path at the DNN stage's 65,536 rows timed, held
      to the float64 plain version, its steps counter read; the path
-     switch found with the counter);
+     switch found with the counter), and M1 (``mla_decode``) at short and
+     odd lengths and the decode cell's shape (B = 32, S = 32,768), its
+     rows counter and the check's power, then its launches in a decode
+     step of DeepSeek-V2-Lite cut to 4 layers (one a layer);
   4. DIN, DIEN, MIND and two-tower at their published widths (every table
      cut to 2**16 rows for this phase only): each model's serve_scores and
      its ranking call (score_candidates / retrieve) on the card through
@@ -174,7 +177,8 @@ Phases, each printing its lines; any failure exits nonzero:
      collective traffic by kind and the roofline's modelled dominant
      term;
  15. the kernel table as one JSON line (launches from phase 6, and from
-     phase 7 for flash_decode; ``backward_ms`` from phase 9;
+     phase 7 for flash_decode and 3 for mla_decode; ``backward_ms`` from
+     phase 9;
      ``mesh_launches`` from phase 11 (a) and (b), and for flash_decode
      from phase 12 (a), (d) and (f), over all ranks;
      ``mesh_train_launches`` from phase 13 (b), (c) and (e); ``lse_ms``,
@@ -228,6 +232,8 @@ KERNEL_META = {
                          "src/repro/kernels/candidate_scorer/kernel.py:42"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode/kernel.py:67"),
+    "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
+                   "none: the JAX package's MLA decode is plain jnp"),
 }
 
 
@@ -541,6 +547,7 @@ def kernel_checks(results: dict):
     augru_checks(results, rng, t)
     candidate_scorer_checks(results, rng, t)
     flash_decode_checks(results, rng, t)
+    mla_decode_checks(results)
     for name, r in results.items():
         if name == "launch_floor":
             continue
@@ -1256,6 +1263,184 @@ def flash_decode_checks(results: dict, rng, t):
               f"({by})", flush=True)
         del q, k, v, out, lse, want_o, want_lse
         torch.cuda.empty_cache()
+
+
+def mla_decode_checks(results: dict):
+    """M1 (``kernels/mla_decode``; no Pallas original) against its plain
+    float32 version, each case held to TOL_BF16 and TOL_BF16 x max|want|
+    (the kernel rounds p and its output to bf16, the plain version
+    neither): short and odd lengths (a row of length 0, 1, a tile's 63,
+    64 and 65, rows shorter than a block's share, odd B and S, a row
+    longer than 65,536) and the decode cell's shape (B = 32, S = 32,768,
+    lengths 16,384 + 480 k, k < 32), with the rows counter at every valid
+    row once. At the cell's shape the check's power (one block's share of
+    a row's rows left out, and an all-zero output, must both fail), the
+    launch split, and kernel / plain / bound times. Then one decode step
+    of DeepSeek-V2-Lite at its published widths cut to 4 layers, on
+    per-row lengths, with M1's launches counted from 0 (one a layer, B6
+    none) and its logits against the same step through the plain
+    absorbed path on the card, reported; then the same 4 layers with
+    dense FFNs, whose bf16 logits through M1 are held to at most
+    BF16_ERR_RATIO times the plain path's RMS error against float32."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs.lm_archs import DEEPSEEK_V2_LITE
+    from repro_torch.kernels.mla_decode import (mla_decode, mla_decode_ref,
+                                                rows_read)
+    from repro_torch.kernels.mla_decode import ops as mla_ops
+    from repro_torch.models import attention, moe, transformer
+
+    print("[3] mla_decode vs plain", flush=True)
+    gen = torch.Generator("cuda").manual_seed(3)
+    scale = 0.1147
+
+    def inputs(B, S, lens):
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+        return (draw(B, mla_ops.HEADS, mla_ops.LATENT),
+                draw(B, mla_ops.HEADS, mla_ops.ROPE),
+                draw(B, S, mla_ops.LATENT), draw(B, S, mla_ops.ROPE),
+                torch.tensor(lens, dtype=torch.int32, device="cuda"), scale)
+
+    def case(B, S, lens, label):
+        args = inputs(B, S, lens)
+        got, want = mla_decode(*args), mla_decode_ref(*args)
+        err = compare(f"{label}: B={B} S={S}", got, want, TOL_BF16, TOL_BF16)
+        for b, n in enumerate(lens):
+            if n == 0:
+                check(not got[b].float().any(), f"{label}: a row of length 0 "
+                      f"gives non-zero output")
+        rows = rows_read(*args)
+        check(rows == sum(min(max(n, 0), S) for n in lens),
+              f"{label}: the kernel read {rows} rows of {sum(lens)} valid")
+        return args, want, err
+
+    for B, S, lens, label in [
+            (4, 256, [1, 63, 64, 65], "tile edges"),
+            (4, 256, [0, 1, 200, 256], "a row of length 0, a full row"),
+            (1, 64, [1], "one row of one"),
+            (5, 300, [300, 0, 0, 17, 129], "odd B and S"),
+            (40, 512, list(range(1, 513, 13))[:40], "rows under a block's "
+                                                    "share"),
+            (2, 70000, [69999, 1], "a row past 65,536")]:
+        case(B, S, lens, label)
+        torch.cuda.empty_cache()
+    lens = [16384 + 480 * k for k in range(32)]
+    shape = ("decode cell: B=32 S=32768, lengths 16,384-31,264 (762,304 "
+             "rows), bf16, 16 heads, 512 + 64")
+    args, want, err = case(32, 32768, lens, shape)
+    share = sum(lens) // mla_ops.blocks(torch.device("cuda"))
+    cut = args[4].clone()
+    cut[0] -= share
+    bad_args = args[:4] + (cut, scale)
+    for label, bad in ((f"one block's share ({share} rows) of row 0 left out",
+                        mla_decode_ref(*bad_args)),
+                       ("all-zero output", torch.zeros_like(want))):
+        e, used, ok = verdict(bad, want, TOL_BF16, TOL_BF16)
+        print(f"  {shape}: check power, {label}: max_abs_err={e:.3e}, "
+              f"allowance used {used:.3f}, {'passes' if ok else 'rejected'}",
+              flush=True)
+        check(not ok, f"{shape}: the check passes an output with {label}")
+    split = launch_split(lambda: mla_decode(*args))
+    print(f"  {shape}: launches (profiler, ms per call): {split}", flush=True)
+    bms, by = bound_ms(mla_ops.cost(32, sum(lens)), "bfloat16")
+    r = dict(max_abs_err=err, bound_ms=bms, bound_by=by, shape=shape,
+             **timings(lambda: mla_decode(*args),
+                       lambda: mla_decode_ref(*args)))
+    print(f"  {shape}: device ms per call {r['ms']:.5f}, plain "
+          f"{r['plain_ms']:.5f}, bound {bms:.5f} ({by}): "
+          f"{100 * bms / r['ms']:.1f}% of the bound", flush=True)
+    del args, want, bad_args
+    torch.cuda.empty_cache()
+
+    length = torch.tensor([0, 63, 64, 200], dtype=torch.int32,
+                          device="cuda")
+    toks = torch.tensor([[5], [17], [1000], [99999]], device="cuda")
+
+    def step(cfg, params, kernel: bool):
+        """(logits as float32 numpy, each MoE layer's expert ids, launches)
+        of one decode step of ``cfg`` at ``length``, through M1 or the
+        plain absorbed path, on a cache drawn alike for every call."""
+        dt = getattr(torch, cfg.param_dtype)
+        cache = transformer.KVCache.zeros(cfg, 4, 256, "cuda")
+        cache.a.copy_(torch.randn(cache.a.shape, device="cuda",
+                                  generator=torch.Generator(
+                                      "cuda").manual_seed(4)).to(torch.bfloat16))
+        cache.b.copy_(torch.randn(cache.b.shape, device="cuda",
+                                  generator=torch.Generator(
+                                      "cuda").manual_seed(5)).to(torch.bfloat16))
+        check(cache.a.dtype == dt, f"cache {cache.a.dtype}, expected {dt}")
+        takes = attention.mla_kernel_takes
+        if not kernel:
+            attention.mla_kernel_takes = lambda *a: False
+        try:
+            K.reset_launches()              # counts from here are the step's
+            with moe.recording() as routed:
+                logits, _ = transformer.decode_step(
+                    params, cache._replace(length=length), toks, cfg)
+            counts = K.launch_counts()
+        finally:
+            attention.mla_kernel_takes = takes
+        return (logits.float().cpu().numpy(), [x.ids for x in routed],
+                counts)
+
+    def weights(cfg):
+        return transformer.init(torch.Generator("cuda").manual_seed(0), cfg,
+                                "cuda")
+
+    # the published layers: M1 once a layer. Their bf16 logits are reported,
+    # not held: a bf16 near-tie in a router sends a token to another expert
+    # under the two paths, and one bf16 ulp of noise on the attention's
+    # output moves these logits by 3-4x TOL_BF16 (they are bf16 themselves,
+    # ~0.03 apart at 4)
+    cfg = dataclasses.replace(DEEPSEEK_V2_LITE, n_layers=4)
+    params = weights(cfg)
+    got, got_ids, counts = step(cfg, params, kernel=True)
+    print(f"  decode step, DeepSeek-V2-Lite widths, {cfg.n_layers} layers, "
+          f"B=4 at lengths {length.tolist()}: launches {counts}", flush=True)
+    check(counts["mla_decode"] == cfg.n_layers and counts["flash_decode"] == 0,
+          f"mla_decode launches {counts['mla_decode']}, expected one a layer "
+          f"({cfg.n_layers}), flash_decode none")
+    plain, plain_ids, _ = step(cfg, params, kernel=False)
+    alike = [bool((torch.stack([a.sort(-1).values == b.sort(-1).values
+                                for a, b in zip(got_ids, plain_ids)])
+                   .all(-1).all(0))[t]) for t in range(len(toks))]
+    print(f"  decode step logits vs the plain absorbed path: max_abs_diff "
+          f"{float(abs(got - plain).max()):.3e} (max|want| "
+          f"{float(abs(plain).max()):.3e}), rows routed alike in all "
+          f"{len(got_ids)} MoE layers {alike} (a bf16 MoE: reported, not "
+          f"held)", flush=True)
+    del params
+    # the same 4 layers with dense FFNs (no router to part the paths): the
+    # kernel's step and the plain path's, both in bf16, against the plain
+    # path in float32 on the same bf16 weights and cache; M1's RMS error at
+    # most BF16_ERR_RATIO times the plain path's (it rounds in other
+    # places, not more often)
+    dense = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_dense_layers=cfg.n_layers))
+    params = weights(dense)
+    got, _, counts = step(dense, params, kernel=True)
+    check(counts["mla_decode"] == cfg.n_layers,
+          f"mla_decode launches {counts['mla_decode']} in the dense cut")
+    plain, _, _ = step(dense, params, kernel=False)
+    f32 = dataclasses.replace(dense, param_dtype="float32")
+    from repro_torch.tree import tree_map
+    want, _, _ = step(f32, tree_map(lambda t: t.float(), params),
+                      kernel=False)
+    e_kernel, e_plain = _rel_err(got, want), _rel_err(plain, want)
+    ok = e_kernel <= BF16_ERR_RATIO * e_plain
+    print(f"  decode step logits, {cfg.n_layers} dense layers, RMS error "
+          f"against float32: M1 {e_kernel:.4e}, the plain absorbed path "
+          f"{e_plain:.4e}, ratio {e_kernel / e_plain:.3f} (at most "
+          f"{BF16_ERR_RATIO:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"decode step: M1's bf16 error {e_kernel:.4e} against float32 "
+          f"is more than {BF16_ERR_RATIO:g} x the plain path's {e_plain:.4e}")
+    del params
+    r["launches"] = counts["mla_decode"]
+    results["mla_decode"] = r
+    torch.cuda.empty_cache()
 
 
 def _check_power(q, k, v, L, chunk, n_split, want, shape):
@@ -4484,6 +4669,7 @@ def _main(card: str, dry, dry_dir: str) -> int:
         counts = multi_service_run()
         print(f"[6] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         counts["flash_decode"] = lm_service_run()
+        counts["mla_decode"] = results["mla_decode"]["launches"]
         print(f"[7] done at {time.perf_counter() - t_run:.1f} s", flush=True)
         durability_run()
         print(f"[8] done at {time.perf_counter() - t_run:.1f} s", flush=True)

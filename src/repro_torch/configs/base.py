@@ -25,8 +25,21 @@ class MoEConfig:
     n_shared: int = 1
     n_dense_layers: int = 1          # leading dense-FFN layers (DeepSeek style)
     dense_d_ff: Optional[int] = None  # d_ff of those leading dense layers
-    capacity_factor: float = 1.25
+    capacity_factor: Optional[float] = 1.25  # None: dropless (no pair dropped)
     router_scale: Optional[float] = None
+    norm_topk_prob: bool = True      # renormalise the top-k gates to sum 1
+
+
+@dataclass(frozen=True)
+class RopeScaling:
+    """YaRN rope scaling, under the published ``rope_scaling`` keys."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+    type: str = "yarn"
 
 
 @dataclass(frozen=True)
@@ -41,6 +54,7 @@ class LMConfig:
     vocab: int
     qk_norm: bool = False
     rope_theta: float = 1e6
+    rope_scaling: Optional[RopeScaling] = None  # None: plain RoPE
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     act: str = "silu"                # silu | gelu
     glu: bool = True                 # SwiGLU-style gated FFN

@@ -96,12 +96,17 @@ SIGNATURES = {
     "flash_decode_bf16": [_P] * 6 + [_I] * 7 + [_F, _P, _P],
     # a query, not a launch: SM count and resident split blocks per SM
     "flash_decode_residency": [_I] * 3 + [_P, _P],
+    # ..., the rows counter (null: not counted), B, S, blocks, scale, stream
+    "mla_decode_bf16": [_P] * 8 + [_I] * 3 + [_F, _P],
+    # a query, not a launch: resident blocks per SM and SM count
+    "mla_decode_residency": [_P, _P],
     # an empty kernel, timed as the launch floor; no path launches it
     "launch_floor": [_P],
 }
 
 LAUNCHES = {"embedding_bag": 0, "din_attention": 0, "rerank_score": 0,
-            "augru": 0, "candidate_scorer": 0, "flash_decode": 0}
+            "augru": 0, "candidate_scorer": 0, "flash_decode": 0,
+            "mla_decode": 0}
 _launch_lock = threading.Lock()
 _lib = None
 _lib_lock = threading.Lock()

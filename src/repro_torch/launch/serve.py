@@ -11,6 +11,9 @@ The CLI runs on ``cuda``. :func:`serve_recsys` and :func:`serve_lm` also
 take ``device="cpu"`` (the plain versions of the kernels) and injected
 weights; :func:`serve_lm` also the reduced / full-width choice that the
 CLI's ``--reduced`` (always on, as in the reference) cannot turn off.
+``--decode-graph`` (lm mode, ``cuda``) replays each decode step as one
+CUDA graph (``serve/graphs.py``) instead of launching its kernels one by
+one.
 
 Telemetry (recsys mode): ``--metrics-port`` serves the registry live at
 ``/metrics`` (Prometheus text exposition) and ``/metrics.json``;
@@ -32,6 +35,7 @@ import torch
 from repro_torch import default_device
 from repro_torch.configs import registry
 from repro_torch.models import transformer
+from repro_torch.serve import graphs
 from repro_torch.serve.batcher import ContinuousBatcher
 from repro_torch.serve.hotload import DoubleBuffer, Generation
 
@@ -158,9 +162,11 @@ def serve_lm(args, params=None, device=None) -> dict:
     """The reference's LM decode loop: ``args.requests`` prompts of 8
     tokens into a 4-slot ``ContinuousBatcher`` (s_max 64), one prefill of
     the admitted slots, then up to 32 greedy decode steps. ``args.arch``
-    names the config, ``args.reduced`` picks its reduced form. Without
-    ``params``, weights are drawn from a ``torch.Generator`` seeded 0 on
-    the device. Prints the reference's line and returns its figures."""
+    names the config, ``args.reduced`` picks its reduced form;
+    ``args.decode_graph`` (where present and true, on ``cuda``) replays
+    each step as one CUDA graph. Without ``params``, weights are drawn
+    from a ``torch.Generator`` seeded 0 on the device. Prints the
+    reference's line and returns its figures."""
     dev = default_device(device)
     arch = registry.get(args.arch)
     cfg = arch.reduced(arch.config) if args.reduced else arch.config
@@ -184,13 +190,17 @@ def serve_lm(args, params=None, device=None) -> dict:
     logits, cache = transformer.prefill(buf.active.payload, toks, cfg,
                                         smax=S_MAX)
     last = logits.argmax(-1)[:, None]
+    step = graphs.decoder(
+        buf.active.payload, cache, last, cfg,
+        graph=getattr(args, "decode_graph", False) and dev.type == "cuda")
+    length = cache.length
 
     t0 = time.monotonic()
     steps = tokens = 0
     while batcher.active_mask.any() and steps < MAX_STEPS:
         tokens += int(batcher.active_mask.sum())
-        logits, cache = transformer.decode_step(buf.active.payload, cache,
-                                                last, cfg)
+        logits, _ = step(last, length)
+        length = length + 1
         last = logits.argmax(-1)[:, None]
         eos = (last[:, 0] % 97 == 0).cpu().numpy()      # toy EOS criterion
         batcher.step_complete(eos)
@@ -214,6 +224,8 @@ def main(argv=None):
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--decode-graph", action="store_true",
+                    help="lm: replay each decode step as one CUDA graph")
     ap.add_argument("--snapshot-dir", default=None,
                     help="recsys: durable cube snapshots here (enables "
                          "periodic snapshot + SIGTERM final snapshot)")

@@ -10,9 +10,16 @@ Training and prefill never materialize (Sq, Sk): a loop over KV chunks
 carries a running (m, l, acc), the reference's ``lax.scan`` written out
 (each chunk checkpointed where autograd records, as there). Single-token
 GQA decode on a CUDA tensor runs the hand-written ``flash_decode`` kernel;
-on a CPU tensor it is the reference's math. MLA's expanded prefill and
-absorbed decode are plain PyTorch, as in the reference (no kernel covers
-them, and Dv differs from D there).
+on a CPU tensor it is the reference's math. MLA's expanded prefill is
+plain PyTorch, as in the reference; its absorbed decode runs the
+hand-written ``mla_decode`` kernel on a bf16 CUDA cache (each latent row
+read once for all heads) and the reference's math elsewhere (the CPU,
+``meta``, a sequence-sharded cache).
+
+A decode cache's valid length is one 0-d int32 for the whole batch, or,
+for MLA, one a row ((B,) int32: sessions at different lengths in one
+batch, as continuous batching holds them); each row then takes its own
+position and writes its new latents at its own index, on the device.
 
 On a device mesh (``runtime.current_mesh()``) each rank holds its part of
 the parameters by ``launch/sharding.py::lm_param_specs`` and of the KV
@@ -58,8 +65,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import default_device, runtime
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.mla_decode import mla_decode
+from repro_torch.kernels.mla_decode.ops import takes as mla_kernel_takes
 from repro_torch.models.layers import (apply_rope, as_dtype, norm_init,
-                                      randn_scaled, rmsnorm, row_parallel)
+                                      randn_scaled, rmsnorm, row_parallel,
+                                      yarn_mscale)
 
 NEG_INF = -1e30
 
@@ -257,7 +267,8 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_len,
                  seq: Optional[SeqShard] = None):
     """Write ``new`` (B,S,...) into ``cache`` (B,Smax,...) along dim 1 at
     cache_len, in place and on the device. The start is clamped so the
-    update fits, as ``dynamic_update_slice`` clamps it.
+    update fits, as ``dynamic_update_slice`` clamps it. A (B,) cache_len
+    writes each row at its own index.
 
     On a sequence shard (``seq``) ``cache`` holds the rank's rows and
     ``new`` one row (decode): it lands only on the rank that owns its
@@ -268,8 +279,15 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor, cache_len,
     if seq is None:
         start = torch.as_tensor(cache_len, device=cache.device).clamp(
             0, Smax - S)
-        idx = start.long() + torch.arange(S, device=cache.device)
-        return cache.index_copy_(1, idx, new.to(cache.dtype))
+        idx = start.long()[..., None] + torch.arange(S, device=cache.device)
+        if start.dim() == 0:
+            return cache.index_copy_(1, idx, new.to(cache.dtype))
+        rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cache[rows, idx] = new.to(cache.dtype)
+        return cache
+    if torch.as_tensor(cache_len).dim():
+        raise ValueError("a sequence-sharded cache takes one length for the "
+                         "whole batch")
     if S != 1:
         raise ValueError(f"a sequence-sharded cache takes one new row, got {S}")
     local = torch.as_tensor(cache_len, device=cache.device).clamp(
@@ -341,13 +359,9 @@ def _gqa_qkv(p, x, positions, cfg, hs: Optional[HeadSplit] = None):
         k = rmsnorm(k, p["k_norm"]["scale"], cfg.norm_eps)
     # RoPE on the last dim, per head (the reference rotates its grouped q
     # per (Hkv, G) head: the same rotation)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope_heads(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, _rope_scaling(cfg))
+    k = apply_rope(k, positions, cfg.rope_theta, _rope_scaling(cfg))
     return q, k, v
-
-
-def apply_rope_heads(x, positions, theta):
-    return apply_rope(x, positions, theta)
 
 
 def apply_rope_grouped(q, positions, theta):
@@ -419,6 +433,9 @@ def gqa_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
         o = _decode_on_shards(q, k, v, cache, cache_len, seq, hs)
         new_kv = cache
     else:
+        if torch.as_tensor(cache_len).dim():
+            raise ValueError("GQA decode takes one cache length for the "
+                             "whole batch")
         k_cache, v_cache = cache
         _write_cache(k_cache, k, cache_len)
         _write_cache(v_cache, v, cache_len)
@@ -470,8 +487,33 @@ def _mla_q(p, x, positions, cfg, enter=lambda t: t):
     else:
         q = (enter(x) @ p["wq"]).reshape(B, S, -1, dq)
     q_nope, q_rope = q[..., : m.d_nope], q[..., m.d_nope:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta,
+                        _rope_scaling(cfg))
     return q_nope, q_rope
+
+
+def _rope_scaling(cfg):
+    """The config's YaRN scaling, None for plain rope (a config of the JAX
+    package, as the tests hand one, has no such field)."""
+    return getattr(cfg, "rope_scaling", None)
+
+
+def mla_scale(cfg) -> float:
+    """MLA's softmax scale: 1/sqrt(d_nope + d_rope), times the square of
+    YaRN's temperature at ``mscale_all_dim`` where the rope is scaled."""
+    m = cfg.mla
+    scale = 1.0 / np.sqrt(m.d_nope + m.d_rope)
+    rs = _rope_scaling(cfg)
+    if rs is not None and rs.mscale_all_dim:
+        scale *= yarn_mscale(rs.factor, rs.mscale_all_dim) ** 2
+    return float(scale)
+
+
+def _row_lengths(cache_len, S: int, B: int) -> torch.Tensor:
+    """The (B,) int32 valid rows of each cache row after a write of S
+    rows at cache_len (0-d or (B,))."""
+    lens = (cache_len + S).to(torch.int32)
+    return lens.expand(B).contiguous() if lens.dim() == 0 else lens
 
 
 def _mla_decode_on_shards(p, q_nope, q_rope, c_kv, k_rope, cache, cache_len,
@@ -511,19 +553,23 @@ def mla_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
     """MLA attention. The cache holds the latent (c_kv, k_rope): kv_lora +
     d_rope per token. Decode uses the absorbed form (w_k_b folds into q,
     w_v_b applies after the latent-space attention); the latent caches are
-    written in place at cache_len. On a mesh the rank computes its heads
-    (the latent projections are replicated) and ``wo`` is row-parallel;
-    ``seq`` and ``carry`` as in :func:`gqa_forward`."""
+    written in place at cache_len (0-d, or one a row). One new token on a
+    bf16 CUDA cache of the kernel's geometry (``mla_decode.ops.takes``:
+    DeepSeek-V2-Lite's 16 heads over 512 + 64 latents) runs the
+    ``mla_decode`` kernel over each row's valid latents. On a mesh the
+    rank computes its heads (the latent projections are replicated) and
+    ``wo`` is row-parallel; ``seq`` and ``carry`` as in
+    :func:`gqa_forward`."""
     m = cfg.mla
     B, S, _ = x.shape
     hs = head_split(cfg)
     H = hs.n
-    scale = 1.0 / np.sqrt(m.d_nope + m.d_rope)
+    scale = mla_scale(cfg)
 
     kv = x @ p["wkv_a"]                                     # (B,S,kv_lora+d_rope)
     c_kv = rmsnorm(kv[..., : m.kv_lora], p["kv_norm"]["scale"], cfg.norm_eps)
     k_rope = apply_rope(kv[..., None, m.kv_lora:], positions,
-                        cfg.rope_theta)[:, :, 0]
+                        cfg.rope_theta, _rope_scaling(cfg))[:, :, 0]
 
     # the latents are replicated over ``model`` and feed the rank's heads
     # (the per-head weights split with them): they enter the split
@@ -555,13 +601,22 @@ def mla_forward(p, x, positions, cfg, *, cache=None, cache_len=None,
         Smax = c_cache.shape[1]
         wkb = p["wk_b"].reshape(m.kv_lora, H, m.d_nope)
         q_c = torch.einsum("bshd,lhd->bshl", q_nope, wkb)   # (B,1,H,kv_lora)
-        s_l = torch.einsum("bshl,bSl->bhsS", q_c.float(), c_cache.float())
-        s_r = torch.einsum("bshd,bSd->bhsS", q_rope.float(), r_cache.float())
-        s = (s_l + s_r) * scale                             # (B,H,1,Smax)
-        mask = torch.arange(Smax, device=x.device) < (cache_len + S)
-        s = torch.where(mask[None, None, None], s, NEG_INF)
-        pr = torch.softmax(s, dim=-1)
-        o_lat = torch.einsum("bhsS,bSl->bshl", pr.to(c_cache.dtype), c_cache)
+        if (S == 1 and c_cache.device.type == "cuda"
+                and mla_kernel_takes(q_c[:, 0], c_cache)):
+            o_lat = mla_decode(q_c[:, 0].contiguous(),
+                               q_rope[:, 0].contiguous(), c_cache, r_cache,
+                               _row_lengths(cache_len, S, B), scale)[:, None]
+        else:
+            s_l = torch.einsum("bshl,bSl->bhsS", q_c.float(), c_cache.float())
+            s_r = torch.einsum("bshd,bSd->bhsS", q_rope.float(),
+                               r_cache.float())
+            s = (s_l + s_r) * scale                         # (B,H,1,Smax)
+            valid = torch.as_tensor(cache_len + S).reshape(-1, 1)
+            mask = torch.arange(Smax, device=x.device) < valid
+            s = torch.where(mask[:, None, None], s, NEG_INF)
+            pr = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhsS,bSl->bshl", pr.to(c_cache.dtype),
+                                 c_cache)
         wvb = p["wv_b"].reshape(m.kv_lora, H, m.v_dim)
         o = torch.einsum("bshl,lhv->bshv", o_lat, wvb)      # (B,1,H,v_dim)
         new_cache = (c_cache, r_cache)

@@ -108,20 +108,58 @@ def norm_init(d: int, kind: str, dtype, device=None) -> dict:
 
 # ---------------------------------------------------------------- RoPE
 
-def rope_freqs(d_rot: int, theta: float, device=None) -> torch.Tensor:
+def rope_freqs(d_rot: int, theta: float, device=None,
+               scaling=None) -> torch.Tensor:
+    """The (d_rot/2,) inverse frequencies: theta^(-2i/d_rot), or with a
+    YaRN ``scaling`` (``configs.base.RopeScaling``) the published blend
+    freq_inter (1 - mask) + freq_extra mask, freq_extra the plain ones,
+    freq_inter those over ``factor``, mask 1 at the dims that turn more
+    than ``beta_fast`` times over the original context and 0 at those
+    that turn fewer than ``beta_slow`` times, linear between."""
     exps = torch.arange(0, d_rot, 2, dtype=torch.float32, device=device) / d_rot
-    return 1.0 / (theta ** exps)
+    extra = 1.0 / (theta ** exps)
+    if scaling is None:
+        return extra
+    lo, hi = yarn_correction_range(scaling, d_rot, theta)
+    ramp = ((torch.arange(d_rot // 2, dtype=torch.float32, device=device)
+             - lo) / max(hi - lo, 1e-3)).clamp(0, 1)
+    mask = 1.0 - ramp
+    return extra / scaling.factor * (1.0 - mask) + extra * mask
+
+
+def yarn_correction_range(scaling, d_rot: int, theta: float):
+    """The dims (floor of the fast one, ceil of the slow one, within
+    [0, d_rot - 1]) whose frequencies turn ``beta_fast`` and ``beta_slow``
+    times over the original context."""
+    def dim(turns):
+        return (d_rot * np.log(scaling.original_max_position_embeddings
+                               / (turns * 2 * np.pi))) / (2 * np.log(theta))
+    return (max(int(np.floor(dim(scaling.beta_fast))), 0),
+            min(int(np.ceil(dim(scaling.beta_slow))), d_rot - 1))
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: 0.1 mscale ln(factor) + 1 (1 for a
+    factor of at most 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * float(np.log(factor)) + 1.0
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+               theta: float, scaling=None) -> torch.Tensor:
     """x (..., S, H, D) with positions (..., S): rotate the full D, in
-    float32 on float positions."""
+    float32 on float positions. A YaRN ``scaling`` blends the frequencies
+    (:func:`rope_freqs`) and scales cos and sin by mscale over
+    mscale_all_dim's temperature."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                       # (D/2,)
+    freqs = rope_freqs(d, theta, x.device, scaling)              # (D/2,)
     angles = positions[..., None].float() * freqs                # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                        # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
+    if scaling is not None:
+        m = (yarn_mscale(scaling.factor, scaling.mscale)
+             / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

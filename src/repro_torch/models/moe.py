@@ -30,6 +30,15 @@ rank, branch for branch:
     all_reduce over (``data``, ``model``) where d_ff is split, else over
     ``model``.
 
+The top-k gates are renormalised to sum 1 unless ``norm_topk_prob`` is
+off (DeepSeek-V2-Lite's published routing keeps the raw softmax
+probabilities). ``capacity_factor=None`` serves dropless: each expert's
+capacity is the call's whole row of tokens, which no expert can pass
+(a token picks an expert at most once). Inside :func:`recording` every
+dispatch also hands over its expert ids and which pairs it kept
+(:class:`Routed`; nothing more is launched for it, and the count of
+dropped pairs is taken only when read).
+
 The load-balance aux is averaged over every mesh axis. That is each
 data shard's ``E·Σ(me·ce)`` averaged, not the aux of the whole batch, so
 a training loss on a mesh differs from the one-device loss by design, as
@@ -43,6 +52,10 @@ aux reads enter ``model``, so each model rank's copy of the aux counts
 once.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -72,18 +85,56 @@ def moe_expert_init(generator: torch.Generator, d_model: int, cfg, dtype,
             "w2": randn_scaled(generator, (E, f, d_model), s_f, dev).to(dt)}
 
 
+_recording = threading.local()
+
+
+class Routed(NamedTuple):
+    """One dispatch's routing: the expert ids (T, k), and over its pairs
+    in expert order which went to the rank's experts (``mine``) and which
+    of those kept a slot (``kept``)."""
+    ids: torch.Tensor
+    mine: torch.Tensor
+    kept: torch.Tensor
+
+    def dropped(self) -> int:
+        """The rank's pairs dropped for capacity (read on the host)."""
+        return int(self.mine.sum()) - int(self.kept.sum())
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the block every MoE dispatch on this thread appends its
+    :class:`Routed` to the list yielded (one a layer on one device; on a
+    mesh, the rank's experts' part of each)."""
+    calls: list = []
+    outer = getattr(_recording, "calls", None)
+    _recording.calls = calls
+    try:
+        yield calls
+    finally:
+        _recording.calls = outer
+
+
 def _capacity(tokens: int, cfg) -> int:
+    """Slots an expert holds for a row of ``tokens`` tokens: the row itself
+    where ``capacity_factor`` is None (dropless), else the factor times
+    the mean load, a multiple of 8."""
+    if cfg.capacity_factor is None:
+        return tokens
     c = int(np.ceil(cfg.capacity_factor * tokens * cfg.top_k / cfg.n_routed))
     return max(8, -(-c // 8) * 8)
 
 
-def _route(x, router_w, top_k: int, aux_probs=lambda probs: probs):
+def _route(x, router_w, top_k: int, aux_probs=lambda probs: probs,
+           norm: bool = True):
     """(gates, expert ids, load-balance aux); ``aux_probs`` takes the
-    probabilities the aux reads."""
+    probabilities the aux reads; ``norm``: the top-k gates renormalised to
+    sum 1, else the softmax probabilities themselves."""
     logits = x.float() @ router_w
     probs = torch.softmax(logits, dim=-1)
     gate, idx = ordered_topk(probs, top_k)                        # (T, k)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    if norm:
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     # load-balance aux (Switch-style), for a training loss
     T, E = logits.shape
     me = aux_probs(probs).mean(0)
@@ -117,7 +168,11 @@ def _dispatch_compute_combine(xg, gate, idx, w1, w3, w2, *, e0: int, C: int,
     counts = _counts(sorted_e, E_loc + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(N, device=dev) - starts[sorted_e]
-    keep = (sorted_e < E_loc) & (pos < C)
+    mine_sorted = sorted_e < E_loc
+    keep = mine_sorted & (pos < C)
+    calls = getattr(_recording, "calls", None)
+    if calls is not None:
+        calls.append(Routed(idx, mine_sorted, keep))
     sentinel = E_loc * C
     slot = torch.where(keep, sorted_e * C + pos, torch.full_like(pos, sentinel))
     src_tok = order // k
@@ -167,7 +222,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, act: str = "silu", *,
     d = x.shape[-1]
     xt = x.reshape(-1, d)
     if not runtime.has_axis("model"):
-        gate, idx, aux = _route(xt, p["router"], cfg.top_k)
+        gate, idx, aux = _route(xt, p["router"], cfg.top_k,
+                                norm=getattr(cfg, "norm_topk_prob", True))
         out = _dispatch_compute_combine(
             xt, gate, idx, p["w1"], p["w3"], p["w2"],
             e0=0, C=_capacity(xt.shape[0], cfg), act=act)
@@ -203,7 +259,8 @@ def _moe_on_mesh(p, xt, cfg, act, batch_axes, carry=False):
     # every axis, so each model rank's copy counts once in the sum over
     # them: the probabilities it reads enter ``model``
     gate, idx, aux = _route(xt, p["router"], cfg.top_k,
-                            lambda pr: runtime.enter(pr, "model"))
+                            lambda pr: runtime.enter(pr, "model"),
+                            norm=getattr(cfg, "norm_topk_prob", True))
     e0 = runtime.axis_index("model") * E_loc
     w = (p["w1"], p["w3"], p["w2"])
     # the tokens and gates (replicated over ``model``) feed the rank's

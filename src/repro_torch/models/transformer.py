@@ -53,6 +53,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (as_dtype, carry_block, carry_whole,
                                        mlp_apply, mlp_init, norm_apply,
                                        norm_init, randn_scaled)
+from repro_torch.obs.layer import span
 from repro_torch.sparse.sharded import sharded_lookup
 
 
@@ -219,11 +220,13 @@ def _ffn_aux(p, x, cfg: LMConfig, moe_layer: bool, batch_axes=None,
     as the rank's block of d_model over ``model``."""
     split = runtime.splits(_ffn_width(cfg, moe_layer), "model")
     if moe_layer:
-        ff, aux = moe_lib.moe_apply(p["moe"], x, cfg.moe, cfg.act,
-                                    batch_axes=batch_axes, carry=carry)
+        with span("model.moe"):
+            ff, aux = moe_lib.moe_apply(p["moe"], x, cfg.moe, cfg.act,
+                                        batch_axes=batch_axes, carry=carry)
         if "shared" in p:
-            ff = ff + mlp_apply(p["shared"], x, cfg.act, cfg.glu, split,
-                                carry)
+            with span("model.shared"):
+                ff = ff + mlp_apply(p["shared"], x, cfg.act, cfg.glu, split,
+                                    carry)
         return ff, aux
     return (mlp_apply(p["mlp"], x, cfg.act, cfg.glu, split, carry),
             torch.zeros((), dtype=torch.float32, device=x.device))
@@ -277,9 +280,11 @@ def _block(p, x, positions, cfg: LMConfig, moe_layer: bool):
 
 def _block_decode(p, x, positions, cfg: LMConfig, moe_layer: bool, cache,
                   cache_len, seq=None, batch_axes=None):
-    h, new_cache = attn.attn_forward(
-        p["attn"], norm_apply(x, p["ln1"], cfg.norm, cfg.norm_eps),
-        positions, cfg, cache=cache, cache_len=cache_len, seq=seq)
+    h_in = norm_apply(x, p["ln1"], cfg.norm, cfg.norm_eps)
+    with span("model.attention"):
+        h, new_cache = attn.attn_forward(
+            p["attn"], h_in, positions, cfg, cache=cache,
+            cache_len=cache_len, seq=seq)
     x = x + h
     ff_in = norm_apply(x, p["ln2"], cfg.norm, cfg.norm_eps)
     return x + _ffn(p, ff_in, cfg, moe_layer, batch_axes), new_cache
@@ -456,7 +461,8 @@ def _lm_loss(params, tokens, cfg: LMConfig, aux_weight: float):
 class KVCache(NamedTuple):
     """Per-layer stacks. GQA: a=(L,B,Smax,Hkv,D) k, b=v. MLA:
     a=(L,B,Smax,kv_lora) latent, b=(L,B,Smax,d_rope) rope keys. length: the
-    valid prefix, one 0-d int32 on the cache's device."""
+    valid prefix, one 0-d int32 on the cache's device, or, for MLA, one
+    for each row ((B,) int32: sessions at different lengths)."""
     a: torch.Tensor
     b: torch.Tensor
     length: torch.Tensor
@@ -487,7 +493,8 @@ def _split_cache(cache: KVCache, cfg: LMConfig):
 def decode_step(params, cache: KVCache, tokens, cfg: LMConfig, *,
                 batch_axes=None):
     """One decode step: tokens (B,1) + cache → (logits (B,V) float32, cache
-    with length + 1).
+    with length + 1). A (B,) length gives each row its own position and
+    cache index (MLA, one device).
 
     Unlike the reference, which returns new cache arrays, the new K/V are
     written into ``cache.a`` / ``cache.b`` in place (no copy of the whole
@@ -500,22 +507,26 @@ def decode_step(params, cache: KVCache, tokens, cfg: LMConfig, *,
     data axes, or the batch whole with ``batch_axes=()`` (then the
     sequence is split over every axis, ``kv_cache_specs``' batch-1 case);
     the length is the global one."""
-    B = tokens.shape[0]
-    x = sharded_lookup(params["embed"]["table"], tokens)
-    positions = cache.length.expand(B, 1)
-    seq = _seq_shard(cache.a.shape[2], batch_axes)
-    (da, db), (sa, sb), n_dense = _split_cache(cache, cfg)
-    for i in range(n_dense):
-        x, _ = _block_decode(_layer(params["dense_layers"], i), x, positions,
-                             cfg, False, (da[i], db[i]), cache.length, seq,
-                             batch_axes)
-    moe_layer = cfg.moe is not None
-    for i in range(sa.shape[0]):
-        x, _ = _block_decode(_layer(params["layers"], i), x, positions, cfg,
-                             moe_layer, (sa[i], sb[i]), cache.length, seq,
-                             batch_axes)
-    x = norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    return _logits(params, x, cfg), cache._replace(length=cache.length + 1)
+    with span("model.step"):
+        B = tokens.shape[0]
+        x = sharded_lookup(params["embed"]["table"], tokens)
+        positions = (cache.length[:, None] if cache.length.dim()
+                     else cache.length.expand(B, 1))
+        seq = _seq_shard(cache.a.shape[2], batch_axes)
+        (da, db), (sa, sb), n_dense = _split_cache(cache, cfg)
+        for i in range(n_dense):
+            x, _ = _block_decode(_layer(params["dense_layers"], i), x,
+                                 positions, cfg, False, (da[i], db[i]),
+                                 cache.length, seq, batch_axes)
+        moe_layer = cfg.moe is not None
+        for i in range(sa.shape[0]):
+            x, _ = _block_decode(_layer(params["layers"], i), x, positions,
+                                 cfg, moe_layer, (sa[i], sb[i]), cache.length,
+                                 seq, batch_axes)
+        with span("model.head"):
+            x = norm_apply(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+            logits = _logits(params, x, cfg)
+        return logits, cache._replace(length=cache.length + 1)
 
 
 def prefill(params, tokens, cfg: LMConfig, smax: int, *, batch_axes=None):

@@ -30,6 +30,7 @@ from repro_torch.kernels.candidate_scorer import ops as scorer_ops
 from repro_torch.kernels.din_attention import ops as din_ops
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.flash_decode import ops as decode_ops
+from repro_torch.kernels.mla_decode import ops as mla_ops
 from repro_torch.kernels.rerank_score import ops as rerank_ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,6 +59,31 @@ VERBATIM = (
 #: copies with a known edit beyond the import rewrite: (old, new)
 EDITED = {"serve/stages.py": [("np.asarray(rt.serve(params, b))[:B]",
                                "rt.serve(params, b).cpu().numpy()[:B]")],
+          # the published DeepSeek-V2-Lite decode: dropless, un-renormalised
+          # gates and YaRN rope (the JAX package's defaults unchanged)
+          "configs/base.py": [
+              ("    capacity_factor: float = 1.25\n"
+               "    router_scale: Optional[float] = None\n",
+               "    capacity_factor: Optional[float] = 1.25  # None: dropless "
+               "(no pair dropped)\n"
+               "    router_scale: Optional[float] = None\n"
+               "    norm_topk_prob: bool = True      # renormalise the top-k "
+               "gates to sum 1\n\n\n"
+               "@dataclass(frozen=True)\n"
+               "class RopeScaling:\n"
+               '    """YaRN rope scaling, under the published ``rope_scaling`` '
+               'keys."""\n'
+               "    factor: float\n"
+               "    original_max_position_embeddings: int\n"
+               "    beta_fast: float = 32.0\n"
+               "    beta_slow: float = 1.0\n"
+               "    mscale: float = 1.0\n"
+               "    mscale_all_dim: float = 0.0\n"
+               '    type: str = "yarn"\n'),
+              ("    rope_theta: float = 1e6\n",
+               "    rope_theta: float = 1e6\n"
+               "    rope_scaling: Optional[RopeScaling] = None  # None: plain "
+               "RoPE\n")],
           # the port's layer spans (obs/layer.py, the port's own module)
           "obs/__init__.py": [
               ("from repro_torch.obs.log import",
@@ -1006,7 +1032,10 @@ def test_library_signatures_match_the_sources():
     ("augru.cu", augru_ops, {"kMaxH": "MAX_H"}),
     ("candidate_scorer.cu", scorer_ops, {"kBlockC": "BLOCK_C",
                                          "kArgmaxMaxK": "ARGMAX_MAX_K"}),
-    ("flash_decode.cu", decode_ops, {"kTile": "TILE"})])
+    ("flash_decode.cu", decode_ops, {"kTile": "TILE"}),
+    ("mla_decode.cu", mla_ops, {"kHeads": "HEADS", "kLat": "LATENT",
+                                "kRope": "ROPE", "kTile": "TILE",
+                                "kWarps": "WARPS"})])
 def test_wrapper_tiling_constants_match_the_sources(source, module, names):
     """The wrappers size their scratch and shared memory with the same
     tile constants the kernels are compiled with."""
